@@ -1,0 +1,612 @@
+#!/usr/bin/env python3
+"""Chip smoke of the PyTorch + CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each ending in ``torch.cuda.synchronize()``:
+
+1. build  — compile every CUDA source of ``src/repro_torch/kernels/csrc``
+            (one nvcc per source, all at once) and print the seconds;
+2. kernels — each kernel against its plain PyTorch version on the card, at
+            the serving path's full-width shapes (page 16, Hkv 2, hd 128,
+            F = 256) and at smoke shapes, f32 and bf16: the codec's q, scales
+            and crcs bit-identical and every crc equal to ``zlib.adler32``;
+            paged attention within 2e-5 (f32) / 2e-2 (bf16) with poison
+            written past each length; then each path kernel timed at the
+            serving path's shape beside its plain version and its bound;
+3. serve  — qwen2.5-3b FULL (36 layers, d_model 2048, vocab 151936) in bf16
+            with random weights from a seeded generator: 4 requests of 128
+            prompt tokens and 16 new tokens, one of them suspended and
+            resumed mid-decode, so decode attention, page-out and page-in
+            all run.  Launch counts are zeroed just before and read just
+            after;
+4. parity — qwen2.5-3b SMOKE in f32 (TF32 off) served on the card and on
+            the CPU from the same weights, once with a roomy pool (page-out
+            and page-in) and once with a 2-page pool (conditional bypass
+            and hybrid attention): the greedy tokens and the cache's
+            counters are equal.
+
+Then it prints a ``{"kernels": [...]}`` line, the card's name and power
+limit from nvidia-smi, and as its last line
+``{"ok": true, "device": {"platform": "gpu", ...}}``.  Any failed check
+exits non-zero before those lines; so does a machine without CUDA, or a
+directory without the repository's ``src/repro_torch``.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+import zlib
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
+F32_OPS_PER_S = 67e12            # H100 SXM float32 outside the tensor cores
+TOL = {"f32": 2e-5, "bf16": 2e-2}
+
+# name -> (kernel source, TPU kernel it replaces)
+KERNELS = {
+    "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
+                        "src/repro/kernels/paged_attention.py:73"),
+    "gather_quantize_crc": ("src/repro_torch/kernels/csrc/block_transit.cu",
+                            "src/repro/kernels/block_transit.py:118"),
+    "scatter_dequantize_crc": ("src/repro_torch/kernels/csrc/block_transit.cu",
+                               "src/repro/kernels/block_transit.py:193"),
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(msg: str) -> None:
+    print(f"[chip_smoke] {msg}", flush=True)
+
+
+# ------------------------------------------------------------------ timing
+def time_ms(fn, iters: int, warmup: int = 5) -> float:
+    """Mean time per call in ms, by CUDA events around ``iters``
+    back-to-back calls after a warm-up: what a caller pays, host-side
+    launch work included when it exceeds the device time."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_events(prof):
+    """The device ops (kernels, copies) of a finished profile."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def device_ms(fn, iters: int, match: str | None = None) -> float | None:
+    """Device time per call in ms from the profiler (CUPTI): the device ops
+    whose name holds ``match``, or all of them when it is None.  None when
+    the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in device_events(prof)
+             if match is None or match in e.name)
+    return us / iters / 1e3 if us > 0 else None
+
+
+def kernel_times(fn, plain, iters: int, match: str) -> dict:
+    """``ms``/``plain_ms``: device time per call from the profiler, or the
+    CUDA-event time per call where the profiler saw none (``ms_from``
+    says which); ``call_ms``/``plain_call_ms``: the event time per call."""
+    call, plain_call = time_ms(fn, iters), time_ms(plain, iters // 4)
+    dev, plain_dev = device_ms(fn, iters, match), device_ms(plain, iters // 4)
+    if dev is None or plain_dev is None:
+        return dict(ms=call, plain_ms=plain_call, ms_from="events",
+                    call_ms=call, plain_call_ms=plain_call)
+    return dict(ms=dev, plain_ms=plain_dev, ms_from="profiler",
+                call_ms=call, plain_call_ms=plain_call)
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """The least time the card could take, in ms, and what bounds it."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ------------------------------------------------------------- phase 2
+def paged_case(torch, rng, B, H, Hkv, hd, page, P, maxp, lens, dtype):
+    """Random pools with poison past every length, a unique-page table."""
+    dev = "cuda"
+    q = torch.tensor(rng.standard_normal((B, H, hd)), dtype=dtype, device=dev)
+    k = rng.standard_normal((P, page, Hkv, hd)).astype("float32")
+    v = rng.standard_normal((P, page, Hkv, hd)).astype("float32")
+    table = rng.permutation(P)[:B * maxp].reshape(B, maxp).astype("int32")
+    for b, n in enumerate(lens):
+        for pi in range(maxp):
+            for off in range(page):
+                if pi * page + off >= n:
+                    k[table[b, pi], off] = 99.0
+                    v[table[b, pi], off] = -99.0
+    return (q, torch.tensor(k, dtype=dtype, device=dev),
+            torch.tensor(v, dtype=dtype, device=dev),
+            torch.tensor(table, device=dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+def check_paged_attention(torch, rng, results) -> None:
+    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                     paged_attention_plain)
+    cases = [  # (label, B, H, Hkv, hd, page, P, maxp, lens)
+        ("full", 4, 16, 2, 128, 16, 64, 16, [144, 137, 129, 1]),
+        ("full-empty", 2, 16, 2, 128, 16, 64, 16, [0, 256]),
+        ("smoke", 3, 4, 2, 16, 16, 16, 4, [1, 17, 64]),
+        ("mqa-nrep8", 2, 8, 1, 128, 16, 12, 3, [48, 20]),
+        ("mha-nrep1", 2, 2, 2, 64, 8, 8, 2, [9, 16]),
+    ]
+    worst = 0.0
+    for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for label, B, H, Hkv, hd, page, P, maxp, lens in cases:
+            args = paged_case(torch, rng, B, H, Hkv, hd, page, P, maxp, lens,
+                              dtype)
+            got = paged_attention_cuda(*args)
+            exp = paged_attention_plain(*args)
+            torch.cuda.synchronize()
+            check(got.dtype == dtype and got.shape == (B, H, hd),
+                  f"paged_attention {label}/{dt}: {got.dtype} {got.shape}")
+            err = (got.float() - exp.float()).abs()
+            ok = bool((err <= TOL[dt] + TOL[dt] * exp.float().abs()).all())
+            check(ok and torch.isfinite(got).all(),
+                  f"paged_attention {label}/{dt}: max err {err.max():.3g}")
+            if lens[0] == 0:
+                check(bool((got[0] == 0).all()), "len 0 must give zeros")
+            worst = max(worst, float(err.max()))
+            log(f"paged_attention {label}/{dt} ok, max abs err "
+                f"{float(err.max()):.3g}")
+    results["paged_attention"] = {"max_abs_err": worst}
+
+
+def check_codec(torch, rng, results) -> None:
+    from repro_torch.kernels import block_transit as bt
+    cases = [  # (label, P, page, F, n)
+        ("full-n1", 64, 16, 256, 1),
+        ("full-n5", 64, 16, 256, 5),
+        ("smoke", 16, 16, 32, 3),
+        ("wide", 16, 8, 384, 4),
+    ]
+    for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for label, P, page, F, n in cases:
+            x = rng.standard_normal((P, page, F)) * rng.uniform(
+                1e-3, 1e2, (P, page, 1))
+            x[:, 0] = 0.0                          # an all-zero row per page
+            pool = torch.tensor(x, dtype=dtype, device="cuda")
+            perm = rng.permutation(P)
+            ids = torch.tensor(perm[:n], dtype=torch.int32, device="cuda")
+            dst = torch.tensor(perm[n:2 * n], dtype=torch.int32,
+                               device="cuda")
+            tag = f"{label}/{dt}"
+            # spill: fused and plain, bit for bit, and zlib on the host
+            q, s, c = bt.gather_quantize_cuda(pool, ids)
+            qp, sp, cp = bt.gather_quantize_crc_plain(pool, ids)
+            q2, s2 = bt.gather_quantize_cuda(pool, ids, with_crc=False)
+            torch.cuda.synchronize()
+            check(torch.equal(q, qp) and torch.equal(s, sp)
+                  and torch.equal(c, cp), f"gather_quantize_crc {tag}")
+            check(torch.equal(q2, qp) and torch.equal(s2, sp),
+                  f"gather_quantize {tag}")
+            qh = q.cpu().numpy()
+            check([zlib.adler32(qh[i].tobytes()) for i in range(n)]
+                  == c.cpu().tolist(), f"crc != zlib.adler32 {tag}")
+            # restore into other pages: everything else untouched
+            before = pool.clone()
+            pk, pp, p2 = pool.clone(), pool.clone(), pool.clone()
+            _, rc = bt.scatter_dequantize_cuda(pk, dst, q, s)
+            _, rcp = bt.scatter_dequantize_crc_plain(pp, dst, q, s)
+            bt.scatter_dequantize_cuda(p2, dst, q, s, with_crc=False)
+            torch.cuda.synchronize()
+            check(torch.equal(pk, pp) and torch.equal(p2, pp)
+                  and torch.equal(rc, rcp) and torch.equal(rc, c),
+                  f"scatter_dequantize(_crc) {tag}")
+            keep = torch.ones(P, dtype=torch.bool, device="cuda")
+            keep[dst.long()] = False
+            check(torch.equal(pk[keep], before[keep]),
+                  f"scatter touched other pages {tag}")
+            # a flipped payload byte moves only that page's crc
+            qc = q.clone()
+            qc[0, page // 2, F // 3] ^= 1
+            _, rc2 = bt.scatter_dequantize_cuda(pool.clone(), dst, qc, s)
+            torch.cuda.synchronize()
+            check(int(rc2[0]) != int(c[0])
+                  and torch.equal(rc2[1:], c[1:]),
+                  f"corruption not isolated to its page {tag}")
+            log(f"codec {tag} ok: q/scales/crc bit-identical, zlib agrees, "
+                f"other pages untouched, a flipped byte moves one crc")
+    results["gather_quantize_crc"] = {"max_abs_err": 0.0}
+    results["scatter_dequantize_crc"] = {"max_abs_err": 0.0}
+
+
+def time_kernels(torch, rng, results) -> None:
+    """Each path kernel at the serving path's full-width shape in bf16:
+    decode attention over 4 sequences of 144 tokens (the last step), and
+    the codec at n = 1 page, as the cache launches it."""
+    from repro_torch.kernels import block_transit as bt
+    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                     paged_attention_plain)
+    B, H, Hkv, hd, page, P, maxp = 4, 16, 2, 128, 16, 64, 16
+    lens = [144] * B
+    args = paged_case(torch, rng, B, H, Hkv, hd, page, P, maxp, lens,
+                      torch.bfloat16)
+    n_pages = sum(math.ceil(n / page) for n in lens)
+    n_bytes = (2 * B * H * hd * 2 + n_pages * page * Hkv * hd * 2 * 2
+               + n_pages * 4 + B * 4)
+    n_ops = sum(4 * H * n * hd + 3 * H * n for n in lens)
+    b_ms, b_by = bound(n_bytes, n_ops)
+    results["paged_attention"].update(
+        kernel_times(lambda: paged_attention_cuda(*args),
+                     lambda: paged_attention_plain(*args), 200,
+                     "paged_attention_kernel"),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    F = Hkv * hd
+    pool = torch.randn((P, page, F), dtype=torch.bfloat16, device="cuda")
+    ids = torch.tensor([7], dtype=torch.int32, device="cuda")
+    q, s, _ = bt.gather_quantize_cuda(pool, ids)
+    elems = page * F
+    b_ms, b_by = bound(elems * 2 + 4 + elems + page * 4 + 8, 10 * elems)
+    results["gather_quantize_crc"].update(
+        kernel_times(lambda: bt.gather_quantize_cuda(pool, ids),
+                     lambda: bt.gather_quantize_crc_plain(pool, ids), 400,
+                     "gather_quantize_kernel"),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    b_ms, b_by = bound(elems + page * 4 + 4 + elems * 2 + 8, 6 * elems)
+    results["scatter_dequantize_crc"].update(
+        kernel_times(lambda: bt.scatter_dequantize_cuda(pool, ids, q, s),
+                     lambda: bt.scatter_dequantize_crc_plain(pool, ids, q, s),
+                     400, "scatter_dequantize_kernel"),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    # the instances without the checksum (public API, not on the path)
+    b_ms, b_by = bound(elems * 2 + 4 + elems + page * 4, 6 * elems)
+    results["gather_quantize"] = dict(kernel_times(
+        lambda: bt.gather_quantize_cuda(pool, ids, with_crc=False),
+        lambda: bt.gather_quantize_plain(pool, ids), 400,
+        "gather_quantize_kernel"), max_abs_err=0.0, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None)
+    b_ms, b_by = bound(elems + page * 4 + 4 + elems * 2, 2 * elems)
+    results["scatter_dequantize"] = dict(kernel_times(
+        lambda: bt.scatter_dequantize_cuda(pool, ids, q, s, with_crc=False),
+        lambda: bt.scatter_dequantize_plain(pool, ids, q, s), 400,
+        "scatter_dequantize_kernel"), max_abs_err=0.0, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None)
+    for name, r in results.items():
+        log(f"time {name}: kernel {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} "
+            f"ms ({r['ms_from']}); per call with launch: kernel "
+            f"{r['call_ms']:.5f} ms, plain {r['plain_call_ms']:.5f} ms; bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']})")
+
+
+# ------------------------------------------------------------- phase 3
+def serve_full(torch, np) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve import PagedCacheConfig, ServeEngine
+
+    cfg = get_config("qwen2.5-3b", smoke=False)
+    t0 = time.perf_counter()
+    params = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"serve: {cfg.name} FULL, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {n_params / 1e9:.3f} B params ({cfg.dtype}), init "
+        f"{time.perf_counter() - t0:.1f} s")
+    cache_cfg = PagedCacheConfig(
+        n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+        page_size=16, n_pages=64, max_pages_per_seq=16, dtype=cfg.dtype)
+    eng = ServeEngine(cfg, params, cache_cfg=cache_cfg, max_batch=4,
+                      device="cuda")
+    rng = np.random.default_rng(0)
+    reqs = [eng.submit(rng.integers(2, cfg.vocab, size=128).tolist(),
+                       max_new_tokens=16) for _ in range(4)]
+
+    spent = {"prefill_s": 0.0, "decode_s": 0.0, "decode_tokens": 0,
+             "decode_steps": 0}
+    prefill, decode = eng.lm.prefill, eng.lm.decode_step
+
+    def timed_prefill(tokens, sid):
+        t = time.perf_counter()
+        out = prefill(tokens, sid)
+        torch.cuda.synchronize()
+        spent["prefill_s"] += time.perf_counter() - t
+        return out
+
+    def timed_decode(tokens, sids, positions):
+        t = time.perf_counter()
+        out = decode(tokens, sids, positions)
+        torch.cuda.synchronize()
+        spent["decode_s"] += time.perf_counter() - t
+        spent["decode_tokens"] += len(sids)
+        spent["decode_steps"] += 1
+        return out
+
+    eng.lm.prefill, eng.lm.decode_step = timed_prefill, timed_decode
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    ticks = 0
+    while eng.queue or eng.running or eng.suspended:
+        eng.step()
+        ticks += 1
+        if ticks == 3:                       # preempt mid-decode
+            eng.suspend(eng.running[0])
+    torch.cuda.synchronize()
+    e2e = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    eng.lm.prefill, eng.lm.decode_step = prefill, decode
+    m = dict(eng.metrics.count)
+
+    check(all(r.done and len(r.out_tokens) == 16 for r in reqs),
+          "serve: not every request finished with 16 tokens")
+    check(all(0 <= t < cfg.vocab for r in reqs for t in r.out_tokens),
+          "serve: a token outside the vocabulary")
+    check(m.get("pages_out", 0) > 0 and m.get("pages_in", 0) > 0,
+          f"serve: pages out/in {m.get('pages_out')}/{m.get('pages_in')}")
+    check(m.get("transit_crc_errors", 0) == 0, "serve: transit crc errors")
+    check(m.get("suspends") == 1 and m.get("resumes") == 1,
+          "serve: the suspend/resume did not happen")
+    for name in KERNELS:
+        check(counts.get(name, 0) > 0, f"serve: {name} never launched")
+    check(counts["paged_attention"] == cfg.n_layers * spent["decode_steps"],
+          f"serve: {counts['paged_attention']} attention launches for "
+          f"{spent['decode_steps']} decode steps")
+    check(counts["gather_quantize_crc"] == 2 * cfg.n_layers * m["pages_out"],
+          "serve: page-outs did not all go through the fused kernel")
+    check(counts["scatter_dequantize_crc"] == 2 * cfg.n_layers * m["pages_in"],
+          "serve: page-ins did not all go through the fused kernel")
+    check(eng.cache.free_pages() == cache_cfg.n_pages and len(eng.cache.host)
+          == 0, "serve: pages leaked")
+    # the output itself: a fresh prompt's logits at full width
+    sid = eng.cache.new_sequence()
+    logits = prefill(np.asarray(reqs[0].prompt[:32], np.int32), sid)
+    eng.cache.release(sid)
+    torch.cuda.synchronize()
+    check(logits.shape == (cfg.vocab,) and bool(torch.isfinite(logits).all()),
+          "serve: full-width logits not finite")
+    prof = profile_decode(torch, np, eng, cfg)
+    out = dict(spent, e2e_s=e2e, ticks=ticks, launches=counts, profile=prof,
+               pages_out=m["pages_out"], pages_in=m["pages_in"],
+               decode_tok_s=spent["decode_tokens"] / spent["decode_s"],
+               max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"serve: 4 requests x 16 tokens in {e2e:.2f} s end to end "
+        f"({ticks} ticks); decode {spent['decode_tokens']} tokens in "
+        f"{spent['decode_s']:.2f} s = {out['decode_tok_s']:.1f} tok/s; "
+        f"prefill {spent['prefill_s']:.2f} s; pages out/in "
+        f"{m['pages_out']}/{m['pages_in']}; launches {counts}; peak memory "
+        f"{out['max_memory_gb']:.1f} GB")
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_decode(torch, np, eng, cfg) -> dict:
+    """Where a full-width decode step's time goes: 4 fresh requests are
+    admitted, then 3 pure decode steps (no admission, no retirement) run
+    under torch.profiler.  Device busy time is the union of the device
+    ops' intervals; the idle share is the rest of the window from the
+    first device op's start to the last one's end."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(1)
+    for _ in range(4):
+        eng.submit(rng.integers(2, cfg.vocab, size=128).tolist(),
+                   max_new_tokens=8)
+    eng.step()
+    torch.cuda.synchronize()
+    steps = 3
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = device_events(prof)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, lo, hi = 0.0, None, None
+    for a, b in spans:
+        if hi is None or a > hi:
+            busy += 0.0 if hi is None else hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += (hi - lo) if hi is not None else 0.0
+    window = (spans[-1][1] - spans[0][0]) if spans else 0.0
+    per_name: dict[str, list] = {}
+    for e in events:
+        row = per_name.setdefault(e.name[:70], [0.0, 0])
+        row[0] += e.time_range.end - e.time_range.start
+        row[1] += 1
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:8]
+    eng.run()
+    torch.cuda.synchronize()
+    check(eng.cache.free_pages() == eng.cache.cfg.n_pages,
+          "profile: pages leaked")
+    out = {"steps": steps, "step_ms": wall / steps * 1e3,
+           "device_busy_ms_per_step": busy / steps / 1e3,
+           "device_idle_share": (1.0 - busy / window) if window else None,
+           "device_ops_per_step": len(spans) / steps,
+           "top_device_us_per_step": [
+               [k, us / steps, n // steps] for k, (us, n) in top]}
+    log(f"profile: decode step {out['step_ms']:.1f} ms (profiled), device "
+        f"busy {out['device_busy_ms_per_step']:.2f} ms, idle share "
+        f"{out['device_idle_share']}, {out['device_ops_per_step']:.0f} "
+        f"device ops per step")
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+# ------------------------------------------------------------- phase 4
+def parity_smoke(torch, np) -> None:
+    """Two pools: a roomy one (64 pages of 8), where every page stays on the
+    card and the suspended request pages out and back in; and a tiny one
+    (2 pages of 4), where pages bypass to the host tier and decode runs
+    the hybrid attention path.  Tokens and the cache's counters must be
+    the same on the card and on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve import PagedCacheConfig, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("qwen2.5-3b", smoke=True, dtype=torch.float32)
+    params = init_lm(cfg, torch.Generator().manual_seed(0))
+    keys = ("pages_out", "pages_in", "bypass_pages", "hybrid_attention",
+            "activate_stalls", "transit_crc_errors")
+    for label, n_pages, page_size in (("roomy", 64, 8), ("bypass", 2, 4)):
+        tokens, counts = {}, {}
+        for dev in ("cuda", "cpu"):
+            eng = ServeEngine(cfg, _to(params, dev), max_batch=2, device=dev,
+                              cache_cfg=PagedCacheConfig(
+                                  n_layers=cfg.n_layers,
+                                  n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+                                  page_size=page_size, n_pages=n_pages,
+                                  max_pages_per_seq=16, dtype=cfg.dtype))
+            rng = np.random.default_rng(1)
+            reqs = [eng.submit(rng.integers(2, cfg.vocab, size=n).tolist(),
+                               max_new_tokens=8) for n in (12, 20, 9)]
+            ticks = 0
+            while eng.queue or eng.running or eng.suspended:
+                eng.step()
+                ticks += 1
+                if ticks == 2:
+                    eng.suspend(eng.running[0])
+            torch.cuda.synchronize()
+            check(all(r.done for r in reqs), f"parity {label}: unfinished")
+            tokens[dev] = [r.out_tokens for r in reqs]
+            counts[dev] = {k: eng.metrics.count.get(k, 0) for k in keys}
+        check(tokens["cuda"] == tokens["cpu"], f"parity {label}: cuda "
+              f"{tokens['cuda']} != cpu {tokens['cpu']}")
+        check(counts["cuda"] == counts["cpu"], f"parity {label}: counters "
+              f"cuda {counts['cuda']} != cpu {counts['cpu']}")
+        c = counts["cuda"]
+        check(c["transit_crc_errors"] == 0, f"parity {label}: crc errors")
+        if label == "roomy":
+            check(c["pages_in"] > 0, "parity roomy: no page-in")
+        else:
+            check(c["bypass_pages"] > 0 and c["hybrid_attention"] > 0,
+                  f"parity bypass: no bypass or hybrid attention {c}")
+        log(f"parity {label}: SMOKE f32 (TF32 off) greedy tokens equal on "
+            f"cuda and cpu: {tokens['cuda']}; counters {c}")
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+# ------------------------------------------------------------------ main
+def main() -> int:
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke: src/repro_torch is not beside this script; run it "
+              "from a checkout of the repository", file=sys.stderr)
+        return 2
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this smoke "
+              "runs on a GPU only", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import _build
+
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    _build.load("paged_attention")
+    _build.load("block_transit")
+    torch.cuda.synchronize()
+    log(f"build: {time.perf_counter() - t0:.1f} s "
+        f"({', '.join(logs) or 'already built'})")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {name}: {line.strip()}")
+
+    rng = np.random.default_rng(0)
+    results: dict[str, dict] = {}
+    check_paged_attention(torch, rng, results)
+    check_codec(torch, rng, results)
+    time_kernels(torch, rng, results)
+    torch.cuda.synchronize()
+
+    served = serve_full(torch, np)
+    torch.cuda.synchronize()
+    parity_smoke(torch, np)
+    torch.cuda.synchronize()
+
+    def row(name, src, rep):
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": rep, "launches": served["launches"].get(name, 0),
+                **{k: results[name][k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "ms_from", "call_ms", "plain_call_ms")}}
+
+    line = {"kernels": [row(name, *v) for name, v in KERNELS.items()]}
+    variants = {"variants_off_the_path": [
+        row(name, "src/repro_torch/kernels/csrc/block_transit.cu", rep)
+        for name, rep in (
+            ("gather_quantize", "src/repro/kernels/block_transit.py:50"),
+            ("scatter_dequantize",
+             "src/repro/kernels/block_transit.py:157"))]}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    log(f"total {time.perf_counter() - t_all:.1f} s")
+    print(json.dumps({"serve": {k: v for k, v in served.items()
+                                if k != "launches"}}))
+    print(json.dumps(variants))
+    print(json.dumps(line))
+    print(smi.stdout.strip().splitlines()[0])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,62 @@
+"""Public kernel API: a CUDA tensor goes to the hand-written kernel, a CPU
+tensor to the kernel's plain PyTorch version.  There is no fallback: a
+CUDA call that the kernel refuses raises, and any other device raises.
+
+The torch counterpart of ``repro/kernels/ops.py``'s TPU / interpret switch.
+"""
+from __future__ import annotations
+
+from .block_transit import (gather_quantize_crc_plain, gather_quantize_cuda,
+                            gather_quantize_plain,
+                            scatter_dequantize_crc_plain,
+                            scatter_dequantize_cuda, scatter_dequantize_plain)
+from .paged_attention import paged_attention_cuda, paged_attention_plain
+
+__all__ = ["paged_attention", "gather_quantize", "scatter_dequantize",
+           "gather_quantize_crc", "scatter_dequantize_crc"]
+
+
+def _on_card(t) -> bool:
+    if t.is_cuda:
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def paged_attention(q, k_pool, v_pool, block_table, seq_lens):
+    """q: (B, H, hd); pools: (P, page, Hkv, hd); block_table: (B, max_pages)
+    int32; seq_lens: (B,) int32 -> (B, H, hd)."""
+    if _on_card(q):
+        return paged_attention_cuda(q, k_pool, v_pool, block_table, seq_lens)
+    return paged_attention_plain(q, k_pool, v_pool, block_table, seq_lens)
+
+
+def gather_quantize(pool, page_ids):
+    """pool (P, page, F); page_ids (n,) int32 -> (q int8, scales f32)."""
+    if _on_card(pool):
+        return gather_quantize_cuda(pool, page_ids, with_crc=False)
+    return gather_quantize_plain(pool, page_ids)
+
+
+def scatter_dequantize(pool, page_ids, q, scales):
+    """Writes the dequantized pages into ``pool`` in place; returns it."""
+    if _on_card(pool):
+        return scatter_dequantize_cuda(pool, page_ids, q, scales,
+                                       with_crc=False)
+    return scatter_dequantize_plain(pool, page_ids, q, scales)
+
+
+def gather_quantize_crc(pool, page_ids):
+    """Fused spill codec -> (q int8, scales f32, crcs int64 Adler-32)."""
+    if _on_card(pool):
+        return gather_quantize_cuda(pool, page_ids)
+    return gather_quantize_crc_plain(pool, page_ids)
+
+
+def scatter_dequantize_crc(pool, page_ids, q, scales):
+    """Fused restore codec, in place -> (pool, crcs of the payload as
+    received)."""
+    if _on_card(pool):
+        return scatter_dequantize_cuda(pool, page_ids, q, scales)
+    return scatter_dequantize_crc_plain(pool, page_ids, q, scales)

@@ -1,0 +1,523 @@
+"""Paged KV cache — BTT + Caiti re-expressed for the device/host tier pair.
+
+The port of ``repro.serve.kvcache``; the mapping of the paper's
+structures is the reference's:
+
+  BTT map (lba -> pba)        -> per-sequence block table (logical page ->
+                                 physical page in the device pool)
+  BTT lanes / free blocks     -> the pool's free list
+  DRAM transit cache          -> the device pool is the fast tier; the
+                                 host tier (int8-packed) is the slow one
+  eager eviction              -> a sequence that stops decoding has its
+                                 pages packed (gather + int8 + Adler-32) to
+                                 the host tier at once
+  conditional bypass          -> a page allocation against a full pool goes
+                                 straight to the host tier instead of
+                                 evicting someone's hot page
+  volume read tier            -> a CLOCK cache of dequantized host pages
+                                 for the hybrid-attention slow path
+  durable tier                -> a pager (``pager=``) that spills host-tier
+                                 overflow onto a volume; not ported yet, the
+                                 parameter is kept and raises when given
+
+The pools are one tensor per layer, (P, page_size, Hkv, hd), on the
+cache's device, and they are **updated in place** (a token write is an
+indexed copy, a page-in is the restore kernel writing one page), where
+the JAX cache rebuilt immutable arrays with ``.at[].set``.  So the
+reference's "eviction workers gather from an immutable snapshot" no longer
+holds: every pool read and write happens under ``_tlock``.
+
+Concurrency contract: ``seq.table``, ``self._free``, the host tier, the
+active flags and the pools are guarded by ``_tlock`` — public entry points
+take it, ``_locked`` helpers assume it.  The reference's eviction pool
+(``evict_pool=``) is not ported yet either: page-outs run on the caller's
+thread.
+"""
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch.core.metrics import Metrics
+from repro_torch.kernels import ref as kref
+from repro_torch.kernels.ops import (gather_quantize_crc, paged_attention,
+                                     scatter_dequantize_crc)
+from repro_torch.volume.read_tier import ReadTier
+
+
+@dataclass
+class PagedCacheConfig:
+    n_layers: int
+    n_kv_heads: int
+    head_dim: int
+    page_size: int = 16
+    n_pages: int = 256            # device pool pages (per layer)
+    max_pages_per_seq: int = 64
+    dtype: torch.dtype = torch.bfloat16
+    eager_eviction: bool = True
+    conditional_bypass: bool = True
+    read_tier_pages: int = 128    # dequantized-page cache (0 disables)
+
+
+class HostTier:
+    """The slow tier: int8-packed pages + scales + the wire checksum the
+    fused transit kernel computed at spill time, keyed (layer, handle)."""
+
+    def __init__(self) -> None:
+        self.pages: dict[tuple[int, int],
+                         tuple[np.ndarray, np.ndarray, int]] = {}
+        self._next = 0
+
+    def put(self, layer: int, q: np.ndarray, scale: np.ndarray,
+            crc: int = 0) -> int:
+        h = self._next
+        self._next += 1
+        self.pages[(layer, h)] = (q, scale, crc)
+        return h
+
+    def get(self, layer: int, handle: int):
+        return self.pages[(layer, handle)]
+
+    def pop(self, layer: int, handle: int):
+        return self.pages.pop((layer, handle))
+
+    def __len__(self) -> int:
+        return len(self.pages)
+
+
+@dataclass
+class Sequence:
+    seq_id: int
+    length: int = 0
+    # logical page -> ("hbm", phys_page) | ("host", [(k_handle, v_handle)
+    # per layer]) | ("host-fresh", {"k","v" raw f32})
+    table: list = field(default_factory=list)
+    active: bool = True
+
+
+def _host_f32(t) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+class PagedKVCache:
+    """Host-side manager + on-device pools for one model's KV state."""
+
+    def __init__(self, cfg: PagedCacheConfig,
+                 metrics: Metrics | None = None,
+                 evict_pool=None, pager=None, device="cuda") -> None:
+        self.cfg = cfg
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        if evict_pool is not None or pager is not None:
+            raise NotImplementedError(
+                "the eviction pool and the volume pager are not ported yet")
+        self.metrics = metrics or Metrics()
+        self._tlock = threading.Lock()
+        L, P, pg, H, hd = (cfg.n_layers, cfg.n_pages, cfg.page_size,
+                           cfg.n_kv_heads, cfg.head_dim)
+        self.k_pool = [torch.zeros((P, pg, H, hd), dtype=cfg.dtype,
+                                   device=self.device) for _ in range(L)]
+        self.v_pool = [torch.zeros((P, pg, H, hd), dtype=cfg.dtype,
+                                   device=self.device) for _ in range(L)]
+        self._free: list[int] = list(range(P))          # global free set
+        self.host = HostTier()
+        # clean read tier over the host tier: caches dequantized pages for
+        # the hybrid-attention slow path
+        self.read_tier = (ReadTier(cfg.read_tier_pages, metrics=self.metrics)
+                          if cfg.read_tier_pages > 0 else None)
+        self.seqs: dict[int, Sequence] = {}
+        self._next_seq = 0
+
+    # ------------------------------------------------------------ allocation
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    def new_sequence(self) -> int:
+        with self._tlock:
+            sid = self._next_seq
+            self._next_seq += 1
+            self.seqs[sid] = Sequence(sid)
+            return sid
+
+    def _alloc_page(self) -> int | None:
+        if self._free:
+            return self._free.pop()
+        return None
+
+    def _evict_coldest_locked(self) -> bool:
+        """Sync eviction (the staging fallback): pack the coldest inactive
+        sequence's first device page to the host tier."""
+        for seq in self.seqs.values():
+            if seq.active:
+                continue
+            for li, entry in enumerate(seq.table):
+                if entry[0] == "hbm":
+                    self._page_out_locked(seq, li)
+                    return True
+        return False
+
+    # -------------------------------------------------------------- write path
+    def _reserve_slot_locked(self, seq: Sequence):
+        """Give ``seq`` room for one more token: a fresh page when the last
+        one is full (device pool, or host tier on bypass).  Returns the
+        page's table entry and the token's offset in it."""
+        pg = self.cfg.page_size
+        off = seq.length % pg
+        if off == 0:                                     # need a fresh page
+            # max_pages_per_seq bounds the DENSE block table the fast
+            # attention path builds — a longer sequence never gets a
+            # device page (it would index past table_for's array)
+            over = len(seq.table) >= self.cfg.max_pages_per_seq
+            page = None if over else self._alloc_page()
+            if page is None:
+                if over and not self.cfg.conditional_bypass:
+                    raise MemoryError(
+                        f"seq {seq.seq_id} would grow to "
+                        f"{len(seq.table) + 1} pages, past "
+                        f"max_pages_per_seq={self.cfg.max_pages_per_seq}; "
+                        f"raise the bound or enable conditional_bypass to "
+                        f"let long sequences overflow to the host tier")
+                if self.cfg.conditional_bypass:
+                    # pool full (or table full) -> host tier
+                    self.metrics.bump("bypass_pages")
+                    if over:
+                        self.metrics.bump("long_seq_bypass")
+                    seq.table.append(("host-fresh", self._host_fresh_page()))
+                else:
+                    with self.metrics.timer("cache_eviction_and_write"):
+                        if not self._evict_coldest_locked():
+                            raise MemoryError("KV pool exhausted")
+                    page = self._alloc_page()
+                    seq.table.append(("hbm", page))
+            else:
+                seq.table.append(("hbm", page))
+        entry = seq.table[seq.length // pg]
+        seq.length += 1
+        return entry, off
+
+    def append_token(self, sid: int, k_token, v_token) -> None:
+        """k/v_token: per-layer list of (Hkv, hd) tensors for ONE new token.
+        A ``None`` layer reserves the slot without writing it (the decode
+        loop fills layers > 0 with ``overwrite_token`` before they are
+        read)."""
+        with self._tlock:
+            entry, off = self._reserve_slot_locked(self.seqs[sid])
+            for li in range(self.cfg.n_layers):
+                if k_token[li] is not None:
+                    self._write_locked(entry, off, li, k_token[li],
+                                       v_token[li])
+
+    def append_tokens(self, sid: int, k_seq, v_seq) -> None:
+        """The bulk write path of prefill: k/v_seq are per-layer lists of
+        (T, Hkv, hd) tensors for T new tokens.  The pool ends up as T
+        ``append_token`` calls would leave it, with one indexed copy per
+        layer for the tokens that land in device pages."""
+        T = k_seq[0].shape[0]
+        with self._tlock:
+            seq = self.seqs[sid]
+            slots = [self._reserve_slot_locked(seq) for _ in range(T)]
+            on_dev = [(t, e[1], off) for t, (e, off) in enumerate(slots)
+                   if e[0] == "hbm"]
+            if on_dev:
+                tt, pages, offs = (torch.tensor(c, device=self.device)
+                                   for c in zip(*on_dev))
+                for li in range(self.cfg.n_layers):
+                    self.k_pool[li][pages, offs] = k_seq[li].to(
+                        self.device, self.cfg.dtype)[tt]
+                    self.v_pool[li][pages, offs] = v_seq[li].to(
+                        self.device, self.cfg.dtype)[tt]
+            host = [(t, e, off) for t, (e, off) in enumerate(slots)
+                    if e[0] != "hbm"]
+            if host:
+                ks = [_host_f32(k) for k in k_seq]
+                vs = [_host_f32(v) for v in v_seq]
+                for t, entry, off in host:
+                    for li in range(self.cfg.n_layers):
+                        entry[1]["k"][li][off] = ks[li][t]
+                        entry[1]["v"][li][off] = vs[li][t]
+
+    def _write_locked(self, entry, off: int, layer: int, k_t, v_t) -> None:
+        if entry[0] == "hbm":
+            page = entry[1]
+            self.k_pool[layer][page, off] = k_t.to(self.device,
+                                                   self.cfg.dtype)
+            self.v_pool[layer][page, off] = v_t.to(self.device,
+                                                   self.cfg.dtype)
+        else:                                            # host-resident page
+            entry[1]["k"][layer][off] = _host_f32(k_t)
+            entry[1]["v"][layer][off] = _host_f32(v_t)
+
+    def overwrite_token(self, sid: int, layer: int, kv) -> None:
+        """Rewrite the LAST appended token's k/v for one layer (the decode
+        loop appends at layer 0, then fills layers > 0 in place)."""
+        with self._tlock:
+            seq = self.seqs[sid]
+            tpos = seq.length - 1
+            entry = seq.table[tpos // self.cfg.page_size]
+            self._write_locked(entry, tpos % self.cfg.page_size, layer, *kv)
+
+    def _host_fresh_page(self) -> dict:
+        L, pg, H, hd = (self.cfg.n_layers, self.cfg.page_size,
+                        self.cfg.n_kv_heads, self.cfg.head_dim)
+        return {"k": np.zeros((L, pg, H, hd), np.float32),
+                "v": np.zeros((L, pg, H, hd), np.float32)}
+
+    def _pool_pages(self, pool) -> torch.Tensor:
+        """A layer's pool as (P, page, Hkv * hd), the codec's layout."""
+        return pool.view(self.cfg.n_pages, self.cfg.page_size, -1)
+
+    # ----------------------------------------------------------- transit ops
+    def _page_out_locked(self, seq: Sequence, logical: int) -> None:
+        """Transit one device page to the host tier via the FUSED kernel:
+        gather + int8 pack + wire checksum in one pass per layer and K/V."""
+        kind, page = seq.table[logical]
+        assert kind == "hbm"
+        handles = []
+        ids = torch.tensor([page], dtype=torch.int32, device=self.device)
+        for li in range(self.cfg.n_layers):
+            qk, sk, ck = gather_quantize_crc(self._pool_pages(self.k_pool[li]),
+                                             ids)
+            qv, sv, cv = gather_quantize_crc(self._pool_pages(self.v_pool[li]),
+                                             ids)
+            hk = self.host.put(li, qk[0].cpu().numpy(), sk[0].cpu().numpy(),
+                               int(ck[0]))
+            hv = self.host.put(li, qv[0].cpu().numpy(), sv[0].cpu().numpy(),
+                               int(cv[0]))
+            self.metrics.bump("fused_kernel_passes", 2)
+            self.metrics.bump("fused_kernel_bytes", qk.numel() + qv.numel())
+            handles.append((hk, hv))
+        seq.table[logical] = ("host", handles)
+        self._free.append(page)
+        self.metrics.bump("pages_out")
+
+    # ----------------------------------------------- pager record layout
+    def _pack_page(self, handles) -> bytes:
+        """Serialize one packed host page (all layers) for the pager:
+        per layer, the fused-kernel crcs then the int8 payloads + f32
+        scales — byte for byte the JAX cache's layout."""
+        parts = []
+        for li, (hk, hv) in enumerate(handles):
+            qk, sk, ck = self.host.get(li, hk)
+            qv, sv, cv = self.host.get(li, hv)
+            parts.append(np.uint32(ck).tobytes())
+            parts.append(np.uint32(cv).tobytes())
+            parts.append(np.ascontiguousarray(qk, np.int8).tobytes())
+            parts.append(np.ascontiguousarray(sk, "<f4").tobytes())
+            parts.append(np.ascontiguousarray(qv, np.int8).tobytes())
+            parts.append(np.ascontiguousarray(sv, "<f4").tobytes())
+        return b"".join(parts)
+
+    def _unpack_page(self, raw: bytes) -> list:
+        """Inverse of :meth:`_pack_page` — per-layer
+        ``(qk, sk, ck, qv, sv, cv)`` tuples (arrays not yet in the host
+        tier; the caller decides whether to install them)."""
+        pg = self.cfg.page_size
+        D = self.cfg.n_kv_heads * self.cfg.head_dim
+        qn, sn = pg * D, pg * 4
+        out = []
+        off = 0
+        for _li in range(self.cfg.n_layers):
+            ck = int(np.frombuffer(raw[off:off + 4], np.uint32)[0])
+            cv = int(np.frombuffer(raw[off + 4:off + 8], np.uint32)[0])
+            off += 8
+            qk = np.frombuffer(raw[off:off + qn], np.int8).reshape(pg, D)
+            off += qn
+            sk = np.frombuffer(raw[off:off + sn], "<f4").astype(np.float32)
+            off += sn
+            qv = np.frombuffer(raw[off:off + qn], np.int8).reshape(pg, D)
+            off += qn
+            sv = np.frombuffer(raw[off:off + sn], "<f4").astype(np.float32)
+            off += sn
+            out.append((qk, sk, ck, qv, sv, cv))
+        return out
+
+    def _page_in_locked(self, seq: Sequence, logical: int) -> bool:
+        """Bring a cold page back into the pool (dequantize + scatter).
+
+        The fused restore kernel writes the newly allocated page in place
+        and checksums the int8 payload as received; the page goes live
+        only once every layer verified against its spill-time crc.  On a
+        mismatch the page (not yet in any table) goes back to the free list
+        and the host entries stay put — an IOError never leaks capacity."""
+        kind, payload = seq.table[logical]
+        page = self._alloc_page()
+        if page is None:
+            return False
+        if kind == "host":
+            ids = torch.tensor([page], dtype=torch.int32, device=self.device)
+            dev = self.device
+            try:
+                for li, (hk, hv) in enumerate(payload):
+                    qk, sk, ck = self.host.get(li, hk)
+                    qv, sv, cv = self.host.get(li, hv)
+                    _, rck = scatter_dequantize_crc(
+                        self._pool_pages(self.k_pool[li]), ids,
+                        torch.tensor(qk, device=dev)[None],
+                        torch.tensor(sk, device=dev)[None])
+                    _, rcv = scatter_dequantize_crc(
+                        self._pool_pages(self.v_pool[li]), ids,
+                        torch.tensor(qv, device=dev)[None],
+                        torch.tensor(sv, device=dev)[None])
+                    self.metrics.bump("fused_kernel_passes", 2)
+                    self.metrics.bump("fused_kernel_bytes",
+                                      qk.nbytes + qv.nbytes)
+                    if int(rck[0]) != ck or int(rcv[0]) != cv:
+                        self.metrics.bump("transit_crc_errors")
+                        raise IOError(
+                            f"KV transit checksum mismatch: layer {li} page "
+                            f"{logical} of seq {seq.seq_id} tore in transit")
+            except IOError:
+                self._free.append(page)                  # no capacity leak
+                raise
+            for li, (hk, hv) in enumerate(payload):      # verified: commit
+                if self.read_tier is not None:
+                    self.read_tier.invalidate(("page", li, hk, hv))
+                self.host.pop(li, hk)
+                self.host.pop(li, hv)
+        else:                                            # host-fresh (raw f32)
+            for li in range(self.cfg.n_layers):
+                self.k_pool[li][page] = torch.tensor(
+                    payload["k"][li], device=self.device).to(self.cfg.dtype)
+                self.v_pool[li][page] = torch.tensor(
+                    payload["v"][li], device=self.device).to(self.cfg.dtype)
+        seq.table[logical] = ("hbm", page)
+        self.metrics.bump("pages_in")
+        return True
+
+    def deactivate(self, sid: int) -> None:
+        """Sequence paused/finished: eagerly transit its pages out.  The
+        whole page-out loop runs under ``_tlock`` — a concurrent deactivate
+        of the same sequence sees "host" entries and skips, instead of
+        double-freeing pool pages."""
+        with self._tlock:
+            seq = self.seqs[sid]
+            seq.active = False
+            if not self.cfg.eager_eviction:
+                return
+            for li, entry in enumerate(seq.table):
+                if entry[0] == "hbm":
+                    self._page_out_locked(seq, li)
+
+    def activate(self, sid: int) -> None:
+        """Resume a sequence: page everything back in (may stall when the
+        pool is full: the rest pages in on a later call)."""
+        with self._tlock:
+            seq = self.seqs[sid]
+            seq.active = True
+            for li, entry in enumerate(seq.table):
+                if entry[0] in ("host", "host-fresh"):
+                    if not self._page_in_locked(seq, li):
+                        self.metrics.bump("activate_stalls")
+                        return                            # partial: retry later
+
+    def release(self, sid: int) -> None:
+        with self._tlock:
+            seq = self.seqs.pop(sid)
+            for entry in seq.table:
+                if entry[0] == "hbm":
+                    self._free.append(entry[1])
+                elif entry[0] == "host":
+                    for li, (hk, hv) in enumerate(entry[1]):
+                        if self.read_tier is not None:
+                            self.read_tier.invalidate(("page", li, hk, hv))
+                        self.host.pop(li, hk)
+                        self.host.pop(li, hv)
+
+    # -------------------------------------------------------------- attention
+    def _table_for_locked(self, sids: list[int]):
+        mp = self.cfg.max_pages_per_seq
+        table = np.zeros((len(sids), mp), np.int32)
+        lens = np.zeros((len(sids),), np.int32)
+        for bi, sid in enumerate(sids):
+            seq = self.seqs[sid]
+            if len(seq.table) > mp:
+                raise ValueError(
+                    f"seq {sid} holds {len(seq.table)} pages > "
+                    f"max_pages_per_seq={mp}: too long for the dense "
+                    f"block table (serve it through the hybrid "
+                    f"attention path)")
+            lens[bi] = seq.length
+            for li, entry in enumerate(seq.table):
+                assert entry[0] == "hbm", \
+                    f"page {li} of seq {sid} not resident"
+                table[bi, li] = entry[1]
+        return (torch.from_numpy(table).to(self.device),
+                torch.from_numpy(lens).to(self.device))
+
+    def table_for(self, sids: list[int]):
+        """Dense (B, max_pages) physical table + (B,) lengths, int32 on the
+        cache's device.  Sequences must be fully resident (activate())."""
+        with self._tlock:
+            return self._table_for_locked(sids)
+
+    def _page_kv(self, layer: int, entry) -> tuple[np.ndarray, np.ndarray]:
+        """One logical page's (page_size, Hkv, hd) f32 k/v from whichever
+        tier holds it (the transit read path: cache hit OR backend read)."""
+        pg, H, hd = self.cfg.page_size, self.cfg.n_kv_heads, self.cfg.head_dim
+        if entry[0] == "hbm":
+            return (_host_f32(self.k_pool[layer][entry[1]]),
+                    _host_f32(self.v_pool[layer][entry[1]]))
+        if entry[0] == "host":
+            hk, hv = entry[1][layer]
+            if self.read_tier is not None:
+                cached = self.read_tier.lookup(("page", layer, hk, hv))
+                if cached is not None:
+                    return cached
+            qk, sk, _ck = self.host.get(layer, hk)
+            qv, sv, _cv = self.host.get(layer, hv)
+            k = (qk.astype(np.float32) * sk[:, None]).reshape(pg, H, hd)
+            v = (qv.astype(np.float32) * sv[:, None]).reshape(pg, H, hd)
+            if self.read_tier is not None:
+                self.read_tier.insert(("page", layer, hk, hv), (k, v))
+            return k, v
+        return (entry[1]["k"][layer].astype(np.float32),
+                entry[1]["v"][layer].astype(np.float32))   # host-fresh
+
+    def attention(self, layer: int, q, sids: list[int]):
+        """q: (B, H, hd) one decode step for the given sequences.
+
+        Fast path: every page device-resident AND every table within the
+        dense bound -> the block-table kernel (lba->pba walk fused in).
+        Slow path (pages bypassed to the host tier under pool pressure,
+        or a sequence past max_pages_per_seq): materialize each
+        sequence's KV from every tier and run the plain
+        ``paged_attention_ref`` over it, as the reference does — decode
+        keeps running instead of stalling on page-in."""
+        mp = self.cfg.max_pages_per_seq
+        pg, H, hd = self.cfg.page_size, self.cfg.n_kv_heads, self.cfg.head_dim
+        B = len(sids)
+        with self._tlock:
+            resident = all(len(self.seqs[sid].table) <= mp
+                           and all(e[0] == "hbm"
+                                   for e in self.seqs[sid].table)
+                           for sid in sids)
+            if resident:
+                table, lens = self._table_for_locked(sids)
+                return paged_attention(q, self.k_pool[layer],
+                                       self.v_pool[layer], table, lens)
+            self.metrics.bump("hybrid_attention")
+            S = max(len(self.seqs[s].table) for s in sids) * pg
+            k = np.zeros((B, S, H, hd), np.float32)
+            v = np.zeros((B, S, H, hd), np.float32)
+            lens = np.zeros((B,), np.int32)
+            for bi, sid in enumerate(sids):
+                seq = self.seqs[sid]
+                lens[bi] = seq.length
+                for li, entry in enumerate(seq.table):
+                    pk, pv = self._page_kv(layer, entry)
+                    k[bi, li * pg:(li + 1) * pg] = pk
+                    v[bi, li * pg:(li + 1) * pg] = pv
+        # single-"page" plain attention over the materialized view
+        dev = q.device
+        table = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
+        return kref.paged_attention_ref(q, torch.from_numpy(k).to(dev),
+                                        torch.from_numpy(v).to(dev), table,
+                                        torch.from_numpy(lens).to(dev))
+
+    # ---------------------------------------------------------------- stats
+    def occupancy(self) -> float:
+        return 1.0 - len(self._free) / self.cfg.n_pages

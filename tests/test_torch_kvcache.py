@@ -1,0 +1,219 @@
+"""The port's PagedKVCache on the CPU (plain codec and attention) against
+the JAX cache's layout and oracles: pack/unpack byte-identical, page-out
+q/scales/crc bit-identical to ``repro.kernels.ref``, the page-out ->
+page-in round trip, conditional bypass, release accounting,
+max_pages_per_seq, and a torn payload on page-in."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.serve.kvcache import PagedCacheConfig as JaxCacheConfig
+from repro.serve.kvcache import PagedKVCache as JaxKVCache
+from repro_torch.core.metrics import Metrics
+from repro_torch.kernels import ref as tref
+from repro_torch.serve import PagedCacheConfig, PagedKVCache
+
+SHAPE = dict(n_layers=2, n_kv_heads=2, head_dim=8, page_size=4)
+
+
+def _cache(**kw) -> PagedKVCache:
+    base = dict(SHAPE, n_pages=8, max_pages_per_seq=8,
+                read_tier_pages=8, dtype=torch.float32)
+    base.update(kw)
+    return PagedKVCache(PagedCacheConfig(**base), metrics=Metrics(),
+                        device="cpu")
+
+
+def _fill(cache, sid, n_tokens, rng):
+    """n_tokens appends with the same K/V in every layer; returns them
+    as (n_tokens, Hkv, hd) arrays."""
+    L, H, hd = cache.cfg.n_layers, cache.cfg.n_kv_heads, cache.cfg.head_dim
+    ks, vs = [], []
+    for _ in range(n_tokens):
+        k = rng.standard_normal((H, hd)).astype(np.float32)
+        v = rng.standard_normal((H, hd)).astype(np.float32)
+        cache.append_token(sid, [torch.tensor(k)] * L, [torch.tensor(v)] * L)
+        ks.append(k)
+        vs.append(v)
+    return np.stack(ks), np.stack(vs)
+
+
+def test_pack_unpack_byte_identical_to_jax_layout():
+    """The same host-tier entries serialize to the same bytes in both
+    caches, and each cache unpacks the other's bytes to the same arrays."""
+    rng = np.random.default_rng(0)
+    jc = JaxKVCache(JaxCacheConfig(**SHAPE, n_pages=4, read_tier_pages=0))
+    tc = _cache(n_pages=4, read_tier_pages=0)
+    D = SHAPE["n_kv_heads"] * SHAPE["head_dim"]
+    handles_j, handles_t = [], []
+    for li in range(SHAPE["n_layers"]):
+        pair_j, pair_t = [], []
+        for _ in ("k", "v"):
+            q = rng.integers(-127, 128, (SHAPE["page_size"], D)).astype(np.int8)
+            s = rng.random(SHAPE["page_size"]).astype(np.float32)
+            crc = int(jref.transit_crc_ref(q[None])[0])
+            pair_j.append(jc.host.put(li, q, s, crc))
+            pair_t.append(tc.host.put(li, q, s, crc))
+        handles_j.append(tuple(pair_j))
+        handles_t.append(tuple(pair_t))
+    raw = tc._pack_page(handles_t)
+    assert raw == jc._pack_page(handles_j)
+    for got, exp in zip(tc._unpack_page(raw), jc._unpack_page(raw)):
+        for a, b in zip(got, exp):
+            assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_page_out_matches_jax_codec_and_roundtrips():
+    """deactivate packs each page with the fused codec: host entries equal
+    gather_quantize_ref + transit_crc_ref of the pool page bit for bit;
+    activate restores within one quantization step, with no crc error."""
+    rng = np.random.default_rng(1)
+    c = _cache()
+    sid = c.new_sequence()
+    ks, _ = _fill(c, sid, 10, rng)                 # 3 pages, last partial
+    pages = [e[1] for e in c.seqs[sid].table]
+    pools = [c.k_pool[0][p].reshape(4, -1).numpy().copy() for p in pages]
+    c.deactivate(sid)
+    assert c.metrics.count["pages_out"] == 3
+    assert c.free_pages() == 8
+    assert c.metrics.count["fused_kernel_passes"] == 3 * 2 * 2
+    for logical, pool_page in enumerate(pools):
+        hk, _hv = c.seqs[sid].table[logical][1][0]
+        q, s, crc = c.host.get(0, hk)
+        qr, sr = jref.gather_quantize_ref(jnp.asarray(pool_page)[None],
+                                          jnp.asarray([0], jnp.int32))
+        assert np.array_equal(q, np.asarray(qr)[0])
+        assert np.array_equal(s, np.asarray(sr)[0])
+        assert crc == int(jref.transit_crc_ref(qr)[0])
+    c.activate(sid)
+    assert c.metrics.count["pages_in"] == 3
+    assert c.metrics.count.get("transit_crc_errors", 0) == 0
+    assert len(c.host) == 0
+    got = np.concatenate([c.k_pool[1][e[1]].numpy()
+                          for e in c.seqs[sid].table])[:10]
+    # one scale per token row of the page, over all kv heads
+    step = np.abs(ks).max(axis=(1, 2), keepdims=True) / 127.0
+    assert (np.abs(got - ks) <= step * 0.75 + 1e-7).all()
+
+
+def test_conditional_bypass_under_pool_pressure_and_hybrid_attention():
+    """A pool too small for the sequence sends its later pages to the
+    host tier; attention then runs the hybrid path over every tier and
+    agrees with the plain attention over the dense K/V."""
+    rng = np.random.default_rng(2)
+    c = _cache(n_pages=2)
+    sid = c.new_sequence()
+    ks, vs = _fill(c, sid, 11, rng)                # 3 pages, pool holds 2
+    assert c.metrics.count["bypass_pages"] == 1
+    assert [e[0] for e in c.seqs[sid].table] == ["hbm", "hbm", "host-fresh"]
+    q = torch.tensor(rng.standard_normal((1, 4, 8)), dtype=torch.float32)
+    out = c.attention(0, q, [sid])
+    assert c.metrics.count["hybrid_attention"] == 1
+    exp = tref.paged_attention_ref(
+        q, torch.tensor(ks)[None], torch.tensor(vs)[None],
+        torch.zeros((1, 1), dtype=torch.int32),
+        torch.tensor([11], dtype=torch.int32))
+    np.testing.assert_allclose(out.numpy(), exp.numpy(), atol=2e-5,
+                               rtol=2e-5)
+
+
+def test_release_returns_every_page():
+    rng = np.random.default_rng(3)
+    c = _cache(n_pages=4)
+    sids = [c.new_sequence() for _ in range(3)]
+    for sid in sids:
+        _fill(c, sid, 6, rng)                      # 2 pages each: 2 bypass
+    assert c.metrics.count["bypass_pages"] == 2
+    c.deactivate(sids[0])                          # device pages -> host
+    c.release(sids[0])
+    c.release(sids[1])
+    c.release(sids[2])
+    assert c.free_pages() == 4
+    assert len(c.host) == 0
+    assert c.seqs == {}
+
+
+def test_max_pages_per_seq_enforced_without_bypass():
+    c = _cache(max_pages_per_seq=2, conditional_bypass=False, n_pages=16)
+    sid = c.new_sequence()
+    _fill(c, sid, 8, np.random.default_rng(0))     # exactly at the bound
+    with pytest.raises(MemoryError, match="max_pages_per_seq"):
+        _fill(c, sid, 1, np.random.default_rng(1))
+
+
+def test_long_sequence_bypasses_and_decodes_via_hybrid_path():
+    c = _cache(max_pages_per_seq=2, n_pages=16)
+    sid = c.new_sequence()
+    _fill(c, sid, 11, np.random.default_rng(0))    # 3 pages: 1 past bound
+    assert c.metrics.count["long_seq_bypass"] > 0
+    assert c.seqs[sid].table[2][0] == "host-fresh"
+    with pytest.raises(ValueError, match="max_pages_per_seq"):
+        c.table_for([sid])
+    out = c.attention(0, torch.ones((1, 2, 8)), [sid])
+    assert torch.isfinite(out).all()
+    assert c.metrics.count["hybrid_attention"] == 1
+
+
+def test_torn_payload_raises_and_returns_the_pool_page():
+    """A byte flipped in the host tier after page-out fails the restore's
+    checksum: IOError, the counter moves, the allocated pool page goes back
+    to the free list and the host entries stay for a retry."""
+    rng = np.random.default_rng(4)
+    c = _cache()
+    sid = c.new_sequence()
+    _fill(c, sid, 4, rng)
+    c.deactivate(sid)
+    hk, _hv = c.seqs[sid].table[0][1][1]
+    q, s, crc = c.host.get(1, hk)
+    torn = q.copy()
+    torn[2, 5] ^= 0x10
+    c.host.pages[(1, hk)] = (torn, s, crc)
+    free_before, host_before = c.free_pages(), len(c.host)
+    with pytest.raises(IOError, match="checksum mismatch"):
+        c.activate(sid)
+    assert c.metrics.count["transit_crc_errors"] == 1
+    assert c.free_pages() == free_before
+    assert len(c.host) == host_before
+    assert c.seqs[sid].table[0][0] == "host"
+    c.host.pages[(1, hk)] = (q, s, crc)            # repaired: retry works
+    c.activate(sid)
+    assert c.seqs[sid].table[0][0] == "hbm"
+
+
+def test_prefill_bulk_write_equals_token_appends():
+    """append_tokens (the prefill's one indexed copy per layer) leaves the
+    pools, tables and host pages as T append_token calls do, bypass
+    included."""
+    rng = np.random.default_rng(5)
+    L, H, hd = SHAPE["n_layers"], SHAPE["n_kv_heads"], SHAPE["head_dim"]
+    ks = [torch.tensor(rng.standard_normal((10, H, hd)), dtype=torch.float32)
+          for _ in range(L)]
+    vs = [torch.tensor(rng.standard_normal((10, H, hd)), dtype=torch.float32)
+          for _ in range(L)]
+    a, b = _cache(n_pages=2), _cache(n_pages=2)
+    sa, sb = a.new_sequence(), b.new_sequence()
+    a.append_tokens(sa, ks, vs)
+    for t in range(10):
+        b.append_token(sb, [k[t] for k in ks], [v[t] for v in vs])
+    assert a.seqs[sa].length == b.seqs[sb].length == 10
+    for ea, eb in zip(a.seqs[sa].table, b.seqs[sb].table):
+        assert ea[0] == eb[0]
+        if ea[0] == "hbm":
+            assert ea[1] == eb[1]
+        else:
+            assert np.array_equal(ea[1]["k"], eb[1]["k"])
+            assert np.array_equal(ea[1]["v"], eb[1]["v"])
+    for li in range(L):
+        assert torch.equal(a.k_pool[li], b.k_pool[li])
+        assert torch.equal(a.v_pool[li], b.v_pool[li])
+
+
+@pytest.mark.parametrize("hook", ["pager", "evict_pool"])
+def test_unported_spill_hooks_raise(hook):
+    """The volume pager and the eviction pool are not ported: the cache
+    refuses one instead of ignoring it."""
+    cfg = PagedCacheConfig(**SHAPE, n_pages=4, dtype=torch.float32)
+    with pytest.raises(NotImplementedError):
+        PagedKVCache(cfg, device="cpu", **{hook: object()})
