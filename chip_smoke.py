@@ -6,28 +6,41 @@
 Phases, each ending in ``torch.cuda.synchronize()``:
 
 1. build  — compile every CUDA source of ``src/repro_torch/kernels/csrc``
-            (one nvcc per source, all at once) and print the seconds;
+            (one nvcc per source, all at once), print the seconds and
+            each kernel's registers and spills from ptxas;
 2. kernels — each kernel against its plain PyTorch version on the card, at
-            the serving path's full-width shapes (page 16, Hkv 2, hd 128,
-            F = 256) and at smoke shapes, f32 and bf16: the codec's q, scales
-            and crcs bit-identical and every crc equal to ``zlib.adler32``;
-            paged attention within 2e-5 (f32) / 2e-2 (bf16) with poison
-            written past each length; then each path kernel timed at the
-            serving path's shape beside its plain version and its bound;
+            the serving path's full-width shapes (qwen2.5-3b: page 16, Hkv
+            2, hd 128; phi3-mini-3.8b: Hkv 32, hd 96) and at smoke shapes,
+            f32 and bf16: the codec's q, scales and crcs bit-identical and
+            every crc equal to ``zlib.adler32``; paged attention within
+            2e-5 (f32) / 2e-2 (bf16) with poison written past each length;
+            flash attention within the same tolerances over the reference's
+            sweep, windows, non-causal, ragged lengths, hd 16 and 96 and
+            the prefill shapes, and its gradient equal to the plain one;
+            then each path kernel timed beside its plain version, its bound
+            and, where one PyTorch call computes the same function, that
+            call (``library_ms``);
 3. serve  — qwen2.5-3b FULL (36 layers, d_model 2048, vocab 151936) in bf16
             with random weights from a seeded generator: 4 requests of 128
             prompt tokens and 16 new tokens, one of them suspended and
-            resumed mid-decode, so decode attention, page-out and page-in
-            all run.  Launch counts are zeroed just before and read just
-            after;
-4. parity — qwen2.5-3b SMOKE in f32 (TF32 off) served on the card and on
-            the CPU from the same weights, once with a roomy pool (page-out
-            and page-in) and once with a 2-page pool (conditional bypass
-            and hybrid attention): the greedy tokens and the cache's
+            resumed mid-decode, so prefill attention, decode attention,
+            page-out and page-in all run; then a profiled decode window;
+4. long   — the same model and weights, one engine with 512 pages of 16:
+            prompts of 1000 and 4000 tokens prefilled and decoded 4 tokens;
+5. phi3   — phi3-mini-3.8b FULL (32 layers, d_model 3072, MHA 32 heads of
+            96, vocab 32064) in bf16, served as in phase 3 without the
+            profile;
+6. parity — qwen2.5-3b and phi3-mini-3.8b SMOKE in f32 (TF32 off) served on
+            the card and on the CPU from the same weights, once with a roomy
+            pool (page-out and page-in) and once with a 2-page pool
+            (conditional bypass and hybrid attention, which runs the
+            paged-attention kernel): the greedy tokens and the cache's
             counters are equal.
 
-Then it prints a ``{"kernels": [...]}`` line, the card's name and power
-limit from nvidia-smi, and as its last line
+Launch counts are zeroed just before each of phases 3-6 drives the path
+and read just after.  Then it prints the phases' results, a
+``{"kernels": [...]}`` line, the card's name and power limit from
+nvidia-smi, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Any failed check
 exits non-zero before those lines; so does a machine without CUDA, or a
 directory without the repository's ``src/repro_torch``.
@@ -47,10 +60,14 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_OPS_PER_S = 67e12            # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
 TOL = {"f32": 2e-5, "bf16": 2e-2}
+QWEN, PHI3 = "qwen2.5-3b", "phi3-mini-3.8b"
 
 # name -> (kernel source, TPU kernel it replaces)
 KERNELS = {
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:91"),
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:73"),
     "gather_quantize_crc": ("src/repro_torch/kernels/csrc/block_transit.cu",
@@ -101,38 +118,50 @@ def device_events(prof):
 def device_ms(fn, iters: int, match: str | None = None) -> float | None:
     """Device time per call in ms from the profiler (CUPTI): the device ops
     whose name holds ``match``, or all of them when it is None.  None when
-    the profiler saw no device time."""
+    the profiler saw no device time, or missed ops: a profile of ``iters``
+    calls must hold ``iters`` times the ops a profile of one call holds
+    (it has been seen to drop some of a library call's kernels)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+
+    def ops(n):
         torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in device_events(prof)
-             if match is None or match in e.name)
-    return us / iters / 1e3 if us > 0 else None
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        return [e for e in device_events(prof)
+                if match is None or match in e.name]
+
+    fn()
+    per_call, events = len(ops(1)), ops(iters)
+    us = sum(e.time_range.end - e.time_range.start for e in events)
+    if us <= 0 or len(events) != per_call * iters:
+        return None
+    return us / iters / 1e3
 
 
 def kernel_times(fn, plain, iters: int, match: str) -> dict:
-    """``ms``/``plain_ms``: device time per call from the profiler, or the
-    CUDA-event time per call where the profiler saw none (``ms_from``
-    says which); ``call_ms``/``plain_call_ms``: the event time per call."""
+    """``ms``/``plain_ms``: device time per call from the profiler, each
+    column on its own falling back to the CUDA-event time per call where
+    its profile is empty or incomplete (``ms_from``/``plain_ms_from`` say
+    which); ``call_ms``/``plain_call_ms``: the event time per call.  The
+    kernel's profile counts only its own kernel's events (``match``)."""
     call, plain_call = time_ms(fn, iters), time_ms(plain, iters // 4)
     dev, plain_dev = device_ms(fn, iters, match), device_ms(plain, iters // 4)
-    if dev is None or plain_dev is None:
-        return dict(ms=call, plain_ms=plain_call, ms_from="events",
-                    call_ms=call, plain_call_ms=plain_call)
-    return dict(ms=dev, plain_ms=plain_dev, ms_from="profiler",
+    return dict(ms=call if dev is None else dev,
+                ms_from="events" if dev is None else "profiler",
+                plain_ms=plain_call if plain_dev is None else plain_dev,
+                plain_ms_from="events" if plain_dev is None else "profiler",
                 call_ms=call, plain_call_ms=plain_call)
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_ops: float,
+          ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     """The least time the card could take, in ms, and what bounds it."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -165,6 +194,8 @@ def check_paged_attention(torch, rng, results) -> None:
         ("smoke", 3, 4, 2, 16, 16, 16, 4, [1, 17, 64]),
         ("mqa-nrep8", 2, 8, 1, 128, 16, 12, 3, [48, 20]),
         ("mha-nrep1", 2, 2, 2, 64, 8, 8, 2, [9, 16]),
+        ("phi3-full", 4, 32, 32, 96, 16, 64, 16, [144, 137, 129, 1]),
+        ("qwen-long", 2, 16, 2, 128, 16, 512, 256, [1004, 4004]),
     ]
     worst = 0.0
     for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
@@ -195,6 +226,7 @@ def check_codec(torch, rng, results) -> None:
         ("full-n5", 64, 16, 256, 5),
         ("smoke", 16, 16, 32, 3),
         ("wide", 16, 8, 384, 4),
+        ("phi3-full", 64, 16, 3072, 2),
     ]
     for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         for label, P, page, F, n in cases:
@@ -247,13 +279,141 @@ def check_codec(torch, rng, results) -> None:
     results["scatter_dequantize_crc"] = {"max_abs_err": 0.0}
 
 
+FLASH_CASES = [  # (label, B, T, S, H, Hkv, hd, causal, window, dtypes)
+    ("sweep-mha", 1, 128, 128, 2, 2, 64, True, 0, ("f32", "bf16")),
+    ("sweep-gqa", 2, 256, 256, 4, 2, 64, True, 0, ("f32", "bf16")),
+    ("sweep-mqa-rect", 1, 128, 384, 8, 1, 128, True, 0, ("f32", "bf16")),
+    ("sweep-q>kv", 2, 384, 128, 4, 4, 64, True, 0, ("f32", "bf16")),
+    ("window32", 1, 256, 256, 2, 2, 64, True, 32, ("f32", "bf16")),
+    ("window128", 1, 256, 256, 2, 2, 64, True, 128, ("f32", "bf16")),
+    ("window500", 1, 256, 256, 2, 2, 64, True, 500, ("f32", "bf16")),
+    ("non-causal", 2, 128, 256, 2, 2, 64, False, 0, ("f32", "bf16")),
+    ("ragged100", 1, 100, 100, 4, 2, 64, True, 0, ("f32", "bf16")),
+    ("ragged300x257", 1, 300, 257, 4, 2, 128, True, 0, ("f32", "bf16")),
+    ("hd16", 1, 12, 12, 4, 2, 16, True, 0, ("f32", "bf16")),
+    ("hd96", 1, 100, 100, 4, 4, 96, True, 0, ("f32", "bf16")),
+    ("qwen-T128", 1, 128, 128, 16, 2, 128, True, 0, ("bf16",)),
+    ("qwen-T1000", 1, 1000, 1000, 16, 2, 128, True, 0, ("bf16",)),
+    ("qwen-T4000", 1, 4000, 4000, 16, 2, 128, True, 0, ("bf16",)),
+    ("phi3-T128", 1, 128, 128, 32, 32, 96, True, 0, ("bf16",)),
+]
+
+
+def flash_case(torch, rng, B, T, S, H, Hkv, hd, dtype):
+    return tuple(torch.tensor(rng.standard_normal(shape), dtype=dtype,
+                              device="cuda")
+                 for shape in ((B, T, H, hd), (B, S, Hkv, hd),
+                               (B, S, Hkv, hd)))
+
+
+def check_flash_attention(torch, rng, results) -> None:
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    worst = 0.0
+    for label, B, T, S, H, Hkv, hd, causal, window, dts in FLASH_CASES:
+        for dt in dts:
+            q, k, v = flash_case(torch, rng, B, T, S, H, Hkv, hd, dtypes[dt])
+            got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+            exp = flash_attention_plain(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            check(got.dtype == q.dtype and got.shape == q.shape,
+                  f"flash_attention {label}/{dt}: {got.dtype} {got.shape}")
+            err = (got.float() - exp.float()).abs()
+            ok = bool((err <= TOL[dt] + TOL[dt] * exp.float().abs()).all())
+            check(ok and bool(torch.isfinite(got).all()),
+                  f"flash_attention {label}/{dt}: max err {err.max():.3g}")
+            worst = max(worst, float(err.max()))
+            log(f"flash_attention {label}/{dt} ok, max abs err "
+                f"{float(err.max()):.3g}")
+            del q, k, v, got, exp, err
+    # the gradient: forward on the kernel, backward by recompute through
+    # the plain version, against autograd through the plain version alone
+    q, k, v = flash_case(torch, rng, 1, 128, 128, 16, 2, 128, torch.float32)
+    dout = torch.randn_like(q)
+    grads = []
+    for fn in (ops.flash_attention, flash_attention_plain):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fn(*leaves, causal=True, window=0).backward(dout)
+        grads.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    for name, got, exp in zip("qkv", *grads):
+        err = (got - exp).abs()
+        check(bool(torch.isfinite(got).all())
+              and bool((err <= 2e-5 + 2e-5 * exp.abs()).all()),
+              f"flash_attention d{name}: max err {float(err.max()):.3g}")
+    log("flash_attention gradient (q, k, v) on the card equals the plain "
+        "version's, finite")
+    results["flash_attention"] = {"max_abs_err": worst}
+
+
+def library_attention_ms(torch, q, k, v, iters: int) -> tuple[float, str]:
+    """``library_ms`` of flash attention: one call of PyTorch's fused
+    attention on the same inputs (heads moved to dim 1 as it wants them,
+    causal, GQA), device time per call, or the CUDA-event time where the
+    profiler could not give it; and which of the two.  Timed here only:
+    the port never calls it."""
+    import torch.nn.functional as F
+
+    def fn():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+    dev = device_ms(fn, iters)
+    return (dev, "profiler") if dev is not None else (time_ms(fn, iters),
+                                                      "events")
+
+
+def flash_pairs(T: int, S: int, causal: bool, window: int) -> int:
+    """The (q, k) pairs the mask keeps: the work this input needs."""
+    import numpy as np
+    qp = np.arange(T)
+    hi = np.minimum(qp + 1, S) if causal else np.full(T, S)
+    lo = np.maximum(qp - window + 1, 0) if window else np.zeros(T, int)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def time_flash(torch, rng, label, B, T, H, Hkv, hd, iters) -> dict:
+    """The kernel, its plain version and the library call at one causal
+    bf16 prefill shape (S = T), beside the bound."""
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    q, k, v = flash_case(torch, rng, B, T, T, H, Hkv, hd, torch.bfloat16)
+    n_bytes = 2 * (2 * B * T * H * hd + 2 * B * T * Hkv * hd)
+    n_ops = 4 * hd * H * B * flash_pairs(T, T, True, 0)
+    b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
+    lib_ms, lib_from = library_attention_ms(torch, q, k, v, iters)
+    out = dict(kernel_times(lambda: flash_attention_cuda(q, k, v),
+                            lambda: flash_attention_plain(q, k, v), iters,
+                            "flash_attention_kernel"),
+               shape=[B, T, H, Hkv, hd], dtype="bf16", bound_ms=b_ms,
+               bound_by=b_by, library_ms=lib_ms, library_ms_from=lib_from)
+    log(f"time flash_attention {label}: kernel {out['ms']:.5f} ms "
+        f"({out['ms_from']}), plain {out['plain_ms']:.5f} ms "
+        f"({out['plain_ms_from']}), library "
+        f"{lib_ms:.5f} ms ({lib_from}); per call: kernel "
+        f"{out['call_ms']:.5f} ms; bound {b_ms:.6f} ms ({b_by})")
+    return out
+
+
 def time_kernels(torch, rng, results) -> None:
-    """Each path kernel at the serving path's full-width shape in bf16:
-    decode attention over 4 sequences of 144 tokens (the last step), and
-    the codec at n = 1 page, as the cache launches it."""
+    """Each path kernel at the serving path's full-width shapes in bf16:
+    prefill attention at qwen2.5-3b's 128-token prompt (the row's numbers)
+    and at 4000 tokens and phi3-mini-3.8b's prompt (``at_shapes``); decode
+    attention over 4 sequences of 144 tokens (the last step); the codec
+    at n = 1 page, as the cache launches it."""
     from repro_torch.kernels import block_transit as bt
     from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                      paged_attention_plain)
+    shapes = [time_flash(torch, rng, "qwen-T128", 1, 128, 16, 2, 128, 200),
+              time_flash(torch, rng, "qwen-T4000", 1, 4000, 16, 2, 128, 20),
+              time_flash(torch, rng, "phi3-T128", 1, 128, 32, 32, 96, 200)]
+    results["flash_attention"].update(
+        {k: shapes[0][k] for k in ("ms", "plain_ms", "ms_from",
+                                   "plain_ms_from", "call_ms",
+                                   "plain_call_ms", "bound_ms", "bound_by",
+                                   "library_ms")}, at_shapes=shapes)
     B, H, Hkv, hd, page, P, maxp = 4, 16, 2, 128, 16, 64, 16
     lens = [144] * B
     args = paged_case(torch, rng, B, H, Hkv, hd, page, P, maxp, lens,
@@ -268,6 +428,18 @@ def time_kernels(torch, rng, results) -> None:
                      lambda: paged_attention_plain(*args), 200,
                      "paged_attention_kernel"),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    H3, Hkv3, hd3 = 32, 32, 96                   # phi3-mini-3.8b decode
+    args3 = paged_case(torch, rng, B, H3, Hkv3, hd3, page, P, maxp, lens,
+                       torch.bfloat16)
+    b3 = bound(2 * B * H3 * hd3 * 2 + n_pages * page * Hkv3 * hd3 * 2 * 2
+               + n_pages * 4 + B * 4,
+               sum(4 * H3 * n * hd3 + 3 * H3 * n for n in lens))
+    results["paged_attention"]["at_shapes"] = [dict(
+        kernel_times(lambda: paged_attention_cuda(*args3),
+                     lambda: paged_attention_plain(*args3), 200,
+                     "paged_attention_kernel"),
+        shape=[B, H3, Hkv3, hd3, page, lens[0]], dtype="bf16",
+        bound_ms=b3[0], bound_by=b3[1])]
 
     F = Hkv * hd
     pool = torch.randn((P, page, F), dtype=torch.bfloat16, device="cuda")
@@ -300,45 +472,42 @@ def time_kernels(torch, rng, results) -> None:
         "scatter_dequantize_kernel"), max_abs_err=0.0, bound_ms=b_ms,
         bound_by=b_by, library_ms=None)
     for name, r in results.items():
-        log(f"time {name}: kernel {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} "
-            f"ms ({r['ms_from']}); per call with launch: kernel "
+        log(f"time {name}: kernel {r['ms']:.5f} ms ({r['ms_from']}), plain "
+            f"{r['plain_ms']:.5f} ms ({r['plain_ms_from']}); per call with "
+            f"launch: kernel "
             f"{r['call_ms']:.5f} ms, plain {r['plain_call_ms']:.5f} ms; bound "
             f"{r['bound_ms']:.6f} ms ({r['bound_by']})")
 
 
-# ------------------------------------------------------------- phase 3
-def serve_full(torch, np) -> dict:
+# ------------------------------------------------------------- phase 3-5
+def init_full(torch, arch: str):
+    """FULL config and random bf16 parameters on the card from seed 0."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import _build
     from repro_torch.models.transformer import init_lm
-    from repro_torch.serve import PagedCacheConfig, ServeEngine
-
-    cfg = get_config("qwen2.5-3b", smoke=False)
+    cfg = get_config(arch, smoke=False)
     t0 = time.perf_counter()
     params = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    log(f"serve: {cfg.name} FULL, {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {n_params / 1e9:.3f} B params ({cfg.dtype}), init "
-        f"{time.perf_counter() - t0:.1f} s")
-    cache_cfg = PagedCacheConfig(
-        n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
-        page_size=16, n_pages=64, max_pages_per_seq=16, dtype=cfg.dtype)
-    eng = ServeEngine(cfg, params, cache_cfg=cache_cfg, max_batch=4,
-                      device="cuda")
-    rng = np.random.default_rng(0)
-    reqs = [eng.submit(rng.integers(2, cfg.vocab, size=128).tolist(),
-                       max_new_tokens=16) for _ in range(4)]
+    log(f"{arch} FULL: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.hd}, {n_params / 1e9:.3f} B "
+        f"params ({cfg.dtype}), init {time.perf_counter() - t0:.1f} s")
+    return cfg, params
 
-    spent = {"prefill_s": 0.0, "decode_s": 0.0, "decode_tokens": 0,
-             "decode_steps": 0}
+
+def timed_engine(torch, eng) -> dict:
+    """Wrap the engine's prefill and decode step with synchronised host
+    clocks; returns the running totals (restore with ``untime``)."""
+    spent = {"prefill_s": [], "decode_s": 0.0, "decode_tokens": 0,
+             "decode_steps": 0, "finite": True}
     prefill, decode = eng.lm.prefill, eng.lm.decode_step
 
     def timed_prefill(tokens, sid):
         t = time.perf_counter()
         out = prefill(tokens, sid)
         torch.cuda.synchronize()
-        spent["prefill_s"] += time.perf_counter() - t
+        spent["prefill_s"].append(time.perf_counter() - t)
+        spent["finite"] &= bool(torch.isfinite(out).all())
         return out
 
     def timed_decode(tokens, sids, positions):
@@ -348,9 +517,24 @@ def serve_full(torch, np) -> dict:
         spent["decode_s"] += time.perf_counter() - t
         spent["decode_tokens"] += len(sids)
         spent["decode_steps"] += 1
+        spent["finite"] &= bool(torch.isfinite(out).all())
         return out
 
     eng.lm.prefill, eng.lm.decode_step = timed_prefill, timed_decode
+    return spent
+
+
+def untime(eng) -> None:
+    """Drop the wrappers: the instance attributes go and the methods show
+    through again, with no bound method of the model left on it (a
+    reference cycle that would keep the weights alive after ``del``)."""
+    del eng.lm.prefill, eng.lm.decode_step
+
+
+def run_counted(torch, eng, suspend_at: int | None = None):
+    """Drive the engine to the end with the launch counts zeroed just
+    before and read just after; returns (seconds, ticks, counts)."""
+    from repro_torch.kernels import _build
     torch.cuda.synchronize()
     _build.reset_launch_counts()
     t0 = time.perf_counter()
@@ -358,54 +542,136 @@ def serve_full(torch, np) -> dict:
     while eng.queue or eng.running or eng.suspended:
         eng.step()
         ticks += 1
-        if ticks == 3:                       # preempt mid-decode
+        if ticks == suspend_at:              # preempt mid-decode
             eng.suspend(eng.running[0])
     torch.cuda.synchronize()
-    e2e = time.perf_counter() - t0
-    counts = _build.launch_counts()
-    eng.lm.prefill, eng.lm.decode_step = prefill, decode
+    return time.perf_counter() - t0, ticks, _build.launch_counts()
+
+
+def check_path_counts(tag, cfg, spent, counts, m) -> None:
+    """Every launch on the path went through its kernel, once per layer.
+    A page that bypassed to the host tier comes back in without the codec,
+    so the codec's counts are exact only where nothing bypassed."""
+    n_pre = len(spent["prefill_s"])
+    check(counts.get("flash_attention", 0) == cfg.n_layers * n_pre,
+          f"{tag}: {counts.get('flash_attention', 0)} flash launches for "
+          f"{n_pre} prefills of {cfg.n_layers} layers")
+    check(counts.get("paged_attention", 0)
+          == cfg.n_layers * spent["decode_steps"],
+          f"{tag}: {counts.get('paged_attention', 0)} attention launches for "
+          f"{spent['decode_steps']} decode steps")
+    if m.get("bypass_pages", 0):
+        return
+    check(counts.get("gather_quantize_crc", 0)
+          == 2 * cfg.n_layers * m.get("pages_out", 0),
+          f"{tag}: page-outs did not all go through the fused kernel")
+    check(counts.get("scatter_dequantize_crc", 0)
+          == 2 * cfg.n_layers * m.get("pages_in", 0),
+          f"{tag}: page-ins did not all go through the fused kernel")
+
+
+def serve_full(torch, np, cfg, params, profile: bool) -> dict:
+    """4 requests x (128 prompt + 16 new tokens) at full width, one of them
+    suspended and resumed, then a fresh prompt's logits; with ``profile``
+    also the profiled decode window."""
+    from repro_torch.serve import PagedCacheConfig, ServeEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    cache_cfg = PagedCacheConfig(
+        n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+        page_size=16, n_pages=64, max_pages_per_seq=16, dtype=cfg.dtype)
+    eng = ServeEngine(cfg, params, cache_cfg=cache_cfg, max_batch=4,
+                      device="cuda")
+    rng = np.random.default_rng(0)
+    reqs = [eng.submit(rng.integers(2, cfg.vocab, size=128).tolist(),
+                       max_new_tokens=16) for _ in range(4)]
+    spent = timed_engine(torch, eng)
+    e2e, ticks, counts = run_counted(torch, eng, suspend_at=3)
+    untime(eng)
     m = dict(eng.metrics.count)
+    tag = f"serve {cfg.name}"
 
     check(all(r.done and len(r.out_tokens) == 16 for r in reqs),
-          "serve: not every request finished with 16 tokens")
+          f"{tag}: not every request finished with 16 tokens")
     check(all(0 <= t < cfg.vocab for r in reqs for t in r.out_tokens),
-          "serve: a token outside the vocabulary")
+          f"{tag}: a token outside the vocabulary")
+    check(spent["finite"], f"{tag}: logits not finite")
     check(m.get("pages_out", 0) > 0 and m.get("pages_in", 0) > 0,
-          f"serve: pages out/in {m.get('pages_out')}/{m.get('pages_in')}")
-    check(m.get("transit_crc_errors", 0) == 0, "serve: transit crc errors")
+          f"{tag}: pages out/in {m.get('pages_out')}/{m.get('pages_in')}")
+    check(m.get("transit_crc_errors", 0) == 0, f"{tag}: transit crc errors")
     check(m.get("suspends") == 1 and m.get("resumes") == 1,
-          "serve: the suspend/resume did not happen")
+          f"{tag}: the suspend/resume did not happen")
     for name in KERNELS:
-        check(counts.get(name, 0) > 0, f"serve: {name} never launched")
-    check(counts["paged_attention"] == cfg.n_layers * spent["decode_steps"],
-          f"serve: {counts['paged_attention']} attention launches for "
-          f"{spent['decode_steps']} decode steps")
-    check(counts["gather_quantize_crc"] == 2 * cfg.n_layers * m["pages_out"],
-          "serve: page-outs did not all go through the fused kernel")
-    check(counts["scatter_dequantize_crc"] == 2 * cfg.n_layers * m["pages_in"],
-          "serve: page-ins did not all go through the fused kernel")
+        check(counts.get(name, 0) > 0, f"{tag}: {name} never launched")
+    check_path_counts(tag, cfg, spent, counts, m)
     check(eng.cache.free_pages() == cache_cfg.n_pages and len(eng.cache.host)
-          == 0, "serve: pages leaked")
+          == 0, f"{tag}: pages leaked")
     # the output itself: a fresh prompt's logits at full width
     sid = eng.cache.new_sequence()
-    logits = prefill(np.asarray(reqs[0].prompt[:32], np.int32), sid)
+    logits = eng.lm.prefill(np.asarray(reqs[0].prompt[:32], np.int32), sid)
     eng.cache.release(sid)
     torch.cuda.synchronize()
     check(logits.shape == (cfg.vocab,) and bool(torch.isfinite(logits).all()),
-          "serve: full-width logits not finite")
-    prof = profile_decode(torch, np, eng, cfg)
-    out = dict(spent, e2e_s=e2e, ticks=ticks, launches=counts, profile=prof,
-               pages_out=m["pages_out"], pages_in=m["pages_in"],
+          f"{tag}: full-width logits not finite")
+    out = dict(spent, prefill_s=sum(spent["prefill_s"]),
+               prefills=len(spent["prefill_s"]), e2e_s=e2e, ticks=ticks,
+               launches=counts, pages_out=m["pages_out"],
+               pages_in=m["pages_in"],
                decode_tok_s=spent["decode_tokens"] / spent["decode_s"],
                max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
-    log(f"serve: 4 requests x 16 tokens in {e2e:.2f} s end to end "
+    if profile:
+        out["profile"] = profile_decode(torch, np, eng, cfg)
+    log(f"{tag}: 4 requests x 16 tokens in {e2e:.2f} s end to end "
         f"({ticks} ticks); decode {spent['decode_tokens']} tokens in "
         f"{spent['decode_s']:.2f} s = {out['decode_tok_s']:.1f} tok/s; "
-        f"prefill {spent['prefill_s']:.2f} s; pages out/in "
+        f"prefill {out['prefill_s']:.2f} s; pages out/in "
         f"{m['pages_out']}/{m['pages_in']}; launches {counts}; peak memory "
-        f"{out['max_memory_gb']:.1f} GB")
-    del eng, params
-    torch.cuda.empty_cache()
+        f"{out['max_memory_gb']:.2f} GB")
+    del eng
+    return out
+
+
+def long_prompts(torch, np, cfg, params) -> dict:
+    """Prompts of 1000 and 4000 tokens through one engine with 512 pages
+    of 16 (max 256 a sequence): both prefilled, then 4 decode steps."""
+    from repro_torch.serve import PagedCacheConfig, ServeEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    cache_cfg = PagedCacheConfig(
+        n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+        page_size=16, n_pages=512, max_pages_per_seq=256, dtype=cfg.dtype)
+    eng = ServeEngine(cfg, params, cache_cfg=cache_cfg, max_batch=2,
+                      device="cuda")
+    rng = np.random.default_rng(2)
+    lens = (1000, 4000)
+    reqs = [eng.submit(rng.integers(2, cfg.vocab, size=n).tolist(),
+                       max_new_tokens=5) for n in lens]
+    spent = timed_engine(torch, eng)
+    e2e, ticks, counts = run_counted(torch, eng)
+    untime(eng)
+    m = dict(eng.metrics.count)
+    tag = f"long prompts {cfg.name}"
+    check(all(r.done and len(r.out_tokens) == 5 for r in reqs),
+          f"{tag}: unfinished")
+    check(spent["finite"], f"{tag}: logits not finite")
+    check(len(spent["prefill_s"]) == 2 and spent["decode_steps"] == 4,
+          f"{tag}: {len(spent['prefill_s'])} prefills, "
+          f"{spent['decode_steps']} decode steps")
+    check(m.get("bypass_pages", 0) == 0 and m.get("hybrid_attention", 0) == 0,
+          f"{tag}: the pool should hold both prompts")
+    check(m.get("transit_crc_errors", 0) == 0, f"{tag}: transit crc errors")
+    check_path_counts(tag, cfg, spent, counts, m)
+    check(eng.cache.free_pages() == cache_cfg.n_pages and len(eng.cache.host)
+          == 0, f"{tag}: pages leaked")
+    out = {"prompt_tokens": list(lens), "prefill_s": spent["prefill_s"],
+           "decode_s": spent["decode_s"], "decode_steps": 4, "e2e_s": e2e,
+           "launches": counts, "pages_out": m.get("pages_out", 0),
+           "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"{tag}: prefill {lens[0]} tokens {spent['prefill_s'][0]:.3f} s, "
+        f"{lens[1]} tokens {spent['prefill_s'][1]:.3f} s; 4 decode steps "
+        f"{spent['decode_s']:.3f} s; launches {counts}; peak memory "
+        f"{out['max_memory_gb']:.2f} GB")
+    del eng
     return out
 
 
@@ -475,58 +741,67 @@ def _leaves(tree):
         yield tree
 
 
-# ------------------------------------------------------------- phase 4
-def parity_smoke(torch, np) -> None:
-    """Two pools: a roomy one (64 pages of 8), where every page stays on the
-    card and the suspended request pages out and back in; and a tiny one
-    (2 pages of 4), where pages bypass to the host tier and decode runs
-    the hybrid attention path.  Tokens and the cache's counters must be
-    the same on the card and on the CPU."""
+# ------------------------------------------------------------- phase 6
+def parity_smoke(torch, np) -> dict:
+    """For each served architecture, two pools: a roomy one (64 pages of
+    8), where every page stays on the card and the suspended request pages
+    out and back in; and a tiny one (2 pages of 4), where pages bypass to
+    the host tier and decode runs the hybrid attention path.  Tokens and
+    the cache's counters must be the same on the card and on the CPU, and
+    on the card every prefill layer launches the flash kernel once and
+    every decode layer the paged-attention kernel once, hybrid or not."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_lm
     from repro_torch.serve import PagedCacheConfig, ServeEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config("qwen2.5-3b", smoke=True, dtype=torch.float32)
-    params = init_lm(cfg, torch.Generator().manual_seed(0))
     keys = ("pages_out", "pages_in", "bypass_pages", "hybrid_attention",
             "activate_stalls", "transit_crc_errors")
-    for label, n_pages, page_size in (("roomy", 64, 8), ("bypass", 2, 4)):
-        tokens, counts = {}, {}
-        for dev in ("cuda", "cpu"):
-            eng = ServeEngine(cfg, _to(params, dev), max_batch=2, device=dev,
-                              cache_cfg=PagedCacheConfig(
-                                  n_layers=cfg.n_layers,
-                                  n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
-                                  page_size=page_size, n_pages=n_pages,
-                                  max_pages_per_seq=16, dtype=cfg.dtype))
-            rng = np.random.default_rng(1)
-            reqs = [eng.submit(rng.integers(2, cfg.vocab, size=n).tolist(),
-                               max_new_tokens=8) for n in (12, 20, 9)]
-            ticks = 0
-            while eng.queue or eng.running or eng.suspended:
-                eng.step()
-                ticks += 1
-                if ticks == 2:
-                    eng.suspend(eng.running[0])
-            torch.cuda.synchronize()
-            check(all(r.done for r in reqs), f"parity {label}: unfinished")
-            tokens[dev] = [r.out_tokens for r in reqs]
-            counts[dev] = {k: eng.metrics.count.get(k, 0) for k in keys}
-        check(tokens["cuda"] == tokens["cpu"], f"parity {label}: cuda "
-              f"{tokens['cuda']} != cpu {tokens['cpu']}")
-        check(counts["cuda"] == counts["cpu"], f"parity {label}: counters "
-              f"cuda {counts['cuda']} != cpu {counts['cpu']}")
-        c = counts["cuda"]
-        check(c["transit_crc_errors"] == 0, f"parity {label}: crc errors")
-        if label == "roomy":
-            check(c["pages_in"] > 0, "parity roomy: no page-in")
-        else:
-            check(c["bypass_pages"] > 0 and c["hybrid_attention"] > 0,
-                  f"parity bypass: no bypass or hybrid attention {c}")
-        log(f"parity {label}: SMOKE f32 (TF32 off) greedy tokens equal on "
-            f"cuda and cpu: {tokens['cuda']}; counters {c}")
+    launches = {}
+    for arch in (QWEN, PHI3):
+        cfg = get_config(arch, smoke=True, dtype=torch.float32)
+        params = init_lm(cfg, torch.Generator().manual_seed(0))
+        for label, n_pages, page_size in (("roomy", 64, 8), ("bypass", 2, 4)):
+            tag = f"parity {arch} {label}"
+            tokens, counts = {}, {}
+            for dev in ("cuda", "cpu"):
+                eng = ServeEngine(cfg, _to(params, dev), max_batch=2,
+                                  device=dev, cache_cfg=PagedCacheConfig(
+                                      n_layers=cfg.n_layers,
+                                      n_kv_heads=cfg.n_kv_heads,
+                                      head_dim=cfg.hd, page_size=page_size,
+                                      n_pages=n_pages, max_pages_per_seq=16,
+                                      dtype=cfg.dtype))
+                rng = np.random.default_rng(1)
+                reqs = [eng.submit(rng.integers(2, cfg.vocab,
+                                                size=n).tolist(),
+                                   max_new_tokens=8) for n in (12, 20, 9)]
+                spent = timed_engine(torch, eng)
+                _, _, launched = run_counted(torch, eng, suspend_at=2)
+                untime(eng)
+                check(all(r.done for r in reqs), f"{tag}: unfinished")
+                tokens[dev] = [r.out_tokens for r in reqs]
+                counts[dev] = {k: eng.metrics.count.get(k, 0) for k in keys}
+                if dev == "cuda":
+                    check_path_counts(f"{tag} (cuda)", cfg, spent, launched,
+                                      counts[dev])
+                    launches[f"{arch} {label}"] = launched
+            check(tokens["cuda"] == tokens["cpu"], f"{tag}: cuda "
+                  f"{tokens['cuda']} != cpu {tokens['cpu']}")
+            check(counts["cuda"] == counts["cpu"], f"{tag}: counters "
+                  f"cuda {counts['cuda']} != cpu {counts['cpu']}")
+            c = counts["cuda"]
+            check(c["transit_crc_errors"] == 0, f"{tag}: crc errors")
+            if label == "roomy":
+                check(c["pages_in"] > 0, f"{tag}: no page-in")
+            else:
+                check(c["bypass_pages"] > 0 and c["hybrid_attention"] > 0,
+                      f"{tag}: no bypass or hybrid attention {c}")
+            log(f"{tag}: SMOKE f32 (TF32 off) greedy tokens equal on cuda "
+                f"and cpu: {tokens['cuda']}; counters {c}; cuda launches "
+                f"{launches[f'{arch} {label}']}")
+    return launches
 
 
 def _to(tree, dev):
@@ -557,8 +832,8 @@ def main() -> int:
     t_all = time.perf_counter()
     t0 = time.perf_counter()
     logs = _build.build_all()
-    _build.load("paged_attention")
-    _build.load("block_transit")
+    for name in _build.SOURCES:
+        _build.load(name)
     torch.cuda.synchronize()
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"({', '.join(logs) or 'already built'})")
@@ -571,20 +846,43 @@ def main() -> int:
     results: dict[str, dict] = {}
     check_paged_attention(torch, rng, results)
     check_codec(torch, rng, results)
+    check_flash_attention(torch, rng, results)
     time_kernels(torch, rng, results)
     torch.cuda.synchronize()
 
-    served = serve_full(torch, np)
+    cfg, params = init_full(torch, QWEN)
+    paths = {"serve": serve_full(torch, np, cfg, params, profile=True)}
     torch.cuda.synchronize()
-    parity_smoke(torch, np)
+    paths["long_prompts"] = long_prompts(torch, np, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    check(torch.cuda.memory_allocated() < 1e9,
+          f"qwen2.5-3b weights still held: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    cfg, params = init_full(torch, PHI3)
+    paths["serve_phi3"] = serve_full(torch, np, cfg, params, profile=False)
+    del params
+    torch.cuda.empty_cache()
+    parity = parity_smoke(torch, np)
     torch.cuda.synchronize()
+
+    # launches on the full-width paths (phases 3-5), each counted alone
+    launches = {name: sum(p["launches"].get(name, 0) for p in paths.values())
+                for name in (*KERNELS, "gather_quantize", "scatter_dequantize")}
+    for name in KERNELS:
+        check(launches[name] > 0, f"{name} never launched on the paths")
 
     def row(name, src, rep):
         return {"name": name, "route": "cuda", "source": src,
-                "replaces": rep, "launches": served["launches"].get(name, 0),
+                "replaces": rep, "launches": launches[name],
+                "launches_by_path": {k: p["launches"].get(name, 0)
+                                     for k, p in paths.items()},
                 **{k: results[name][k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "ms_from", "call_ms", "plain_call_ms")}}
+                    "library_ms", "ms_from", "plain_ms_from", "call_ms",
+                    "plain_call_ms")},
+                **({"at_shapes": results[name]["at_shapes"]}
+                   if "at_shapes" in results[name] else {})}
 
     line = {"kernels": [row(name, *v) for name, v in KERNELS.items()]}
     variants = {"variants_off_the_path": [
@@ -597,8 +895,10 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     log(f"total {time.perf_counter() - t_all:.1f} s")
-    print(json.dumps({"serve": {k: v for k, v in served.items()
+    for key, p in paths.items():
+        print(json.dumps({key: {k: v for k, v in p.items()
                                 if k != "launches"}}))
+    print(json.dumps({"parity_launches": parity}))
     print(json.dumps(variants))
     print(json.dumps(line))
     print(smi.stdout.strip().splitlines()[0])

@@ -8,6 +8,7 @@ from repro_torch.models.common import ModelConfig
 
 _MODULES = {
     "qwen2.5-3b": "repro_torch.configs.qwen25_3b",
+    "phi3-mini-3.8b": "repro_torch.configs.phi3_mini",
 }
 
 ARCHS = tuple(_MODULES)

@@ -6,14 +6,18 @@ The torch counterpart of ``repro/kernels/ops.py``'s TPU / interpret switch.
 """
 from __future__ import annotations
 
+import torch
+
 from .block_transit import (gather_quantize_crc_plain, gather_quantize_cuda,
                             gather_quantize_plain,
                             scatter_dequantize_crc_plain,
                             scatter_dequantize_cuda, scatter_dequantize_plain)
+from .flash_attention import flash_attention_cuda, flash_attention_plain
 from .paged_attention import paged_attention_cuda, paged_attention_plain
 
-__all__ = ["paged_attention", "gather_quantize", "scatter_dequantize",
-           "gather_quantize_crc", "scatter_dequantize_crc"]
+__all__ = ["flash_attention", "paged_attention", "gather_quantize",
+           "scatter_dequantize", "gather_quantize_crc",
+           "scatter_dequantize_crc"]
 
 
 def _on_card(t) -> bool:
@@ -22,6 +26,35 @@ def _on_card(t) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward on the kernel (CUDA) or the plain version (CPU); the
+    backward recomputes through the plain version, as the reference's
+    ``_flash_bwd`` does through its oracle: no backward kernel exists."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        if _on_card(q):
+            return flash_attention_cuda(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = flash_attention_plain(q, k, v, causal=ctx.causal,
+                                        window=ctx.window)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: (B, T, H, hd); k, v: (B, S, Hkv, hd) -> (B, T, H, hd), with a
+    gradient with respect to q, k and v."""
+    return _FlashAttention.apply(q, k, v, causal, window)
 
 
 def paged_attention(q, k_pool, v_pool, block_table, seq_lens):

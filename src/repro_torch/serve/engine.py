@@ -1,10 +1,10 @@
 """Serving engine: continuous batching over the paged (BTT-style) KV cache.
 
-The port of ``repro.serve.engine`` for the dense decoder family.  Per
-layer, the new token's K/V are written into the sequence's pages (the
-block-table write, lba -> pba) and decode attention walks the pages through
-the table inside the paged-attention kernel (its plain version for CPU
-tensors).
+The port of ``repro.serve.engine`` for the dense decoder family.  Prefill
+attends over the prompt in the flash-attention kernel.  Per decode layer,
+the new token's K/V are written into the sequence's pages (the block-table
+write, lba -> pba) and attention walks the pages through the table inside
+the paged-attention kernel.  CPU tensors take each kernel's plain version.
 
 Scheduling follows the paper's transit discipline:
   * finished / preempted sequences are *eagerly* packed to the host tier
@@ -13,8 +13,7 @@ Scheduling follows the paper's transit discipline:
     *bypass* to the host tier rather than stall a running decode.
 
 The layer loop runs on the host in Python, and the parameters are a plain
-dict on the engine's device (``models.transformer``).  The prefill keeps
-the plain causal attention (``flash_attention_ref``), as the reference does.
+dict on the engine's device (``models.transformer``).
 """
 from __future__ import annotations
 
@@ -25,7 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.metrics import Metrics
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ops import flash_attention
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import apply_norm, mlp_apply, rope
 from .kvcache import PagedCacheConfig, PagedKVCache
@@ -98,10 +97,9 @@ class PagedLM:
         ks, vs = [], []
         for blk in p["blocks"]:
             q, k, v = self._qkv(x, blk, positions)
-            # dense causal attention for the prompt; pages are written
-            # below for the decode phase
-            a = flash_attention_ref(q, k, v, causal=True,
-                                    window=cfg.attn_window)
+            # causal attention over the prompt (the flash kernel); pages
+            # are written below for the decode phase
+            a = flash_attention(q, k, v, causal=True, window=cfg.attn_window)
             x = self._finish_block(x, a.reshape(1, T, -1), blk)
             ks.append(k[0])                              # (T, Hkv, hd)
             vs.append(v[0])

@@ -42,7 +42,6 @@ import numpy as np
 import torch
 
 from repro_torch.core.metrics import Metrics
-from repro_torch.kernels import ref as kref
 from repro_torch.kernels.ops import (gather_quantize_crc, paged_attention,
                                      scatter_dequantize_crc)
 from repro_torch.volume.read_tier import ReadTier
@@ -481,12 +480,13 @@ class PagedKVCache:
         """q: (B, H, hd) one decode step for the given sequences.
 
         Fast path: every page device-resident AND every table within the
-        dense bound -> the block-table kernel (lba->pba walk fused in).
-        Slow path (pages bypassed to the host tier under pool pressure,
-        or a sequence past max_pages_per_seq): materialize each
-        sequence's KV from every tier and run the plain
-        ``paged_attention_ref`` over it, as the reference does — decode
-        keeps running instead of stalling on page-in."""
+        dense bound -> the block-table kernel over the pools (lba->pba
+        walk fused in).  Slow path (pages bypassed to the host tier under
+        pool pressure, or a sequence past max_pages_per_seq): materialize
+        each sequence's KV from every tier in f32, as the reference does,
+        and run the same kernel over that view laid out as a pool of
+        ``page_size`` pages with table row b = ``b * n_pg + arange(n_pg)``
+        — decode keeps running instead of stalling on page-in."""
         mp = self.cfg.max_pages_per_seq
         pg, H, hd = self.cfg.page_size, self.cfg.n_kv_heads, self.cfg.head_dim
         B = len(sids)
@@ -500,23 +500,22 @@ class PagedKVCache:
                 return paged_attention(q, self.k_pool[layer],
                                        self.v_pool[layer], table, lens)
             self.metrics.bump("hybrid_attention")
-            S = max(len(self.seqs[s].table) for s in sids) * pg
-            k = np.zeros((B, S, H, hd), np.float32)
-            v = np.zeros((B, S, H, hd), np.float32)
+            n_pg = max(len(self.seqs[s].table) for s in sids)
+            k = np.zeros((B, n_pg, pg, H, hd), np.float32)
+            v = np.zeros((B, n_pg, pg, H, hd), np.float32)
             lens = np.zeros((B,), np.int32)
             for bi, sid in enumerate(sids):
                 seq = self.seqs[sid]
                 lens[bi] = seq.length
                 for li, entry in enumerate(seq.table):
-                    pk, pv = self._page_kv(layer, entry)
-                    k[bi, li * pg:(li + 1) * pg] = pk
-                    v[bi, li * pg:(li + 1) * pg] = pv
-        # single-"page" plain attention over the materialized view
+                    k[bi, li], v[bi, li] = self._page_kv(layer, entry)
         dev = q.device
-        table = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
-        return kref.paged_attention_ref(q, torch.from_numpy(k).to(dev),
-                                        torch.from_numpy(v).to(dev), table,
-                                        torch.from_numpy(lens).to(dev))
+        table = torch.arange(B * n_pg, dtype=torch.int32,
+                             device=dev).reshape(B, n_pg)
+        kview = torch.from_numpy(k.reshape(B * n_pg, pg, H, hd)).to(dev)
+        vview = torch.from_numpy(v.reshape(B * n_pg, pg, H, hd)).to(dev)
+        return paged_attention(q.float(), kview, vview, table,
+                               torch.from_numpy(lens).to(dev)).to(q.dtype)
 
     # ---------------------------------------------------------------- stats
     def occupancy(self) -> float:

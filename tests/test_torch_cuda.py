@@ -16,6 +16,8 @@ from repro_torch.kernels.block_transit import (gather_quantize_crc_plain,
                                                gather_quantize_cuda,
                                                scatter_dequantize_crc_plain,
                                                scatter_dequantize_cuda)
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_plain)
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain)
 
@@ -36,6 +38,7 @@ def card():
     (4, 16, 2, 128, 16, 64, 16),   # qwen2.5-3b decode
     (3, 4, 2, 16, 16, 16, 4),      # qwen2.5-3b SMOKE
     (2, 8, 1, 128, 16, 12, 3),     # n_rep 8
+    (4, 32, 32, 96, 16, 64, 16),   # phi3-mini-3.8b decode: hd 96, n_rep 1
 ])
 def test_paged_attention_kernel_matches_plain(card, B, H, Hkv, hd, page, P,
                                               maxp, dtype):
@@ -57,7 +60,8 @@ def test_paged_attention_kernel_matches_plain(card, B, H, Hkv, hd, page, P,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("P,page,F,n", [(64, 16, 256, 1), (16, 8, 384, 4),
-                                        (16, 16, 32, 3)])
+                                        (16, 16, 32, 3),
+                                        (64, 16, 3072, 2)])   # phi3 width
 def test_transit_codec_kernels_bit_exact(card, P, page, F, n, dtype):
     g = torch.Generator(device=card).manual_seed(1)
     pool = (torch.randn((P, page, F), generator=g, device=card) * 3).to(dtype)
@@ -84,3 +88,99 @@ def test_ops_route_cuda_tensors_to_the_kernels(card):
     after = _build.launch_counts()
     for name in ("gather_quantize_crc", "scatter_dequantize_crc"):
         assert after.get(name, 0) == before.get(name, 0) + 1
+
+
+def _qkv(card, B, T, S, H, Hkv, hd, dtype, seed=0):
+    g = torch.Generator(device=card).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=card).to(dtype)
+                 for shape in ((B, T, H, hd), (B, S, Hkv, hd),
+                               (B, S, Hkv, hd)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,H,Hkv,hd,causal,window", [
+    (1, 128, 128, 2, 2, 64, True, 0),      # tests/test_kernels.py's sweep
+    (2, 256, 256, 4, 2, 64, True, 0),
+    (1, 128, 384, 8, 1, 128, True, 0),
+    (2, 384, 128, 4, 4, 64, True, 0),
+    (1, 256, 256, 2, 2, 64, True, 32),     # sliding windows
+    (1, 256, 256, 2, 2, 64, True, 128),
+    (1, 256, 256, 2, 2, 64, True, 500),
+    (2, 128, 256, 2, 2, 64, False, 0),     # non-causal
+    (1, 100, 100, 4, 2, 64, True, 0),      # ragged
+    (1, 300, 257, 4, 2, 128, True, 0),
+    (1, 12, 12, 4, 2, 16, True, 0),        # SMOKE prefill, hd 16
+    (1, 128, 128, 32, 32, 96, True, 0),    # phi3-mini-3.8b prefill, hd 96
+    (1, 300, 257, 2, 1, 64, False, 32),    # rows past every key -> 0
+    (1, 70, 70, 2, 1, 20, True, 0),        # hd 20: scalar loads in bf16
+])
+def test_flash_attention_kernel_matches_plain(card, B, T, S, H, Hkv, hd,
+                                              causal, window, dtype):
+    q, k, v = _qkv(card, B, T, S, H, Hkv, hd, dtype)
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    exp = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), exp.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+def test_flash_attention_refuses_what_the_kernel_does_not_take(card):
+    q, k, v = _qkv(card, 1, 8, 8, 2, 2, 192, torch.float32)
+    with pytest.raises(ValueError, match="head width"):
+        flash_attention_cuda(q, k, v)
+    q, k, v = _qkv(card, 1, 8, 8, 2, 2, 64, torch.float32)
+    with pytest.raises(TypeError, match="one dtype"):
+        flash_attention_cuda(q, k.half(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_cuda(q.transpose(1, 2), k, v)
+
+
+def test_flash_attention_gradient_on_the_card(card):
+    """ops.flash_attention: forward on the kernel (one launch), backward
+    by recompute through the plain version; both equal the plain op's."""
+    q, k, v = _qkv(card, 2, 96, 96, 4, 2, 64, torch.float32, seed=3)
+    dout = torch.randn_like(q)
+    grads = []
+    for fn in (ops.flash_attention, flash_attention_plain):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = _build.launch_counts().get("flash_attention", 0)
+        out = fn(*leaves, causal=True, window=40)
+        out.backward(dout)
+        launched = _build.launch_counts().get("flash_attention", 0) - before
+        assert launched == (1 if fn is ops.flash_attention else 0)
+        grads.append([out.detach()] + [t.grad for t in leaves])
+    torch.cuda.synchronize()
+    for got, exp in zip(*grads):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, exp, atol=2e-5, rtol=2e-5)
+
+
+def test_hybrid_attention_on_the_card_matches_the_plain_tiers(card):
+    """A 2-page pool sends a sequence's later pages to the host tier; the
+    hybrid path then runs the paged-attention kernel over the f32 view of
+    every tier, and equals the same cache on the CPU (plain version)."""
+    from repro_torch.core.metrics import Metrics
+    from repro_torch.serve import PagedCacheConfig, PagedKVCache
+    rng = np.random.default_rng(2)
+    caches = {dev: PagedKVCache(PagedCacheConfig(
+        n_layers=2, n_kv_heads=2, head_dim=16, page_size=4, n_pages=2,
+        max_pages_per_seq=8, dtype=torch.float32), metrics=Metrics(),
+        device=dev) for dev in ("cuda", "cpu")}
+    sids = {dev: c.new_sequence() for dev, c in caches.items()}
+    for _ in range(11):
+        k = rng.standard_normal((2, 16)).astype(np.float32)
+        v = rng.standard_normal((2, 16)).astype(np.float32)
+        for dev, c in caches.items():
+            c.append_token(sids[dev], [torch.tensor(k, device=dev)] * 2,
+                           [torch.tensor(v, device=dev)] * 2)
+    q = rng.standard_normal((1, 4, 16)).astype(np.float32)
+    before = _build.launch_counts().get("paged_attention", 0)
+    got = caches["cuda"].attention(1, torch.tensor(q, device=card),
+                                   [sids["cuda"]])
+    exp = caches["cpu"].attention(1, torch.tensor(q), [sids["cpu"]])
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["paged_attention"] == before + 1
+    assert caches["cuda"].metrics.count["hybrid_attention"] == 1
+    torch.testing.assert_close(got.cpu(), exp, atol=2e-5, rtol=2e-5)

@@ -1,11 +1,14 @@
 """The port's serving slice on the CPU against the JAX reference, on
-qwen2.5-3b SMOKE with the JAX init converted by ``params_from_jax``.
+qwen2.5-3b SMOKE (and phi3-mini-3.8b SMOKE for the decode parity) with the
+JAX init converted by ``params_from_jax``.
 
 f32: greedy tokens equal ``model.prefill``/``decode_step``'s (the dense
 ring-cache path) and logits agree within 1e-4.  bf16: logits agree with
 the reference's own ``PagedLM`` (plain attention path) within 2e-2 — the
 model path attends in a different order of bf16 roundings, so it is not
 the bf16 oracle.  Then the serving scenarios of ``test_train_serve.py``."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,12 +30,12 @@ JD = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 TD = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
-@pytest.fixture(scope="module")
-def models():
+@functools.lru_cache(maxsize=None)
+def _models(arch: str):
     """dtype -> (jax cfg, jax model, jax params, port cfg, port params).
     One JAX init in f32; the bf16 tree is its cast, which is what
     ``init_lm`` with a bf16 config draws (norm scales stay f32)."""
-    cj = jax_config("qwen2.5-3b", smoke=True).with_(dtype=jnp.float32)
+    cj = jax_config(arch, smoke=True).with_(dtype=jnp.float32)
     model = build_model(cj)
     params = model.init(jax.random.PRNGKey(0))
     norms = {"ln1", "ln2", "final_norm"}
@@ -42,10 +45,15 @@ def models():
     out = {}
     for dt, tree in trees.items():
         cjd = cj.with_(dtype=JD[dt])
-        ct = get_config("qwen2.5-3b", smoke=True, dtype=TD[dt])
+        ct = get_config(arch, smoke=True, dtype=TD[dt])
         tp = params_from_jax(jax.tree.map(np.asarray, tree), ct, "cpu")
         out[dt] = (cjd, build_model(cjd), tree, ct, tp)
     return out
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _models("qwen2.5-3b")
 
 
 def _cache_cfg(ct, pool_pages=64, page_size=8):
@@ -73,9 +81,11 @@ def test_params_from_jax_is_exact(models):
     assert tp["blocks"][1]["ln2"]["scale"].dtype == torch.float32
 
 
-def test_paged_decode_matches_dense_reference(models):
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "phi3-mini-3.8b"])
+def test_paged_decode_matches_dense_reference(arch):
     """Greedy tokens from the port's engine == tokens from the reference
     dense-cache decode path, and the logits agree step by step."""
+    models = _models(arch)
     cj, model, params, ct, tp = models["f32"]
     prompt = np.random.default_rng(0).integers(2, cj.vocab, size=(12,))
     eng = _engine(models)

@@ -17,6 +17,7 @@ from repro_torch.kernels import _build, ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.block_transit import (gather_quantize_cuda,
                                                scatter_dequantize_cuda)
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.paged_attention import paged_attention_cuda
 
 
@@ -140,6 +141,63 @@ def test_flash_attention_ref_matches_jax(B, T, S, H, Hkv, hd, causal, window,
                                rtol=TOL[dt])
 
 
+FLASH_SWEEP = [  # tests/test_kernels.py:21-62, then ragged T/S and hd 96
+    (1, 128, 128, 2, 2, 64, True, 0),
+    (2, 256, 256, 4, 2, 64, True, 0),
+    (1, 128, 384, 8, 1, 128, True, 0),
+    (2, 384, 128, 4, 4, 64, True, 0),
+    (1, 256, 256, 2, 2, 64, True, 32),
+    (1, 256, 256, 2, 2, 64, True, 128),
+    (1, 256, 256, 2, 2, 64, True, 500),
+    (2, 128, 256, 2, 2, 64, False, 0),
+    (1, 100, 100, 4, 2, 64, True, 0),
+    (1, 300, 257, 4, 2, 128, True, 0),
+    (1, 128, 128, 8, 8, 96, True, 0),
+]
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("B,T,S,H,Hkv,hd,causal,window", FLASH_SWEEP)
+def test_flash_attention_op_matches_jax(B, T, S, H, Hkv, hd, causal, window,
+                                        dt):
+    """The public op (plain version on the CPU) against the JAX oracle."""
+    rng = np.random.default_rng(7)
+    qj, qt = both(rng.standard_normal((B, T, H, hd)), dt)
+    kj, kt = both(rng.standard_normal((B, S, Hkv, hd)), dt)
+    vj, vt = both(rng.standard_normal((B, S, Hkv, hd)), dt)
+    out = ops.flash_attention(qt, kt, vt, causal=causal, window=window)
+    exp = jref.flash_attention_ref(qj, kj, vj, causal=causal, window=window)
+    assert out.dtype == TD[dt] and out.shape == (B, T, H, hd)
+    np.testing.assert_allclose(np32(out), np32(exp), atol=TOL[dt],
+                               rtol=TOL[dt])
+
+
+@pytest.mark.parametrize("B,T,S,H,Hkv,hd,causal,window", [
+    (1, 64, 64, 4, 2, 32, True, 0),
+    (1, 48, 48, 2, 2, 16, True, 20),
+    (2, 24, 40, 2, 1, 16, False, 0),
+    (1, 40, 33, 3, 3, 96, True, 0),
+])
+def test_flash_attention_grad_matches_jax_vjp(B, T, S, H, Hkv, hd, causal,
+                                              window):
+    """d(q, k, v) of the op against ``jax.vjp`` of the oracle, which is
+    what the reference's ``_flash_bwd`` returns; f32 within 2e-5."""
+    rng = np.random.default_rng(8)
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in (
+        (B, T, H, hd), (B, S, Hkv, hd), (B, S, Hkv, hd))]
+    g = rng.standard_normal((B, T, H, hd)).astype(np.float32)
+    _, vjp = jax.vjp(lambda q, k, v: _jref.flash_attention_ref(
+        q, k, v, causal=causal, window=window), *map(jnp.asarray, arrs))
+    exp = vjp(jnp.asarray(g))
+    leaves = [torch.tensor(a, requires_grad=True) for a in arrs]
+    ops.flash_attention(*leaves, causal=causal, window=window).backward(
+        torch.tensor(g))
+    for got, e in zip(leaves, exp):
+        assert torch.isfinite(got.grad).all()
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(e),
+                                   atol=2e-5, rtol=2e-5)
+
+
 # ---------------------------------------------------------------- transit codec
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("P,page,F", [(8, 16, 128), (4, 32, 256),
@@ -241,6 +299,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     lens = torch.ones((1,), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         paged_attention_cuda(q, pool, pool, table, lens)
+    qf = torch.zeros((1, 8, 2, 16))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        flash_attention_cuda(qf, qf, qf)
     flat = torch.zeros((2, 4, 32))
     ids = torch.zeros((1,), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensors only"):

@@ -119,6 +119,52 @@ def test_conditional_bypass_under_pool_pressure_and_hybrid_attention():
                                rtol=2e-5)
 
 
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_hybrid_attention_unchanged_by_the_paged_view(q_dtype):
+    """The hybrid path lays the f32 view of every tier out as a pool of
+    ``page_size`` pages for the paged-attention op.  Its output is bit for
+    bit the reference's formulation (the plain version over one page of
+    S tokens per sequence, ``repro.serve.kvcache``), and within 2e-5 of
+    the JAX cache's hybrid attention on the same tokens."""
+    rng = np.random.default_rng(12)
+    c = _cache(n_pages=2)
+    jc = JaxKVCache(JaxCacheConfig(**SHAPE, n_pages=2, max_pages_per_seq=8,
+                                   read_tier_pages=8, dtype=jnp.float32))
+    sids = [c.new_sequence() for _ in range(2)]
+    jsids = [jc.new_sequence() for _ in range(2)]
+    L, H, hd = SHAPE["n_layers"], SHAPE["n_kv_heads"], SHAPE["head_dim"]
+    dense = {sid: ([], []) for sid in sids}
+    for sid, jsid, n in zip(sids, jsids, (11, 6)):
+        for _ in range(n):
+            k = rng.standard_normal((H, hd)).astype(np.float32)
+            v = rng.standard_normal((H, hd)).astype(np.float32)
+            c.append_token(sid, [torch.tensor(k)] * L, [torch.tensor(v)] * L)
+            jc.append_token(jsid, [jnp.asarray(k)] * L, [jnp.asarray(v)] * L)
+            dense[sid][0].append(k)
+            dense[sid][1].append(v)
+    assert c.metrics.count["bypass_pages"] == 3
+    q32 = rng.standard_normal((2, 4, hd)).astype(np.float32)
+    q = torch.tensor(q32).to(q_dtype)
+    out = c.attention(1, q, sids)
+    assert c.metrics.count["hybrid_attention"] == 1
+    assert out.dtype == q_dtype and out.shape == (2, 4, hd)
+    S = 3 * SHAPE["page_size"]
+    kv = np.zeros((2, 2, S, H, hd), np.float32)
+    for bi, sid in enumerate(sids):
+        for j in range(2):
+            toks = np.stack(dense[sid][j])
+            kv[j, bi, :len(toks)] = toks
+    before = tref.paged_attention_ref(
+        q, torch.tensor(kv[0]), torch.tensor(kv[1]),
+        torch.arange(2, dtype=torch.int32)[:, None],
+        torch.tensor([11, 6], dtype=torch.int32))
+    assert torch.equal(out, before)
+    exp = jc.attention(1, jnp.asarray(q32), jsids)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(exp),
+                               atol=2e-5 if q_dtype == torch.float32
+                               else 2e-2, rtol=2e-5)
+
+
 def test_release_returns_every_page():
     rng = np.random.default_rng(3)
     c = _cache(n_pages=4)
