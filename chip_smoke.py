@@ -7,7 +7,9 @@ Phases, each ending in ``torch.cuda.synchronize()``:
 
 1. build  — compile every CUDA source of ``src/repro_torch/kernels/csrc``
             (one nvcc per source, all at once), print the seconds and
-            each kernel's registers and spills from ptxas;
+            each kernel's registers and spills from ptxas; the tensor-core
+            flash kernel must not spill, and ``cuobjdump -sass`` of its
+            library must show HGMMA (wgmma) instructions;
 2. kernels — each kernel against its plain PyTorch version on the card, at
             the serving path's full-width shapes (qwen2.5-3b: page 16, Hkv
             2, hd 128; phi3-mini-3.8b: Hkv 32, hd 96) and at smoke shapes,
@@ -16,7 +18,9 @@ Phases, each ending in ``torch.cuda.synchronize()``:
             2e-5 (f32) / 2e-2 (bf16) with poison written past each length;
             flash attention within the same tolerances over the reference's
             sweep, windows, non-causal, ragged lengths, hd 16 and 96 and
-            the prefill shapes, and its gradient equal to the plain one;
+            the prefill shapes, every bf16 case on the tensor-core kernel
+            and every f32 one on the SIMT kernel, and its gradient equal
+            to the plain one;
             then each path kernel timed beside its plain version, its bound
             and, where one PyTorch call computes the same function, that
             call (``library_ms``);
@@ -38,7 +42,8 @@ Phases, each ending in ``torch.cuda.synchronize()``:
             counters are equal.
 
 Launch counts are zeroed just before each of phases 3-6 drives the path
-and read just after.  Then it prints the phases' results, a
+and read just after; every bf16 prefill layer must run the tensor-core
+flash kernel, every f32 one the SIMT kernel.  Then it prints the phases' results, a
 ``{"kernels": [...]}`` line, the card's name and power limit from
 nvidia-smi, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Any failed check
@@ -62,10 +67,26 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_OPS_PER_S = 67e12            # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
 TOL = {"f32": 2e-5, "bf16": 2e-2}
+# Each output row (the hd values of one query head at one position) is
+# also held as a whole: ||got - exp|| <= ROW_TOL * ||exp||.  Attention over
+# thousands of keys gives elements of a few hundredths, the size of the
+# bf16 element tolerance, so that tolerance alone could miss a kernel that
+# drops or repeats a tile of keys on long rows; a sound bf16 kernel reads
+# about 0.004 here (output rounding plus P rounded to bf16), a dropped
+# tile 0.07 or more.
+ROW_TOL = {"f32": 1e-4, "bf16": 1e-2}
 QWEN, PHI3 = "qwen2.5-3b", "phi3-mini-3.8b"
 
-# name -> (kernel source, TPU kernel it replaces)
+# name -> (kernel source, TPU kernel it replaces).  Flash attention has two
+# kernels: "flash_attention_tc" (bf16 with hd % 8 == 0, every full-width
+# prefill) and "flash_attention", the SIMT kernel (f32, other hd).  The
+# wrapper counts every call as "flash_attention" and the tensor-core ones
+# also as "flash_attention_tc"; the SIMT kernel's launches are the
+# difference.
 KERNELS = {
+    "flash_attention_tc": (
+        "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+        "src/repro/kernels/flash_attention.py:91"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:91"),
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -79,6 +100,23 @@ KERNELS = {
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def kernel_launches(counts: dict) -> dict:
+    """Launches of each kernel from the wrappers' counts: the SIMT flash
+    kernel's are the flash calls that did not take the tensor cores."""
+    out = dict(counts)
+    out["flash_attention"] = (counts.get("flash_attention", 0)
+                              - counts.get("flash_attention_tc", 0))
+    return out
+
+
+def row_rel_err(got, exp) -> float:
+    """The largest ||got - exp|| / ||exp|| over the output's rows (its last
+    dimension); a row whose reference is zero must come out zero."""
+    d = (got.float() - exp.float()).norm(dim=-1)
+    n = exp.float().norm(dim=-1)
+    return float((d / n.clamp(min=1e-30)).max()) if d.numel() else 0.0
 
 
 def check(cond, msg: str) -> None:
@@ -165,6 +203,37 @@ def bound(n_bytes: float, n_ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# ------------------------------------------------------------- phase 1
+def check_build(_build) -> None:
+    """Each kernel's registers and spills from ptxas (the build's log kept
+    beside each library), no spills in the tensor-core flash kernel, and
+    ``HGMMA`` (wgmma) instructions in its compiled SASS."""
+    import re
+    for name in _build.SOURCES:
+        fn = "?"
+        for line in _build.lib_path(name).with_suffix(".log").read_text() \
+                .splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?(\w+)", line)
+            if m:
+                fn = m.group(1)
+            elif "registers" in line or "spill" in line:
+                log(f"ptxas {name} {fn[:60]}: {line.strip()}")
+                spills = re.search(r"(\d+) bytes spill stores", line)
+                check(name != "flash_attention_sm90" or spills is None
+                      or spills.group(1) == "0",
+                      f"ptxas: {fn} spills registers")
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(_build.lib_path("flash_attention_sm90"))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    n = sass.count("HGMMA")
+    check(n > 0, "flash_attention_sm90: no HGMMA instruction in its SASS")
+    log(f"cuobjdump -sass flash_attention_sm90: {n} HGMMA, "
+        f"{sass.count('UTMALDG')} UTMALDG (TMA load) instructions")
+
+
 # ------------------------------------------------------------- phase 2
 def paged_case(torch, rng, B, H, Hkv, hd, page, P, maxp, lens, dtype):
     """Random pools with poison past every length, a unique-page table."""
@@ -197,26 +266,34 @@ def check_paged_attention(torch, rng, results) -> None:
         ("phi3-full", 4, 32, 32, 96, 16, 64, 16, [144, 137, 129, 1]),
         ("qwen-long", 2, 16, 2, 128, 16, 512, 256, [1004, 4004]),
     ]
-    worst = 0.0
+    worst = worst_row = 0.0
     for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         for label, B, H, Hkv, hd, page, P, maxp, lens in cases:
             args = paged_case(torch, rng, B, H, Hkv, hd, page, P, maxp, lens,
                               dtype)
-            got = paged_attention_cuda(*args)
             exp = paged_attention_plain(*args)
-            torch.cuda.synchronize()
-            check(got.dtype == dtype and got.shape == (B, H, hd),
-                  f"paged_attention {label}/{dt}: {got.dtype} {got.shape}")
-            err = (got.float() - exp.float()).abs()
-            ok = bool((err <= TOL[dt] + TOL[dt] * exp.float().abs()).all())
-            check(ok and torch.isfinite(got).all(),
-                  f"paged_attention {label}/{dt}: max err {err.max():.3g}")
-            if lens[0] == 0:
-                check(bool((got[0] == 0).all()), "len 0 must give zeros")
-            worst = max(worst, float(err.max()))
-            log(f"paged_attention {label}/{dt} ok, max abs err "
-                f"{float(err.max()):.3g}")
-    results["paged_attention"] = {"max_abs_err": worst}
+            # the wrapper's split plan, then one split and a page a split
+            for pps in (None, maxp, 1):
+                got = paged_attention_cuda(*args, pages_per_split=pps)
+                torch.cuda.synchronize()
+                tag = f"paged_attention {label}/{dt} pages_per_split {pps}"
+                check(got.dtype == dtype and got.shape == (B, H, hd),
+                      f"{tag}: {got.dtype} {got.shape}")
+                err = (got.float() - exp.float()).abs()
+                ok = bool((err <= TOL[dt] + TOL[dt] * exp.float().abs()).all())
+                row = row_rel_err(got, exp)
+                check(ok and torch.isfinite(got).all(),
+                      f"{tag}: max err {err.max():.3g}")
+                check(row <= ROW_TOL[dt],
+                      f"{tag}: row error {row:.3g} > {ROW_TOL[dt]}")
+                if lens[0] == 0:
+                    check(bool((got[0] == 0).all()), "len 0 must give zeros")
+                worst = max(worst, float(err.max()))
+                worst_row = max(worst_row, row)
+            log(f"paged_attention {label}/{dt} ok at 3 split plans, max abs "
+                f"err {float(err.max()):.3g}, max row rel err {row:.3g}")
+    results["paged_attention"] = {"max_abs_err": worst,
+                                  "max_row_rel_err": worst_row}
 
 
 def check_codec(torch, rng, results) -> None:
@@ -307,26 +384,38 @@ def flash_case(torch, rng, B, T, S, H, Hkv, hd, dtype):
 
 
 def check_flash_attention(torch, rng, results) -> None:
-    from repro_torch.kernels import ops
+    """Every case through the wrapper's own route: bf16 on the tensor-core
+    kernel (all these hd are multiples of 8), f32 on the SIMT kernel."""
+    from repro_torch.kernels import _build, ops
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain)
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
-    worst = 0.0
+    worst = {"flash_attention": 0.0, "flash_attention_tc": 0.0}
+    worst_row = dict(worst)
     for label, B, T, S, H, Hkv, hd, causal, window, dts in FLASH_CASES:
         for dt in dts:
             q, k, v = flash_case(torch, rng, B, T, S, H, Hkv, hd, dtypes[dt])
+            before = _build.launch_counts().get("flash_attention_tc", 0)
             got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+            tc = _build.launch_counts().get("flash_attention_tc", 0) - before
+            check(tc == (dt == "bf16"),
+                  f"flash_attention {label}/{dt}: {tc} tensor-core launches")
             exp = flash_attention_plain(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
             check(got.dtype == q.dtype and got.shape == q.shape,
                   f"flash_attention {label}/{dt}: {got.dtype} {got.shape}")
             err = (got.float() - exp.float()).abs()
             ok = bool((err <= TOL[dt] + TOL[dt] * exp.float().abs()).all())
+            row = row_rel_err(got, exp)
             check(ok and bool(torch.isfinite(got).all()),
                   f"flash_attention {label}/{dt}: max err {err.max():.3g}")
-            worst = max(worst, float(err.max()))
-            log(f"flash_attention {label}/{dt} ok, max abs err "
-                f"{float(err.max()):.3g}")
+            check(row <= ROW_TOL[dt], f"flash_attention {label}/{dt}: row "
+                  f"error {row:.3g} > {ROW_TOL[dt]}")
+            name = "flash_attention_tc" if tc else "flash_attention"
+            worst[name] = max(worst[name], float(err.max()))
+            worst_row[name] = max(worst_row[name], row)
+            log(f"flash_attention {label}/{dt} ok on {name}, max abs err "
+                f"{float(err.max()):.3g}, max row rel err {row:.3g}")
             del q, k, v, got, exp, err
     # the gradient: forward on the kernel, backward by recompute through
     # the plain version, against autograd through the plain version alone
@@ -345,7 +434,9 @@ def check_flash_attention(torch, rng, results) -> None:
               f"flash_attention d{name}: max err {float(err.max()):.3g}")
     log("flash_attention gradient (q, k, v) on the card equals the plain "
         "version's, finite")
-    results["flash_attention"] = {"max_abs_err": worst}
+    for name, err in worst.items():
+        results[name] = {"max_abs_err": err,
+                         "max_row_rel_err": worst_row[name]}
 
 
 def library_attention_ms(torch, q, k, v, iters: int) -> tuple[float, str]:
@@ -374,48 +465,43 @@ def flash_pairs(T: int, S: int, causal: bool, window: int) -> int:
     return int(np.maximum(hi - lo, 0).sum())
 
 
-def time_flash(torch, rng, label, B, T, H, Hkv, hd, iters) -> dict:
-    """The kernel, its plain version and the library call at one causal
-    bf16 prefill shape (S = T), beside the bound."""
+def time_flash(torch, rng, label, B, T, H, Hkv, hd, iters,
+               dtype: str = "bf16") -> tuple[str, dict]:
+    """The flash kernel of the wrapper's route (bf16 here: tensor cores;
+    f32: SIMT), its plain version and the library call at one causal
+    prefill shape (S = T), beside the bound; with the kernel's name."""
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                     flash_attention_plain)
-    q, k, v = flash_case(torch, rng, B, T, T, H, Hkv, hd, torch.bfloat16)
-    n_bytes = 2 * (2 * B * T * H * hd + 2 * B * T * Hkv * hd)
+                                                     flash_attention_plain,
+                                                     flash_route)
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    q, k, v = flash_case(torch, rng, B, T, T, H, Hkv, hd, tdt)
+    n_bytes = q.element_size() * (2 * B * T * H * hd + 2 * B * T * Hkv * hd)
     n_ops = 4 * hd * H * B * flash_pairs(T, T, True, 0)
-    b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
+    b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S if dtype == "bf16"
+                       else F32_OPS_PER_S)
     lib_ms, lib_from = library_attention_ms(torch, q, k, v, iters)
-    out = dict(kernel_times(lambda: flash_attention_cuda(q, k, v),
-                            lambda: flash_attention_plain(q, k, v), iters,
-                            "flash_attention_kernel"),
-               shape=[B, T, H, Hkv, hd], dtype="bf16", bound_ms=b_ms,
-               bound_by=b_by, library_ms=lib_ms, library_ms_from=lib_from)
-    log(f"time flash_attention {label}: kernel {out['ms']:.5f} ms "
-        f"({out['ms_from']}), plain {out['plain_ms']:.5f} ms "
-        f"({out['plain_ms_from']}), library "
-        f"{lib_ms:.5f} ms ({lib_from}); per call: kernel "
-        f"{out['call_ms']:.5f} ms; bound {b_ms:.6f} ms ({b_by})")
-    return out
+    name = "flash_attention_tc" if flash_route(tdt, hd, T) == "tc" \
+        else "flash_attention"
+    r = dict(kernel_times(lambda: flash_attention_cuda(q, k, v),
+                          lambda: flash_attention_plain(q, k, v), iters,
+                          f"{name}_kernel"),
+             shape=[B, T, H, Hkv, hd], dtype=dtype, bound_ms=b_ms,
+             bound_by=b_by, library_ms=lib_ms, library_ms_from=lib_from)
+    log(f"time {name} {label}/{dtype}: kernel {r['ms']:.5f} ms "
+        f"({r['ms_from']}), plain {r['plain_ms']:.5f} ms "
+        f"({r['plain_ms_from']}), library {lib_ms:.5f} ms ({lib_from}); "
+        f"per call: kernel {r['call_ms']:.5f} ms; bound {b_ms:.6f} ms "
+        f"({b_by})")
+    return name, r
 
 
-def time_kernels(torch, rng, results) -> None:
-    """Each path kernel at the serving path's full-width shapes in bf16:
-    prefill attention at qwen2.5-3b's 128-token prompt (the row's numbers)
-    and at 4000 tokens and phi3-mini-3.8b's prompt (``at_shapes``); decode
-    attention over 4 sequences of 144 tokens (the last step); the codec
-    at n = 1 page, as the cache launches it."""
-    from repro_torch.kernels import block_transit as bt
+def time_paged(torch, rng, label, B, H, Hkv, hd, page, P, maxp, lens,
+               iters) -> dict:
+    """The kernel and its plain version at one bf16 decode shape, beside
+    the bound: each live page of K and V read once, q read and the output
+    written once."""
     from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                      paged_attention_plain)
-    shapes = [time_flash(torch, rng, "qwen-T128", 1, 128, 16, 2, 128, 200),
-              time_flash(torch, rng, "qwen-T4000", 1, 4000, 16, 2, 128, 20),
-              time_flash(torch, rng, "phi3-T128", 1, 128, 32, 32, 96, 200)]
-    results["flash_attention"].update(
-        {k: shapes[0][k] for k in ("ms", "plain_ms", "ms_from",
-                                   "plain_ms_from", "call_ms",
-                                   "plain_call_ms", "bound_ms", "bound_by",
-                                   "library_ms")}, at_shapes=shapes)
-    B, H, Hkv, hd, page, P, maxp = 4, 16, 2, 128, 16, 64, 16
-    lens = [144] * B
     args = paged_case(torch, rng, B, H, Hkv, hd, page, P, maxp, lens,
                       torch.bfloat16)
     n_pages = sum(math.ceil(n / page) for n in lens)
@@ -423,23 +509,51 @@ def time_kernels(torch, rng, results) -> None:
                + n_pages * 4 + B * 4)
     n_ops = sum(4 * H * n * hd + 3 * H * n for n in lens)
     b_ms, b_by = bound(n_bytes, n_ops)
+    out = dict(kernel_times(lambda: paged_attention_cuda(*args),
+                            lambda: paged_attention_plain(*args), iters,
+                            "paged_attention"),
+               shape=[B, H, Hkv, hd, page, maxp, list(lens)], dtype="bf16",
+               bound_ms=b_ms, bound_by=b_by)
+    log(f"time paged_attention {label}: kernel {out['ms']:.5f} ms "
+        f"({out['ms_from']}), plain {out['plain_ms']:.5f} ms "
+        f"({out['plain_ms_from']}); per call: kernel {out['call_ms']:.5f} "
+        f"ms; bound {b_ms:.6f} ms ({b_by})")
+    return out
+
+
+def time_kernels(torch, rng, results) -> None:
+    """Each path kernel at the serving path's full-width shapes in bf16:
+    prefill attention on the tensor-core kernel at qwen2.5-3b's 128-token
+    prompt (the row's numbers) and at 1000 and 4000 tokens and
+    phi3-mini-3.8b's prompt (``at_shapes``), and on the SIMT kernel at
+    qwen's 128 tokens in f32, the input its route takes; decode attention
+    over 4 sequences of 144 tokens (the last step; the row's numbers), and at
+    phi3-mini-3.8b's width and the long-prompt shape (2 sequences of 1004
+    and 4004 tokens over a 256-wide table) in ``at_shapes``; the codec at
+    n = 1 page, as the cache launches it."""
+    from repro_torch.kernels import block_transit as bt
+    keys = ("ms", "plain_ms", "ms_from", "plain_ms_from", "call_ms",
+            "plain_call_ms", "bound_ms", "bound_by")
+    flash = [time_flash(torch, rng, "qwen-T128", 1, 128, 16, 2, 128, 200),
+             time_flash(torch, rng, "qwen-T1000", 1, 1000, 16, 2, 128, 50),
+             time_flash(torch, rng, "qwen-T4000", 1, 4000, 16, 2, 128, 20),
+             time_flash(torch, rng, "phi3-T128", 1, 128, 32, 32, 96, 200),
+             time_flash(torch, rng, "qwen-T128", 1, 128, 16, 2, 128, 200,
+                        dtype="f32")]
+    for name in ("flash_attention_tc", "flash_attention"):
+        shapes = [r for n, r in flash if n == name]
+        results[name].update({k: shapes[0][k] for k in (*keys, "library_ms")},
+                             at_shapes=shapes)
+    B, H, Hkv, hd, page, P, maxp = 4, 16, 2, 128, 16, 64, 16
+    shapes = [time_paged(torch, rng, "qwen-serve", B, H, Hkv, hd, page, P,
+                         maxp, [144] * B, 200),
+              time_paged(torch, rng, "phi3-serve", B, 32, 32, 96, page, P,
+                         maxp, [144] * B, 200),
+              time_paged(torch, rng, "qwen-long", 2, H, Hkv, hd, page, 512,
+                         256, [1004, 4004], 50)]
     results["paged_attention"].update(
-        kernel_times(lambda: paged_attention_cuda(*args),
-                     lambda: paged_attention_plain(*args), 200,
-                     "paged_attention_kernel"),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    H3, Hkv3, hd3 = 32, 32, 96                   # phi3-mini-3.8b decode
-    args3 = paged_case(torch, rng, B, H3, Hkv3, hd3, page, P, maxp, lens,
-                       torch.bfloat16)
-    b3 = bound(2 * B * H3 * hd3 * 2 + n_pages * page * Hkv3 * hd3 * 2 * 2
-               + n_pages * 4 + B * 4,
-               sum(4 * H3 * n * hd3 + 3 * H3 * n for n in lens))
-    results["paged_attention"]["at_shapes"] = [dict(
-        kernel_times(lambda: paged_attention_cuda(*args3),
-                     lambda: paged_attention_plain(*args3), 200,
-                     "paged_attention_kernel"),
-        shape=[B, H3, Hkv3, hd3, page, lens[0]], dtype="bf16",
-        bound_ms=b3[0], bound_by=b3[1])]
+        {k: shapes[0][k] for k in keys}, library_ms=None,
+        at_shapes=shapes[1:])
 
     F = Hkv * hd
     pool = torch.randn((P, page, F), dtype=torch.bfloat16, device="cuda")
@@ -548,14 +662,30 @@ def run_counted(torch, eng, suspend_at: int | None = None):
     return time.perf_counter() - t0, ticks, _build.launch_counts()
 
 
+def path_kernels(cfg) -> list[str]:
+    """The kernels a served config runs: one of the two flash kernels, by
+    the wrapper's route for its dtype and head width, and the others."""
+    from repro_torch.kernels.flash_attention import flash_route
+    skip = ("flash_attention" if flash_route(cfg.dtype, cfg.hd) == "tc"
+            else "flash_attention_tc")
+    return [name for name in KERNELS if name != skip]
+
+
 def check_path_counts(tag, cfg, spent, counts, m) -> None:
-    """Every launch on the path went through its kernel, once per layer.
-    A page that bypassed to the host tier comes back in without the codec,
-    so the codec's counts are exact only where nothing bypassed."""
+    """Every launch on the path went through its kernel, once per layer,
+    and every prefill layer through the flash kernel of its route.  A page
+    that bypassed to the host tier comes back in without the codec, so
+    the codec's counts are exact only where nothing bypassed."""
+    from repro_torch.kernels.flash_attention import flash_route
     n_pre = len(spent["prefill_s"])
     check(counts.get("flash_attention", 0) == cfg.n_layers * n_pre,
           f"{tag}: {counts.get('flash_attention', 0)} flash launches for "
           f"{n_pre} prefills of {cfg.n_layers} layers")
+    n_tc = cfg.n_layers * n_pre if flash_route(cfg.dtype, cfg.hd) == "tc" \
+        else 0
+    check(counts.get("flash_attention_tc", 0) == n_tc,
+          f"{tag}: {counts.get('flash_attention_tc', 0)} tensor-core flash "
+          f"launches, {n_tc} expected")
     check(counts.get("paged_attention", 0)
           == cfg.n_layers * spent["decode_steps"],
           f"{tag}: {counts.get('paged_attention', 0)} attention launches for "
@@ -601,8 +731,9 @@ def serve_full(torch, np, cfg, params, profile: bool) -> dict:
     check(m.get("transit_crc_errors", 0) == 0, f"{tag}: transit crc errors")
     check(m.get("suspends") == 1 and m.get("resumes") == 1,
           f"{tag}: the suspend/resume did not happen")
-    for name in KERNELS:
-        check(counts.get(name, 0) > 0, f"{tag}: {name} never launched")
+    for name in path_kernels(cfg):
+        check(kernel_launches(counts).get(name, 0) > 0,
+              f"{tag}: {name} never launched")
     check_path_counts(tag, cfg, spent, counts, m)
     check(eng.cache.free_pages() == cache_cfg.n_pages and len(eng.cache.host)
           == 0, f"{tag}: pages leaked")
@@ -837,10 +968,7 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"({', '.join(logs) or 'already built'})")
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {name}: {line.strip()}")
+    check_build(_build)
 
     rng = np.random.default_rng(0)
     results: dict[str, dict] = {}
@@ -866,8 +994,12 @@ def main() -> int:
     parity = parity_smoke(torch, np)
     torch.cuda.synchronize()
 
-    # launches on the full-width paths (phases 3-5), each counted alone
-    launches = {name: sum(p["launches"].get(name, 0) for p in paths.values())
+    # launches of each kernel on the paths of phases 3-6, each counted
+    # alone: the full-width paths and the SMOKE f32 parity runs
+    by_path = {k: kernel_launches(p["launches"]) for k, p in paths.items()}
+    by_path.update({f"parity {k}": kernel_launches(c)
+                    for k, c in parity.items()})
+    launches = {name: sum(c.get(name, 0) for c in by_path.values())
                 for name in (*KERNELS, "gather_quantize", "scatter_dequantize")}
     for name in KERNELS:
         check(launches[name] > 0, f"{name} never launched on the paths")
@@ -875,14 +1007,14 @@ def main() -> int:
     def row(name, src, rep):
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": launches[name],
-                "launches_by_path": {k: p["launches"].get(name, 0)
-                                     for k, p in paths.items()},
+                "launches_by_path": {k: c.get(name, 0)
+                                     for k, c in by_path.items()},
                 **{k: results[name][k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "ms_from", "plain_ms_from", "call_ms",
                     "plain_call_ms")},
-                **({"at_shapes": results[name]["at_shapes"]}
-                   if "at_shapes" in results[name] else {})}
+                **{k: results[name][k] for k in (
+                    "max_row_rel_err", "at_shapes") if k in results[name]}}
 
     line = {"kernels": [row(name, *v) for name, v in KERNELS.items()]}
     variants = {"variants_off_the_path": [
@@ -899,6 +1031,12 @@ def main() -> int:
         print(json.dumps({key: {k: v for k, v in p.items()
                                 if k != "launches"}}))
     print(json.dumps({"parity_launches": parity}))
+    print(json.dumps({"flash_launches_by_path": {
+        k: {"calls": c.get("flash_attention", 0)
+            + c.get("flash_attention_tc", 0),
+            "tensor_core": c.get("flash_attention_tc", 0),
+            "simt": c.get("flash_attention", 0)}
+        for k, c in by_path.items()}}))
     print(json.dumps(variants))
     print(json.dumps(line))
     print(smi.stdout.strip().splitlines()[0])

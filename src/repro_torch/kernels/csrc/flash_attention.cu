@@ -29,9 +29,9 @@
 //
 // Bound: causal prefill at serving widths is bound by operations, 4 * hd
 // flops per valid (query head, q, k) pair; this kernel runs them on the
-// f32 FMA units (67 TFLOP/s), not the bf16 tensor cores (989), so it sits
-// far above the bf16 bound by design.  wgmma, TMA and a ring of tiles are
-// the next step; this version is the simple one that is right.
+// f32 FMA units (67 TFLOP/s), not the bf16 tensor cores (989).  It takes
+// what the tensor-core kernel (flash_attention_sm90.cu) cannot: f32, which
+// must not round to TF32, and bf16 with hd % 8 != 0, which TMA cannot map.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -1,27 +1,49 @@
-// Paged decode attention for Hopper (sm_90a): the block table's
-// lba -> pba walk fused into the attention gather, one decode step.
+// Paged decode attention for Hopper (sm_90a), split over pages
+// (flash-decoding): the block table's lba -> pba walk fused into the
+// attention gather, one decode step.
 //
 // Replaces src/repro/kernels/paged_attention.py:paged_attention_pallas
 // (kernel body _paged_kernel).  Same contract: q (B, H, hd); K/V pools
 // (P, page, Hkv, hd) in f32 or bf16; block_table (B, max_pages) int32;
 // seq_lens (B,) int32 -> out (B, H, hd) in q's dtype.  Online softmax in
 // f32 with scale 1/sqrt(hd); q head h reads kv head h / n_rep; tokens at
-// or past len are masked (NEG_INF = -1e30, l clamped at 1e-30), so
-// len == 0 gives zeros.
+// or past len are never read, so len == 0 gives zeros.  A table entry
+// below ceil(len / page) that names no page of the pool traps.
 //
-// Grid (B, Hkv): one block owns one sequence's kv head and the n_rep query
-// rows that read it, so each K/V page is read from device memory once per
-// block and used by all n_rep rows.  The block loads its own table row
-// and length, and walks ceil(len / page) pages, staging one (page, hd) K
-// and V tile in shared memory as f32.  The running max and sum of row r
-// stay in the registers of thread r; the (n_rep, hd) accumulator is spread
-// over the block's registers, PA_MAX_ELEMS values per thread.
+// Two launches.  The partition kernel, grid (B, Hkv, n_split), 128
+// threads: split s of row b covers table entries [s * pps, (s + 1) * pps),
+// clipped to ceil(len_b / page) and max_pages; the block reads and checks
+// its table entries once, into shared memory.  Lanes work in groups of G
+// (a power of two, G * 16 bytes >= hd): lane j of a group holds dims
+// [j * E, j * E + E) of one token's K and V row, E = 16 bytes of the
+// dtype, loaded with one 16-byte load each straight into registers, so no
+// K or V tile passes through shared memory.  A warp holds 32 / G tokens
+// at once and the block's 4 warps take the split's tokens in turn; the
+// next token's K and V are loaded before the current one is used.  Per
+// token, the dots of all n_rep query rows of the kv head are summed over
+// the group with shuffles, all rows at each shuffle step so that they
+// overlap; each group keeps its own online-softmax state in
+// f32 (log2 domain: q is pre-scaled by log2(e) / sqrt(hd)), merged across
+// the groups of a warp by shuffles and across warps in shared memory at
+// the end.  It writes (m, l, acc[hd]) per (b, query head, split) to f32
+// scratch; a split wholly past the length writes m = NEG_INF and l = 0.
+// The combine kernel, grid (B, H), 256 threads, weighs the splits that
+// hold tokens by w_s = exp2(m_s - max m), its warps taking the splits 4
+// at a time: out = sum w_s acc_s / max(sum w_s l_s, 1e-30).
+// It reads only the splits below ceil(ceil(len / page) / pps), so an
+// empty split never enters a sum and no exp of NEG_INF - NEG_INF occurs.
 //
 // Bound: the bytes it reads, sum_b ceil(len_b / page) * page * Hkv * hd *
-// 2 * sizeof(dtype), at 3.35 TB/s.  At decode sizes (a few sequences of a
-// few hundred tokens) that is well under a microsecond, so launch time
-// bounds it; the design keeps to one launch per layer and reads each page
-// once, and leaves split-K over pages and wide vector loads to later work.
+// 2 * sizeof(dtype), at 3.35 TB/s; at decode sizes that is a few
+// microseconds at most, so latency bounds it.  The design spreads a
+// sequence over n_split blocks (the wrapper picks n_split so B * Hkv *
+// n_split reaches 2 x 132 blocks where the table allows), keeps many
+// 16-byte loads in flight per SM, and reads each live page once per kv
+// head for all n_rep rows.  What holds it back: a lane group walks its
+// tokens one after another, each behind the last one's softmax update,
+// so a warp is latency-bound at a few tokens a microsecond; a block's
+// fixed work (length, table, q, the merge) is as long as a few tokens;
+// and the combine is a second launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -29,8 +51,18 @@
 namespace {
 
 constexpr int PA_THREADS = 128;
-constexpr int PA_MAX_ELEMS = 8;   // n_rep * hd <= PA_THREADS * PA_MAX_ELEMS
+constexpr int PA_WARPS = PA_THREADS / 32;
+constexpr int PA_MAX_REP = 8;      // query rows per kv head
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <typename T> struct Vec;        // dims one lane holds: 16 bytes
+template <> struct Vec<float> {
+  static constexpr int E = 4;
+};
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int E = 8;
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -39,140 +71,373 @@ __device__ __forceinline__ void from_f32(float x, __nv_bfloat16* out) {
   *out = __float2bfloat16_rn(x);
 }
 
+__device__ __forceinline__ void unpack(const uint4& x, float* o, float) {
+  o[0] = __uint_as_float(x.x); o[1] = __uint_as_float(x.y);
+  o[2] = __uint_as_float(x.z); o[3] = __uint_as_float(x.w);
+}
+__device__ __forceinline__ void unpack(const uint4& x, float* o, __nv_bfloat16) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    o[2 * i] = f.x;
+    o[2 * i + 1] = f.y;
+  }
+}
+
+// E elements of one row from dims [d0, d0 + E): one 16-byte load when
+// ``vec``, else element by element with the dims past hd read as 0.
 template <typename T>
+__device__ __forceinline__ void load_row(const T* p, int d0, int hd, bool vec,
+                                         float* o) {
+  constexpr int E = Vec<T>::E;
+  if (vec) {
+    if (d0 < hd) {
+      unpack(__ldg(reinterpret_cast<const uint4*>(p + d0)), o, T());
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) o[e] = 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < E; ++e) o[e] = d0 + e < hd ? to_f32(p[d0 + e]) : 0.f;
+  }
+}
+
+// One online-softmax state: NR rows, E dims each.
+template <int NR, int E>
+struct State {
+  float m[NR], l[NR], acc[NR][E];
+};
+
+template <typename T, int NR>
 __global__ void __launch_bounds__(PA_THREADS)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                       const T* __restrict__ v_pool,
-                       const int32_t* __restrict__ table,
-                       const int32_t* __restrict__ lens, T* __restrict__ out,
-                       int H, int Hkv, int hd, int P, int page, int max_pages,
-                       float scale) {
+paged_attention_split_kernel(const T* __restrict__ q,
+                             const T* __restrict__ k_pool,
+                             const T* __restrict__ v_pool,
+                             const int32_t* __restrict__ table,
+                             const int32_t* __restrict__ lens,
+                             float* __restrict__ ml,     // (B, H, n_split, 2)
+                             float* __restrict__ acc_out,  // (B, H, n_split, hd)
+                             int H, int Hkv, int hd, int P, int page,
+                             int max_pages, int pps, int G, float qscale,
+                             bool vec) {
+  constexpr int E = Vec<T>::E;
+  // (PA_WARPS, NR, 2 + hd) f32 for the merge, then this split's pps
+  // table entries
   extern __shared__ float smem[];
-  const int b = blockIdx.x;
-  const int g = blockIdx.y;
+  const int b = blockIdx.x, g = blockIdx.y, s = blockIdx.z;
+  const int n_split = gridDim.z;
   const int n_rep = H / Hkv;
-  const int tid = threadIdx.x;
-  float* k_t = smem;                    // (page, hd)
-  float* v_t = k_t + page * hd;         // (page, hd)
-  float* q_s = v_t + page * hd;         // (n_rep, hd), pre-scaled
-  float* p_s = q_s + n_rep * hd;        // (n_rep, page) scores -> probs
-  float* row_s = p_s + n_rep * page;    // (n_rep,) corr, then final l
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int j = lane & (G - 1);                 // lane within its group
+  const int grp = lane / G, n_grp = 32 / G;     // groups of this warp
+  const int d0 = j * E;
 
-  const int rows_hd = n_rep * hd;
-  for (int e = tid; e < rows_hd; e += PA_THREADS) {
-    const int r = e / hd, d = e % hd;
-    q_s[e] = to_f32(q[((size_t)b * H + g * n_rep + r) * hd + d]) * scale;
-  }
   const int seq_len = lens[b];
-  int n_pages = (seq_len + page - 1) / page;
-  if (n_pages > max_pages) n_pages = max_pages;
+  const int n_pages = min((seq_len + page - 1) / page, max_pages);
+  const int p_lo = s * pps, p_hi = min(p_lo + pps, n_pages);
+  const int t_lo = p_lo * page, t_hi = min(p_hi * page, seq_len);
+  const size_t row_base = ((size_t)b * H + (size_t)g * n_rep) * n_split + s;
+  if (t_lo >= t_hi) {                 // wholly past the length
+    if (threadIdx.x < n_rep) {
+      ml[(row_base + (size_t)threadIdx.x * n_split) * 2] = NEG_INF;
+      ml[(row_base + (size_t)threadIdx.x * n_split) * 2 + 1] = 0.f;
+    }
+    return;
+  }
 
-  float acc[PA_MAX_ELEMS];
+  float qr[NR][E];
 #pragma unroll
-  for (int j = 0; j < PA_MAX_ELEMS; ++j) acc[j] = 0.f;
-  float m_run = NEG_INF, l_run = 0.f;   // meaningful in threads r < n_rep
+  for (int r = 0; r < NR; ++r) {
+    if (r < n_rep) {
+      load_row(q + ((size_t)b * H + g * n_rep + r) * hd, d0, hd, vec, qr[r]);
+#pragma unroll
+      for (int e = 0; e < E; ++e) qr[r][e] *= qscale;
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) qr[r][e] = 0.f;
+    }
+  }
+  State<NR, E> st;
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    st.m[r] = NEG_INF;
+    st.l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) st.acc[r][e] = 0.f;
+  }
 
+  // this split's table entries, checked once: a corrupt table is loud
+  int* tbl = reinterpret_cast<int*>(smem + PA_WARPS * NR * (2 + hd));
+  for (int i = threadIdx.x; i < p_hi - p_lo; i += PA_THREADS) {
+    const int ppage = table[(size_t)b * max_pages + p_lo + i];
+    if (ppage < 0 || ppage >= P) __trap();
+    tbl[i] = ppage;
+  }
+  __syncthreads();
   const size_t tok_stride = (size_t)Hkv * hd;
-  for (int pi = 0; pi < n_pages; ++pi) {
-    const int ppage = table[(size_t)b * max_pages + pi];
-    if (ppage < 0 || ppage >= P) __trap();   // a corrupt table is loud
-    const size_t base = (size_t)ppage * page * tok_stride + (size_t)g * hd;
-    __syncthreads();   // previous tile fully consumed (and q_s written)
-    for (int e = tid; e < page * hd; e += PA_THREADS) {
-      const int t = e / hd, d = e % hd;
-      k_t[e] = to_f32(k_pool[base + t * tok_stride + d]);
-      v_t[e] = to_f32(v_pool[base + t * tok_stride + d]);
+  // In step i group grp of warp w holds token t_lo + i * stride + w *
+  // n_grp + grp; the loop runs while the warp's first token is live, so
+  // every shuffle sees the whole warp.  The next step's rows are loaded
+  // before this step's are used.
+  const int stride = PA_WARPS * n_grp;
+  auto load = [&](int t, float (&k)[E], float (&v)[E]) {
+    if (t < t_hi) {
+      const int pi = t / page;
+      const size_t row = ((size_t)tbl[pi - p_lo] * page + (t - pi * page))
+                         * tok_stride + (size_t)g * hd;
+      load_row(k_pool + row, d0, hd, vec, k);
+      load_row(v_pool + row, d0, hd, vec, v);
     }
-    __syncthreads();
-    for (int e = tid; e < n_rep * page; e += PA_THREADS) {
-      const int r = e / page, t = e % page;
-      float s = 0.f;
-      for (int d = 0; d < hd; ++d) s += q_s[r * hd + d] * k_t[t * hd + d];
-      p_s[e] = (pi * page + t < seq_len) ? s : NEG_INF;
-    }
-    __syncthreads();
-    if (tid < n_rep) {
-      float* s_row = p_s + tid * page;
-      float m_cur = NEG_INF;
-      for (int t = 0; t < page; ++t) m_cur = fmaxf(m_cur, s_row[t]);
-      const float m_new = fmaxf(m_run, m_cur);
-      float psum = 0.f;
-      for (int t = 0; t < page; ++t) {
-        const float p = (pi * page + t < seq_len) ? expf(s_row[t] - m_new) : 0.f;
-        s_row[t] = p;
-        psum += p;
-      }
-      const float corr = expf(m_run - m_new);
-      l_run = l_run * corr + psum;
-      m_run = m_new;
-      row_s[tid] = corr;
-    }
-    __syncthreads();
+  };
+  float kc[E] = {}, vc[E] = {};
+  int tw = t_lo + warp * n_grp;
+  load(tw + grp, kc, vc);
+  while (tw < t_hi) {
+    float kn[E] = {}, vn[E] = {};
+    load(tw + stride + grp, kn, vn);      // in flight during this step
+    // the n_rep dots, their sums over the group, then the softmax updates,
+    // each stage over all rows at once so the shuffles and exponentials of
+    // different rows overlap instead of waiting on each other
+    float dot[NR];
 #pragma unroll
-    for (int j = 0; j < PA_MAX_ELEMS; ++j) {
-      const int e = tid + j * PA_THREADS;
-      if (e < rows_hd) {
-        const int r = e / hd, d = e % hd;
-        const float* p_row = p_s + r * page;
-        float pv = 0.f;
-        for (int t = 0; t < page; ++t) pv += p_row[t] * v_t[t * hd + d];
-        acc[j] = acc[j] * row_s[r] + pv;
+    for (int r = 0; r < NR; ++r) {
+      dot[r] = 0.f;
+#pragma unroll
+      for (int e = 0; e < E; ++e) dot[r] = fmaf(qr[r][e], kc[e], dot[r]);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      if (off < G) {
+#pragma unroll
+        for (int r = 0; r < NR; ++r)
+          dot[r] += __shfl_xor_sync(0xffffffffu, dot[r], off);
+      }
+    }
+    if (tw + grp < t_hi) {
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+        const float m = fmaxf(st.m[r], dot[r]);
+        const float corr = exp2f(st.m[r] - m), p = exp2f(dot[r] - m);
+        st.m[r] = m;
+        st.l[r] = st.l[r] * corr + p;
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          st.acc[r][e] = fmaf(st.acc[r][e], corr, p * vc[e]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      kc[e] = kn[e];
+      vc[e] = vn[e];
+    }
+    tw += stride;
+  }
+
+  // merge the groups of this warp, row by row (partners hold the same dims)
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    for (int off = G; off < 32; off <<= 1) {
+      const float om = __shfl_xor_sync(0xffffffffu, st.m[r], off);
+      const float ol = __shfl_xor_sync(0xffffffffu, st.l[r], off);
+      const float m = fmaxf(st.m[r], om);
+      const float ca = exp2f(st.m[r] - m), cb = exp2f(om - m);
+      st.m[r] = m;
+      st.l[r] = st.l[r] * ca + ol * cb;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float oa = __shfl_xor_sync(0xffffffffu, st.acc[r][e], off);
+        st.acc[r][e] = st.acc[r][e] * ca + oa * cb;
       }
     }
   }
-  __syncthreads();
-  if (tid < n_rep) row_s[tid] = fmaxf(l_run, 1e-30f);
-  __syncthreads();
+  // then the warps, in shared memory: warp w, row r at (w * NR + r) * (2 + hd)
+  const int ld = 2 + hd;
+  if (grp == 0) {
 #pragma unroll
-  for (int j = 0; j < PA_MAX_ELEMS; ++j) {
-    const int e = tid + j * PA_THREADS;
-    if (e < rows_hd) {
-      const int r = e / hd, d = e % hd;
-      from_f32(acc[j] / row_s[r], &out[((size_t)b * H + g * n_rep + r) * hd + d]);
+    for (int r = 0; r < NR; ++r) {
+      float* row = smem + (warp * NR + r) * ld;
+      if (j == 0) {
+        row[0] = st.m[r];
+        row[1] = st.l[r];
+      }
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        if (d0 + e < hd) row[2 + d0 + e] = st.acc[r][e];
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < n_rep * hd; e += PA_THREADS) {
+    const int r = e / hd, d = e % hd;
+    float m = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < PA_WARPS; ++w) m = fmaxf(m, smem[(w * NR + r) * ld]);
+    float l = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < PA_WARPS; ++w) {
+      const float* row = smem + (w * NR + r) * ld;
+      const float c = exp2f(row[0] - m);   // a warp with no token: l = 0
+      l += row[1] * c;
+      a += row[2 + d] * c;
+    }
+    const size_t o = row_base + (size_t)r * n_split;
+    acc_out[o * hd + d] = a;
+    if (d == 0) {
+      ml[o * 2] = m;
+      ml[o * 2 + 1] = l;
     }
   }
 }
 
+// One block per (b, query head), CB_THREADS threads: the max of m over
+// the splits that hold tokens, then each warp sums w_s * acc_s (a lane on
+// dims lane + 32 j) and w_s * l_s over its share of the splits, and the
+// warps' sums meet in shared memory.
+constexpr int CB_THREADS = 256;
+constexpr int CB_WARPS = CB_THREADS / 32;
+
 template <typename T>
-void launch(const void* q, const void* k_pool, const void* v_pool,
-            const void* table, const void* lens, void* out, int B, int H,
-            int Hkv, int hd, int P, int page, int max_pages, float scale,
-            size_t smem, cudaStream_t stream) {
-  dim3 grid(B, Hkv);
-  paged_attention_kernel<T><<<grid, PA_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<const int32_t*>(table),
-      static_cast<const int32_t*>(lens), static_cast<T*>(out), H, Hkv, hd, P,
-      page, max_pages, scale);
+__global__ void __launch_bounds__(CB_THREADS)
+paged_attention_combine_kernel(const float* __restrict__ ml,
+                               const float* __restrict__ acc,
+                               const int32_t* __restrict__ lens,
+                               T* __restrict__ out, int H, int hd, int page,
+                               int max_pages, int pps, int n_split) {
+  extern __shared__ float part[];          // (CB_WARPS, hd + 1)
+  __shared__ float wmax[CB_WARPS];
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_pages = min((lens[b] + page - 1) / page, max_pages);
+  const int n_used = (n_pages + pps - 1) / pps;   // splits that hold tokens
+  const size_t base = ((size_t)b * H + h) * n_split;
+
+  float m = NEG_INF;
+  for (int s = threadIdx.x; s < n_used; s += CB_THREADS)
+    m = fmaxf(m, ml[(base + s) * 2]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  if (lane == 0) wmax[warp] = m;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < CB_WARPS; ++w) m = fmaxf(m, wmax[w]);
+
+  constexpr int J = 8;                     // hd <= 32 * J
+  constexpr int K = 4;                     // splits a warp reads at once
+  float num[J] = {}, den = 0.f;
+  for (int s0 = warp; s0 < n_used; s0 += K * CB_WARPS) {
+    float w[K], a[K][J];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int s = s0 + k * CB_WARPS;
+      const bool ok = s < n_used;
+      w[k] = ok ? exp2f(ml[(base + s) * 2] - m) : 0.f;
+      den += ok ? w[k] * ml[(base + s) * 2 + 1] : 0.f;
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        a[k][j] = ok && lane + 32 * j < hd
+                      ? acc[(base + s) * hd + lane + 32 * j] : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+#pragma unroll
+      for (int j = 0; j < J; ++j) num[j] += w[k] * a[k][j];
+  }
+  float* row = part + warp * (hd + 1);
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+    if (lane + 32 * j < hd) row[lane + 32 * j] = num[j];
+  if (lane == 0) row[hd] = den;
+  __syncthreads();
+  for (int d = threadIdx.x; d < hd; d += CB_THREADS) {
+    float n = 0.f, l = 0.f;
+#pragma unroll
+    for (int w = 0; w < CB_WARPS; ++w) {
+      n += part[w * (hd + 1) + d];
+      l += part[w * (hd + 1) + hd];
+    }
+    from_f32(n / fmaxf(l, 1e-30f), &out[((size_t)b * H + h) * hd + d]);
+  }
+}
+
+size_t paged_attention_smem_bytes(int rows, int hd, int pps) {
+  return (size_t)PA_WARPS * rows * (2 + hd) * sizeof(float)
+         + (size_t)pps * sizeof(int);
+}
+
+template <typename T, int NR>
+int launch_rows(const void* q, const void* k_pool, const void* v_pool,
+                const void* table, const void* lens, void* out, float* ml,
+                float* acc, int B, int H, int Hkv, int hd, int P, int page,
+                int max_pages, int pps, int n_split, float scale,
+                cudaStream_t stream) {
+  constexpr int E = Vec<T>::E;
+  int G = 1;
+  while (G * E < hd) G <<= 1;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(q)
+      | reinterpret_cast<uintptr_t>(k_pool) | reinterpret_cast<uintptr_t>(v_pool);
+  const bool vec = addr % 16 == 0 && hd % E == 0;
+  const size_t smem = paged_attention_smem_bytes(NR, hd, pps);
+  paged_attention_split_kernel<T, NR>
+      <<<dim3(B, Hkv, n_split), PA_THREADS, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k_pool),
+          static_cast<const T*>(v_pool), static_cast<const int32_t*>(table),
+          static_cast<const int32_t*>(lens), ml, acc, H, Hkv, hd, P, page,
+          max_pages, pps, G, scale * LOG2E, vec);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  paged_attention_combine_kernel<T>
+      <<<dim3(B, H), CB_THREADS, CB_WARPS * (hd + 1) * sizeof(float),
+         stream>>>(ml, acc, static_cast<const int32_t*>(lens),
+                   static_cast<T*>(out), H, hd, page, max_pages, pps,
+                   n_split);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* q, const void* k_pool, const void* v_pool,
+           const void* table, const void* lens, void* out, float* ml,
+           float* acc, int B, int H, int Hkv, int hd, int P, int page,
+           int max_pages, int pps, int n_split, float scale,
+           cudaStream_t stream) {
+  const int n_rep = H / Hkv;
+#define PA_ROWS(NR)                                                        \
+  return launch_rows<T, NR>(q, k_pool, v_pool, table, lens, out, ml, acc,  \
+                            B, H, Hkv, hd, P, page, max_pages, pps,        \
+                            n_split, scale, stream)
+  if (n_rep <= 1) PA_ROWS(1);
+  if (n_rep <= 2) PA_ROWS(2);
+  if (n_rep <= 4) PA_ROWS(4);
+  if (n_rep <= PA_MAX_REP) PA_ROWS(PA_MAX_REP);
+#undef PA_ROWS
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest n_rep * hd one block holds in registers.
-int paged_attention_max_rows_hd() { return PA_THREADS * PA_MAX_ELEMS; }
-
-// Shared memory one block needs, in bytes.
-long long paged_attention_smem_bytes(int n_rep, int hd, int page) {
-  return (long long)(2 * page * hd + n_rep * hd + n_rep * page + n_rep) * 4;
-}
-
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError().
+// dtype: 0 = float32, 1 = bfloat16.  ml: (B, H, n_split, 2) and acc:
+// (B, H, n_split, hd) f32 scratch.  n_rep <= PA_MAX_REP and hd * sizeof
+// <= 32 x 16 bytes (the wrapper checks).  Returns cudaGetLastError() of
+// the first launch that failed, else of the second; cudaErrorInvalidValue
+// for n_rep > PA_MAX_REP.
 int paged_attention_launch(const void* q, const void* k_pool,
                            const void* v_pool, const void* table,
-                           const void* lens, void* out, int B, int H, int Hkv,
-                           int hd, int P, int page, int max_pages, float scale,
+                           const void* lens, void* out, void* ml, void* acc,
+                           int B, int H, int Hkv, int hd, int P, int page,
+                           int max_pages, int pps, int n_split, float scale,
                            int dtype, void* stream) {
-  const size_t smem = (size_t)paged_attention_smem_bytes(H / Hkv, hd, page);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* mlf = static_cast<float*>(ml);
+  float* accf = static_cast<float*>(acc);
   if (dtype == 0)
-    launch<float>(q, k_pool, v_pool, table, lens, out, B, H, Hkv, hd, P, page,
-                  max_pages, scale, smem, s);
-  else
-    launch<__nv_bfloat16>(q, k_pool, v_pool, table, lens, out, B, H, Hkv, hd,
-                          P, page, max_pages, scale, smem, s);
-  return (int)cudaGetLastError();
+    return launch<float>(q, k_pool, v_pool, table, lens, out, mlf, accf, B, H,
+                         Hkv, hd, P, page, max_pages, pps, n_split, scale, s);
+  return launch<__nv_bfloat16>(q, k_pool, v_pool, table, lens, out, mlf, accf,
+                               B, H, Hkv, hd, P, page, max_pages, pps,
+                               n_split, scale, s);
 }
 
 }  // extern "C"

@@ -16,40 +16,66 @@ from . import _build
 from .ref import paged_attention_ref as paged_attention_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SMEM_LIMIT = 48 * 1024        # static-launch shared memory, no opt-in
+MAX_REP = 8                  # PA_MAX_REP in csrc/paged_attention.cu
+MAX_ROW_BYTES = 32 * 16      # hd * itemsize: 32 lanes of 16 bytes
+N_SM = 132                   # streaming multiprocessors of the H100 SXM
+MAX_PPS = 64                 # pages one split walks at most (plan's cap)
+_SMEM_LIMIT = 48 * 1024      # a block's shared memory without opt-in
 
-__all__ = ["paged_attention_cuda", "paged_attention_plain"]
+__all__ = ["paged_attention_cuda", "paged_attention_plain", "split_plan"]
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("paged_attention")
     if not getattr(lib, "_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.paged_attention_launch.argtypes = [vp] * 6 + [i] * 7 + [
+        lib.paged_attention_launch.argtypes = [vp] * 8 + [i] * 9 + [
             ctypes.c_float, i, vp]
         lib.paged_attention_launch.restype = i
-        lib.paged_attention_smem_bytes.argtypes = [i, i, i]
-        lib.paged_attention_smem_bytes.restype = ctypes.c_longlong
-        lib.paged_attention_max_rows_hd.argtypes = []
-        lib.paged_attention_max_rows_hd.restype = i
         lib._typed = True
     return lib
 
 
-def paged_attention_cuda(q, k_pool, v_pool, block_table, seq_lens):
+def split_plan(B: int, Hkv: int, max_pages: int) -> tuple[int, int]:
+    """(pages_per_split, n_split) for a (B, max_pages) table: the largest
+    power of two ``pages_per_split`` up to 64 for which B * Hkv * n_split
+    still reaches 2 x 132 blocks, or 1 page a split where the table is too
+    narrow for that.  From shapes only: reading ``seq_lens`` on the host
+    would stall the stream every layer."""
+    pps = 1
+    while pps * 2 <= min(max_pages, MAX_PPS) \
+            and B * Hkv * -(-max_pages // (pps * 2)) >= 2 * N_SM:
+        pps *= 2
+    return pps, -(-max_pages // pps)
+
+
+def _smem_bytes(n_rep: int, hd: int, pps: int) -> int:
+    """paged_attention_smem_bytes in csrc/paged_attention.cu: the warps'
+    merge area for n_rep rounded up to a power of two, and the split's
+    table entries."""
+    rows = 1 << max(n_rep - 1, 0).bit_length()
+    return 4 * rows * (2 + hd) * 4 + pps * 4
+
+
+def paged_attention_cuda(q, k_pool, v_pool, block_table, seq_lens, *,
+                         pages_per_split: int | None = None):
     """One decode step on the card.  q: (B, H, hd); pools: (P, page, Hkv,
     hd) in q's dtype (f32 or bf16); block_table: (B, max_pages) int32;
     seq_lens: (B,) int32 -> (B, H, hd) in q's dtype.  Every entry of a
     table row below ``ceil(len / page)`` must name a page of the pool.
+    ``pages_per_split`` overrides ``split_plan`` (tests force 1 and
+    max_pages).  Takes n_rep = H / Hkv <= 8 and hd * itemsize <= 512
+    bytes, and raises on anything else.
 
     Replaces ``src/repro/kernels/paged_attention.py:paged_attention_pallas``.
     Bound on the H100 by the bytes it reads: each live K and V page once,
     ``sum_b ceil(len_b / page) * page * Hkv * hd * 2 * sizeof(dtype)`` at
-    3.35 TB/s; at decode sizes that is under a microsecond and the launch
-    dominates.  Design: grid (B, Hkv), so one block reads each page of its
-    kv head once for all ``n_rep`` query heads that share it, staging one
-    (page, hd) K and V tile in shared memory; the online-softmax state and
-    the accumulator stay in f32 registers.
+    3.35 TB/s; at decode sizes that is a few microseconds, and latency
+    dominates.  Design: flash-decoding, two launches.  Grid (B, Hkv,
+    n_split): each block takes a contiguous range of the table, reads K and
+    V rows with 16-byte loads into registers once for all n_rep query
+    heads, and writes its (m, l, acc) to f32 scratch; a (B, H) combine
+    weighs the splits by their maxima.
     """
     tensors = (q, k_pool, v_pool, block_table, seq_lens)
     if not all(t.is_cuda for t in tensors):
@@ -75,25 +101,38 @@ def paged_attention_cuda(q, k_pool, v_pool, block_table, seq_lens):
             or tuple(seq_lens.shape) != (B,):
         raise ValueError("paged_attention_cuda: block_table must be "
                          "(B, max_pages) and seq_lens (B,)")
-    lib = _lib()
     n_rep = H // Hkv
-    if n_rep * hd > lib.paged_attention_max_rows_hd():
-        raise ValueError(f"paged_attention_cuda: n_rep * hd = {n_rep * hd} "
-                         f"exceeds {lib.paged_attention_max_rows_hd()}")
-    if lib.paged_attention_smem_bytes(n_rep, hd, page) > _SMEM_LIMIT:
-        raise ValueError("paged_attention_cuda: page * hd too large for "
-                         "one block's shared memory")
+    if n_rep > MAX_REP:
+        raise ValueError(f"paged_attention_cuda: n_rep {n_rep} exceeds "
+                         f"{MAX_REP}")
+    if hd * q.element_size() > MAX_ROW_BYTES:
+        raise ValueError(f"paged_attention_cuda: a row of hd {hd} takes "
+                         f"more than {MAX_ROW_BYTES} bytes")
     out = torch.empty_like(q)
-    if B == 0:
-        return out
     max_pages = block_table.shape[1]
+    if B == 0 or max_pages == 0 or H == 0:
+        return out.zero_()
+    pps, n_split = split_plan(B, Hkv, max_pages)
+    if pages_per_split is not None:
+        if not 0 < pages_per_split <= max_pages:
+            raise ValueError(f"paged_attention_cuda: pages_per_split "
+                             f"{pages_per_split} outside 1..{max_pages}")
+        pps, n_split = pages_per_split, -(-max_pages // pages_per_split)
+    if _smem_bytes(n_rep, hd, pps) > _SMEM_LIMIT:
+        raise ValueError(f"paged_attention_cuda: {pps} pages a split take "
+                         f"too much shared memory")
+    # one f32 scratch for both: acc (B, H, n_split, hd), then (m, l)
+    n_rows = B * H * n_split
+    scratch = torch.empty(n_rows * (hd + 2), dtype=torch.float32,
+                          device=q.device)
+    acc, ml = scratch[:n_rows * hd], scratch[n_rows * hd:]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.paged_attention_launch(
+        rc = _lib().paged_attention_launch(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-            B, H, Hkv, hd, P, page, max_pages, 1.0 / math.sqrt(hd),
-            _DTYPES[q.dtype], stream)
+            ml.data_ptr(), acc.data_ptr(), B, H, Hkv, hd, P, page, max_pages,
+            pps, n_split, 1.0 / math.sqrt(hd), _DTYPES[q.dtype], stream)
     _build.check(rc, "paged_attention")
     _build.count_launch("paged_attention")
     return out

@@ -24,6 +24,14 @@ from repro_torch.kernels.paged_attention import (paged_attention_cuda,
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}   # chip_smoke's
+
+
+def assert_rows_close(got, exp):
+    """Each output row (last dimension) as a whole: ||got - exp|| <=
+    ROW_TOL * ||exp||, which long rows of small elements need."""
+    d = (got.float() - exp.float()).norm(dim=-1)
+    assert (d <= ROW_TOL[exp.dtype] * exp.float().norm(dim=-1)).all()
 
 
 @pytest.fixture
@@ -124,6 +132,102 @@ def test_flash_attention_kernel_matches_plain(card, B, T, S, H, Hkv, hd,
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), exp.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("B,T,S,H,Hkv,hd,causal,window", [
+    (1, 128, 128, 16, 2, 128, True, 0),    # qwen2.5-3b prefill
+    (1, 1000, 1000, 16, 2, 128, True, 0),
+    (1, 128, 128, 32, 32, 96, True, 0),    # phi3-mini-3.8b prefill
+    (1, 300, 257, 4, 2, 128, True, 0),     # ragged T and S
+    (1, 256, 256, 2, 2, 64, True, 32),     # sliding window
+    (1, 300, 257, 2, 1, 64, False, 32),    # non-causal, T > S: rows -> 0
+    (2, 384, 128, 4, 4, 64, False, 0),
+    (1, 200, 200, 4, 2, 16, True, 0),      # hd 16 / 64 / 96 / 128
+    (1, 200, 200, 4, 2, 64, True, 0),
+    (1, 200, 200, 4, 2, 96, True, 0),
+    (1, 200, 200, 4, 2, 128, True, 0),
+])
+def test_flash_attention_tensor_core_kernel_matches_plain(
+        card, B, T, S, H, Hkv, hd, causal, window):
+    """bf16 with hd % 8 == 0 runs the wgmma kernel (one launch of it)."""
+    q, k, v = _qkv(card, B, T, S, H, Hkv, hd, torch.bfloat16, seed=5)
+    before = _build.launch_counts().get("flash_attention_tc", 0)
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    exp = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["flash_attention_tc"] == before + 1
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), exp.float(), atol=2e-2,
+                               rtol=2e-2)
+    assert_rows_close(got, exp)
+
+
+def test_flash_attention_routes(card):
+    """f32 and bf16 with hd % 8 != 0 run the SIMT kernel, bf16 with
+    hd % 8 == 0 the tensor-core one; each agrees with the plain version."""
+    cases = [(_qkv(card, 1, 64, 64, 2, 1, 128, torch.float32), 0),
+             (_qkv(card, 1, 64, 64, 2, 1, 20, torch.bfloat16), 0),
+             (_qkv(card, 1, 64, 64, 2, 1, 64, torch.bfloat16), 1)]
+    for (q, k, v), tc in cases:
+        before = dict(_build.launch_counts())
+        got = flash_attention_cuda(q, k, v)
+        exp = flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        after = _build.launch_counts()
+        assert after["flash_attention"] == before.get("flash_attention", 0) + 1
+        assert after.get("flash_attention_tc", 0) \
+            == before.get("flash_attention_tc", 0) + tc
+        torch.testing.assert_close(got.float(), exp.float(),
+                                   atol=TOL[q.dtype], rtol=TOL[q.dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pages_per_split", [None, 1, 256])
+def test_paged_attention_split_at_the_long_prompt_shape(card, dtype,
+                                                        pages_per_split):
+    """The long-prompt path's decode: 1004 and 4004 tokens over a 256-wide
+    table, poison past every length, under the wrapper's split plan, one
+    page a split (the most splits) and one split; f32 as the hybrid path
+    runs it."""
+    B, H, Hkv, hd, page, P, maxp = 2, 16, 2, 128, 16, 512, 256
+    lens = [1004, 4004]
+    rng = np.random.default_rng(6)
+    q = rng.standard_normal((B, H, hd))
+    kp = rng.standard_normal((P, page, Hkv, hd))
+    vp = rng.standard_normal((P, page, Hkv, hd))
+    table = rng.permutation(P)[:B * maxp].reshape(B, maxp)
+    for b, n in enumerate(lens):
+        for pi in range(maxp):
+            lo = max(n - pi * page, 0)
+            kp[table[b, pi], lo:] = 99.0
+            vp[table[b, pi], lo:] = -99.0
+    args = [torch.tensor(a, device=card).to(dtype) for a in (q, kp, vp)] + [
+        torch.tensor(table, dtype=torch.int32, device=card),
+        torch.tensor(lens, dtype=torch.int32, device=card)]
+    got = paged_attention_cuda(*args, pages_per_split=pages_per_split)
+    exp = paged_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), exp.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert_rows_close(got, exp)
+
+
+def test_paged_attention_refuses_what_the_kernel_does_not_take(card):
+    table = torch.zeros((1, 1), dtype=torch.int32, device=card)
+    lens = torch.ones((1,), dtype=torch.int32, device=card)
+    q = torch.zeros((1, 16, 16), device=card)
+    pool = torch.zeros((2, 4, 1, 16), device=card)
+    with pytest.raises(ValueError, match="n_rep 16"):
+        paged_attention_cuda(q, pool, pool, table, lens)
+    q = torch.zeros((1, 2, 160), device=card)
+    pool = torch.zeros((2, 4, 2, 160), device=card)
+    with pytest.raises(ValueError, match="hd 160"):
+        paged_attention_cuda(q, pool, pool, table, lens)
+    q = torch.zeros((1, 2, 16), device=card)
+    pool = torch.zeros((2, 4, 2, 16), device=card)
+    with pytest.raises(ValueError, match="pages_per_split 2"):
+        paged_attention_cuda(q, pool, pool, table, lens, pages_per_split=2)
 
 
 def test_flash_attention_refuses_what_the_kernel_does_not_take(card):

@@ -55,7 +55,10 @@ def test_no_library_attention_or_compiler_in_the_port():
                      "import repro\n"):
             assert word not in text, f"{f.relative_to(ROOT)}: {word!r}"
     for f in files:
-        assert SDPA not in f.read_text(), f"{f.relative_to(ROOT)}: {SDPA!r}"
+        text = f.read_text()
+        assert SDPA not in text, f"{f.relative_to(ROOT)}: {SDPA!r}"
+        for lib in ("cublas", "cudnn"):      # no library kernels either
+            assert lib not in text.lower(), f"{f.relative_to(ROOT)}: {lib}"
 
 
 def _sdpa_outside_timer(source: str) -> list[int]:
