@@ -13,8 +13,12 @@ Phases, each ending in ``torch.cuda.synchronize()``:
 2. kernels — each kernel against its plain PyTorch version on the card, at
             the serving path's full-width shapes (qwen2.5-3b: page 16, Hkv
             2, hd 128; phi3-mini-3.8b: Hkv 32, hd 96) and at smoke shapes,
-            f32 and bf16: the codec's q, scales and crcs bit-identical and
-            every crc equal to ``zlib.adler32``; paged attention within
+            f32 and bf16: the codec's one launch over a stack of units
+            (``CODEC_CASES``: one pool, a qwen2.5-3b page of 72 units, a
+            phi3-mini-3.8b page of 64, a 251-page qwen sequence of 18072)
+            with q, scales and crcs bit-identical, every crc equal to
+            ``zlib.adler32``, a flipped byte moving one crc and the units
+            not named untouched; paged attention within
             2e-5 (f32) / 2e-2 (bf16) with poison written past each length;
             flash attention within the same tolerances over the reference's
             sweep, windows, non-causal, ragged lengths, hd 16 and 96 and
@@ -23,17 +27,23 @@ Phases, each ending in ``torch.cuda.synchronize()``:
             to the plain one;
             then each path kernel timed beside its plain version, its bound
             and, where one PyTorch call computes the same function, that
-            call (``library_ms``);
+            call (``library_ms``), the codec at ``CODEC_TIMED``'s unit
+            counts;
 3. serve  — qwen2.5-3b FULL (36 layers, d_model 2048, vocab 151936) in bf16
             with random weights from a seeded generator: 4 requests of 128
             prompt tokens and 16 new tokens, one of them suspended and
             resumed mid-decode, so prefill attention, decode attention,
-            page-out and page-in all run; then a profiled decode window;
+            page-out and page-in all run; every ``deactivate`` and
+            ``activate`` is timed (the ``transit:`` line), and a fresh
+            sequence of the phase's length is paged out and in again
+            under the profiler; then a profiled decode window;
 4. long   — the same model and weights, one engine with 512 pages of 16:
-            prompts of 1000 and 4000 tokens prefilled and decoded 4 tokens;
+            prompts of 1000 and 4000 tokens prefilled, decoded 4 tokens
+            and retired (63 and 251 pages out, one launch each), the
+            transit timed and profiled as in phase 3;
 5. phi3   — phi3-mini-3.8b FULL (32 layers, d_model 3072, MHA 32 heads of
             96, vocab 32064) in bf16, served as in phase 3 without the
-            profile;
+            decode profile;
 6. parity — qwen2.5-3b and phi3-mini-3.8b SMOKE in f32 (TF32 off) served on
             the card and on the CPU from the same weights, once with a roomy
             pool (page-out and page-in) and once with a 2-page pool
@@ -43,9 +53,12 @@ Phases, each ending in ``torch.cuda.synchronize()``:
 
 Launch counts are zeroed just before each of phases 3-6 drives the path
 and read just after; every bf16 prefill layer must run the tensor-core
-flash kernel, every f32 one the SIMT kernel.  Then it prints the phases' results, a
-``{"kernels": [...]}`` line, the card's name and power limit from
-nvidia-smi, and as its last line
+flash kernel, every f32 one the SIMT kernel; the spill kernel launches
+once for each ``deactivate`` that pages out and the restore kernel once
+for each ``activate`` that pages in, and the cache counts the
+reference's 2 fused passes per layer per page.  Then it prints the
+phases' results, a ``{"kernels": [...]}`` line, the card's name and power
+limit from nvidia-smi, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Any failed check
 exits non-zero before those lines; so does a machine without CUDA, or a
 directory without the repository's ``src/repro_torch``.
@@ -296,30 +309,58 @@ def check_paged_attention(torch, rng, results) -> None:
                                   "max_row_rel_err": worst_row}
 
 
+# (label, S, P, page, F, n): a stack of S slots of P pages, n units read.
+# With S = 1 a single pool, as the one-pool API gives it; otherwise the
+# cache's layout, n // S pages of every slot, as one page-out or page-in
+# of a sequence launches it (qwen2.5-3b: 36 layers x K/V = 72 slots, F 256;
+# phi3-mini-3.8b: 64 slots, F 3072).
+CODEC_CASES = [
+    ("full-n1", 1, 64, 16, 256, 1),
+    ("full-n5", 1, 64, 16, 256, 5),
+    ("smoke", 1, 16, 16, 32, 3),
+    ("wide", 1, 16, 8, 384, 4),
+    ("phi3-full", 1, 64, 16, 3072, 2),
+    ("qwen-page", 72, 4, 16, 256, 72),
+    ("phi3-page", 64, 4, 16, 3072, 64),
+    ("qwen-251pages", 72, 512, 16, 256, 72 * 251),
+]
+
+
+def codec_case(torch, rng, S, P, page, F, n, dtype):
+    """A random stack (magnitudes over five decades, an all-zero row in
+    every page) and two disjoint unit lists of n: units to read and units
+    to write, in the cache's order (page, then slot) over pages in random
+    order when S > 1."""
+    import numpy as np
+    x = rng.standard_normal((S, P, page, F), dtype=np.float32) \
+        * rng.uniform(1e-3, 1e2, (S, P, page, 1)).astype(np.float32)
+    x[:, :, 0] = 0.0
+    stack = torch.from_numpy(x).to("cuda").to(dtype)
+    if S == 1:
+        perm = rng.permutation(P)[:2 * n]
+        pairs = np.stack([np.zeros_like(perm), perm], 1)
+    else:
+        pages = rng.permutation(P)[:2 * (n // S)]
+        pairs = np.stack([np.tile(np.arange(S), len(pages)),
+                          np.repeat(pages, S)], 1)
+    pairs = pairs.astype(np.int32)
+    return stack, (torch.tensor(pairs[:n], device="cuda"),
+                   torch.tensor(pairs[n:], device="cuda"))
+
+
 def check_codec(torch, rng, results) -> None:
+    """The codec's one launch over n units against its plain version, bit
+    for bit, at every ``CODEC_CASES`` shape in f32 and bf16."""
     from repro_torch.kernels import block_transit as bt
-    cases = [  # (label, P, page, F, n)
-        ("full-n1", 64, 16, 256, 1),
-        ("full-n5", 64, 16, 256, 5),
-        ("smoke", 16, 16, 32, 3),
-        ("wide", 16, 8, 384, 4),
-        ("phi3-full", 64, 16, 3072, 2),
-    ]
     for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        for label, P, page, F, n in cases:
-            x = rng.standard_normal((P, page, F)) * rng.uniform(
-                1e-3, 1e2, (P, page, 1))
-            x[:, 0] = 0.0                          # an all-zero row per page
-            pool = torch.tensor(x, dtype=dtype, device="cuda")
-            perm = rng.permutation(P)
-            ids = torch.tensor(perm[:n], dtype=torch.int32, device="cuda")
-            dst = torch.tensor(perm[n:2 * n], dtype=torch.int32,
-                               device="cuda")
-            tag = f"{label}/{dt}"
+        for label, S, P, page, F, n in CODEC_CASES:
+            stack, (src, dst) = codec_case(torch, rng, S, P, page, F, n,
+                                           dtype)
+            tag = f"{label}/{dt} ({n} units)"
             # spill: fused and plain, bit for bit, and zlib on the host
-            q, s, c = bt.gather_quantize_cuda(pool, ids)
-            qp, sp, cp = bt.gather_quantize_crc_plain(pool, ids)
-            q2, s2 = bt.gather_quantize_cuda(pool, ids, with_crc=False)
+            q, s, c = bt.gather_quantize_cuda(stack, src)
+            qp, sp, cp = bt.gather_quantize_crc_plain(stack, src)
+            q2, s2 = bt.gather_quantize_cuda(stack, src, with_crc=False)
             torch.cuda.synchronize()
             check(torch.equal(q, qp) and torch.equal(s, sp)
                   and torch.equal(c, cp), f"gather_quantize_crc {tag}")
@@ -328,9 +369,9 @@ def check_codec(torch, rng, results) -> None:
             qh = q.cpu().numpy()
             check([zlib.adler32(qh[i].tobytes()) for i in range(n)]
                   == c.cpu().tolist(), f"crc != zlib.adler32 {tag}")
-            # restore into other pages: everything else untouched
-            before = pool.clone()
-            pk, pp, p2 = pool.clone(), pool.clone(), pool.clone()
+            del qh, qp, sp, cp, q2, s2
+            # restore into other units: everything else untouched
+            pk, pp, p2 = stack.clone(), stack.clone(), stack.clone()
             _, rc = bt.scatter_dequantize_cuda(pk, dst, q, s)
             _, rcp = bt.scatter_dequantize_crc_plain(pp, dst, q, s)
             bt.scatter_dequantize_cuda(p2, dst, q, s, with_crc=False)
@@ -338,20 +379,23 @@ def check_codec(torch, rng, results) -> None:
             check(torch.equal(pk, pp) and torch.equal(p2, pp)
                   and torch.equal(rc, rcp) and torch.equal(rc, c),
                   f"scatter_dequantize(_crc) {tag}")
-            keep = torch.ones(P, dtype=torch.bool, device="cuda")
-            keep[dst.long()] = False
-            check(torch.equal(pk[keep], before[keep]),
-                  f"scatter touched other pages {tag}")
-            # a flipped payload byte moves only that page's crc
+            keep = torch.ones((S, P), dtype=torch.bool, device="cuda")
+            keep[dst[:, 0].long(), dst[:, 1].long()] = False
+            check(torch.equal(pk[keep], stack[keep]),
+                  f"scatter touched other units {tag}")
+            del pp, p2
+            # a flipped payload byte moves only that unit's crc
+            k = n // 2
             qc = q.clone()
-            qc[0, page // 2, F // 3] ^= 1
-            _, rc2 = bt.scatter_dequantize_cuda(pool.clone(), dst, qc, s)
+            qc[k, page // 2, F // 3] ^= 1
+            _, rc2 = bt.scatter_dequantize_cuda(pk, dst, qc, s)
             torch.cuda.synchronize()
-            check(int(rc2[0]) != int(c[0])
-                  and torch.equal(rc2[1:], c[1:]),
-                  f"corruption not isolated to its page {tag}")
+            check((rc2 != c).nonzero().flatten().tolist() == [k],
+                  f"corruption not isolated to its unit {tag}")
             log(f"codec {tag} ok: q/scales/crc bit-identical, zlib agrees, "
-                f"other pages untouched, a flipped byte moves one crc")
+                f"other units untouched, a flipped byte in unit {k} moves "
+                f"its crc only")
+            del stack, src, dst, q, s, c, pk, qc
     results["gather_quantize_crc"] = {"max_abs_err": 0.0}
     results["scatter_dequantize_crc"] = {"max_abs_err": 0.0}
 
@@ -521,6 +565,66 @@ def time_paged(torch, rng, label, B, H, Hkv, hd, page, P, maxp, lens,
     return out
 
 
+# (label, S, P, page, F, n) of the timed codec launches in bf16: one unit;
+# a page of qwen2.5-3b and of phi3-mini-3.8b; a 144-token sequence of
+# each (9 pages: a serve phase's page-out and page-in, the first the
+# kernels line's numbers); the long-prompt phase's 1000- and 4000-token
+# sequences (63 and 251 pages).
+CODEC_TIMED = [
+    ("qwen-serve-9pages", 72, 64, 16, 256, 72 * 9),
+    ("n1", 1, 64, 16, 256, 1),
+    ("qwen-page", 72, 64, 16, 256, 72),
+    ("phi3-page", 64, 20, 16, 3072, 64),
+    ("phi3-serve-9pages", 64, 20, 16, 3072, 64 * 9),
+    ("qwen-63pages", 72, 128, 16, 256, 72 * 63),
+    ("qwen-251pages", 72, 512, 16, 256, 72 * 251),
+]
+
+
+def time_codec(torch, rng, label, S, P, page, F, n) -> dict:
+    """The four codec instances at one bf16 shape, each one launch over n
+    units, beside its bound: every unit read once and its other form, the
+    scales, the unit list and (with the checksum) the crcs written or read
+    once."""
+    from repro_torch.kernels import block_transit as bt
+    stack, (src, _) = codec_case(torch, rng, S, P, page, F, n,
+                                 torch.bfloat16)
+    q, s, _ = bt.gather_quantize_cuda(stack, src)
+    elems = n * page * F
+    base = elems * 2 + elems + n * page * 4 + n * 8
+    iters = 200 if n < 1000 else 50
+    cases = {
+        "gather_quantize_crc": (
+            lambda: bt.gather_quantize_cuda(stack, src),
+            lambda: bt.gather_quantize_crc_plain(stack, src),
+            "gather_quantize_kernel", base + n * 8, 10 * elems),
+        "scatter_dequantize_crc": (
+            lambda: bt.scatter_dequantize_cuda(stack, src, q, s),
+            lambda: bt.scatter_dequantize_crc_plain(stack, src, q, s),
+            "scatter_dequantize_kernel", base + n * 8, 6 * elems),
+        "gather_quantize": (
+            lambda: bt.gather_quantize_cuda(stack, src, with_crc=False),
+            lambda: bt.gather_quantize_plain(stack, src),
+            "gather_quantize_kernel", base, 6 * elems),
+        "scatter_dequantize": (
+            lambda: bt.scatter_dequantize_cuda(stack, src, q, s,
+                                               with_crc=False),
+            lambda: bt.scatter_dequantize_plain(stack, src, q, s),
+            "scatter_dequantize_kernel", base, 2 * elems)}
+    out = {}
+    for name, (fn, plain, match, n_bytes, n_ops) in cases.items():
+        b_ms, b_by = bound(n_bytes, n_ops)
+        r = dict(kernel_times(fn, plain, iters, match), shape=label,
+                 units=n, unit_shape=[page, F], dtype="bf16", bound_ms=b_ms,
+                 bound_by=b_by)
+        out[name] = r
+        log(f"time {name} {label} ({n} units): kernel {r['ms']:.6f} ms "
+            f"({r['ms_from']}), {n_bytes / r['ms'] / 1e6:.1f} GB/s; plain "
+            f"{r['plain_ms']:.5f} ms; per call {r['call_ms']:.5f} ms; bound "
+            f"{b_ms:.6f} ms ({b_by})")
+    return out
+
+
 def time_kernels(torch, rng, results) -> None:
     """Each path kernel at the serving path's full-width shapes in bf16:
     prefill attention on the tensor-core kernel at qwen2.5-3b's 128-token
@@ -530,8 +634,8 @@ def time_kernels(torch, rng, results) -> None:
     over 4 sequences of 144 tokens (the last step; the row's numbers), and at
     phi3-mini-3.8b's width and the long-prompt shape (2 sequences of 1004
     and 4004 tokens over a 256-wide table) in ``at_shapes``; the codec at
-    n = 1 page, as the cache launches it."""
-    from repro_torch.kernels import block_transit as bt
+    ``CODEC_TIMED``'s shapes, a qwen2.5-3b serve page-out (9 pages, 648
+    units) the row's numbers."""
     keys = ("ms", "plain_ms", "ms_from", "plain_ms_from", "call_ms",
             "plain_call_ms", "bound_ms", "bound_by")
     flash = [time_flash(torch, rng, "qwen-T128", 1, 128, 16, 2, 128, 200),
@@ -555,36 +659,13 @@ def time_kernels(torch, rng, results) -> None:
         {k: shapes[0][k] for k in keys}, library_ms=None,
         at_shapes=shapes[1:])
 
-    F = Hkv * hd
-    pool = torch.randn((P, page, F), dtype=torch.bfloat16, device="cuda")
-    ids = torch.tensor([7], dtype=torch.int32, device="cuda")
-    q, s, _ = bt.gather_quantize_cuda(pool, ids)
-    elems = page * F
-    b_ms, b_by = bound(elems * 2 + 4 + elems + page * 4 + 8, 10 * elems)
-    results["gather_quantize_crc"].update(
-        kernel_times(lambda: bt.gather_quantize_cuda(pool, ids),
-                     lambda: bt.gather_quantize_crc_plain(pool, ids), 400,
-                     "gather_quantize_kernel"),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    b_ms, b_by = bound(elems + page * 4 + 4 + elems * 2 + 8, 6 * elems)
-    results["scatter_dequantize_crc"].update(
-        kernel_times(lambda: bt.scatter_dequantize_cuda(pool, ids, q, s),
-                     lambda: bt.scatter_dequantize_crc_plain(pool, ids, q, s),
-                     400, "scatter_dequantize_kernel"),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    # the instances without the checksum (public API, not on the path)
-    b_ms, b_by = bound(elems * 2 + 4 + elems + page * 4, 6 * elems)
-    results["gather_quantize"] = dict(kernel_times(
-        lambda: bt.gather_quantize_cuda(pool, ids, with_crc=False),
-        lambda: bt.gather_quantize_plain(pool, ids), 400,
-        "gather_quantize_kernel"), max_abs_err=0.0, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None)
-    b_ms, b_by = bound(elems + page * 4 + 4 + elems * 2, 2 * elems)
-    results["scatter_dequantize"] = dict(kernel_times(
-        lambda: bt.scatter_dequantize_cuda(pool, ids, q, s, with_crc=False),
-        lambda: bt.scatter_dequantize_plain(pool, ids, q, s), 400,
-        "scatter_dequantize_kernel"), max_abs_err=0.0, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None)
+    codec = [time_codec(torch, rng, *case) for case in CODEC_TIMED]
+    for name in ("gather_quantize_crc", "scatter_dequantize_crc",
+                 "gather_quantize", "scatter_dequantize"):
+        shapes = [c[name] for c in codec]
+        results.setdefault(name, {"max_abs_err": 0.0}).update(
+            {k: shapes[0][k] for k in keys}, library_ms=None,
+            at_shapes=shapes[1:])
     for name, r in results.items():
         log(f"time {name}: kernel {r['ms']:.5f} ms ({r['ms_from']}), plain "
             f"{r['plain_ms']:.5f} ms ({r['plain_ms_from']}); per call with "
@@ -645,6 +726,108 @@ def untime(eng) -> None:
     del eng.lm.prefill, eng.lm.decode_step
 
 
+def timed_transit(torch, eng) -> dict:
+    """Wrap the cache's page-out (``deactivate``) and page-in
+    (``activate``) with synchronised host clocks: per call its seconds and
+    the pages it moved (restore with ``untime_transit``)."""
+    calls = {"deactivate": [], "activate": []}
+    count = eng.cache.metrics.count
+    for name, key in (("deactivate", "pages_out"), ("activate", "pages_in")):
+        def timed(sid, _fn=getattr(eng.cache, name), _log=calls[name],
+                  _key=key):
+            torch.cuda.synchronize()
+            before, t = count.get(_key, 0), time.perf_counter()
+            _fn(sid)
+            torch.cuda.synchronize()
+            _log.append((time.perf_counter() - t, count.get(_key, 0) - before))
+        setattr(eng.cache, name, timed)
+    return calls
+
+
+def untime_transit(eng) -> None:
+    del eng.cache.deactivate, eng.cache.activate
+
+
+def transit_summary(calls) -> dict:
+    """Calls, the calls that moved pages, pages, seconds and the longest
+    call, for page-out and for page-in."""
+    out = {}
+    for name, log_ in calls.items():
+        out[name] = {"calls": len(log_),
+                     "calls_moving_pages": sum(n > 0 for _, n in log_),
+                     "pages": sum(n for _, n in log_),
+                     "s": sum(t for t, _ in log_),
+                     "longest_s": max((t for t, _ in log_), default=0.0)}
+    return out
+
+
+def transit_line(tag, transit) -> None:
+    d, a = transit["deactivate"], transit["activate"]
+    log(f"{tag}: transit: {d['calls']} deactivate calls "
+        f"({d['calls_moving_pages']} paged out) moved {d['pages']} pages in {d['s']:.4f} s (longest "
+        f"{d['longest_s']:.4f} s); {a['calls']} activate calls "
+        f"({a['calls_moving_pages']} paged in) moved {a['pages']} pages in "
+        f"{a['s']:.4f} s (longest {a['longest_s']:.4f} s)")
+
+
+def profile_transit(torch, eng, tokens: int, repeats: int = 3) -> dict:
+    """Where one page-out and one page-in of a sequence spend their time,
+    on an engine whose served run has ended: a fresh sequence of ``tokens``
+    random K/V tokens is paged out and back in ``repeats`` times on
+    synchronised host clocks, then once more each under torch.profiler.
+    The profile gives the host's CUDA runtime calls and aten ops by self
+    time (pinned allocation, copies, synchronisation, the launch) and the
+    device's kernels and copies; what they leave of the call is Python and
+    numpy (host entries, stacking the payloads)."""
+    from torch.profiler import ProfilerActivity, profile
+    cache, c = eng.cache, eng.cache.cfg
+    g = torch.Generator(device="cuda").manual_seed(3)
+    kv = [torch.randn((tokens, c.n_kv_heads, c.head_dim), generator=g,
+                      device="cuda").to(c.dtype)
+          for _ in range(2 * c.n_layers)]
+    sid = cache.new_sequence()
+    cache.append_tokens(sid, kv[0::2], kv[1::2])
+    pages = len(cache.seqs[sid].table)
+
+    def once(name):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        getattr(cache, name)(sid)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    out = {"tokens": tokens, "pages": pages}
+    for name in ("deactivate", "activate"):
+        out[name] = {"s": []}
+    for _ in range(repeats):
+        for name in ("deactivate", "activate"):
+            out[name]["s"].append(once(name))
+    for name in ("deactivate", "activate"):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = once(name)
+        host = sorted(((e.key[:50], e.self_cpu_time_total, e.count)
+                       for e in prof.key_averages()
+                       if e.self_cpu_time_total > 0), key=lambda r: -r[1])
+        dev: dict[str, list] = {}
+        for e in device_events(prof):
+            row = dev.setdefault(e.name[:50], [0.0, 0])
+            row[0] += e.time_range.end - e.time_range.start
+            row[1] += 1
+        out[name].update(profiled_s=wall, host_self_us_top=host[:8],
+                         device_us=sorted(dev.items(),
+                                          key=lambda kv_: -kv_[1][0]))
+    cache.release(sid)
+    torch.cuda.synchronize()
+    for name in ("deactivate", "activate"):
+        r = out[name]
+        log(f"transit profile {c.n_layers} layers x {pages} pages, {name}: "
+            f"{', '.join(f'{t:.4f}' for t in r['s'])} s; profiled "
+            f"{r['profiled_s']:.4f} s, host self us {r['host_self_us_top']}; "
+            f"device us {r['device_us']}")
+    return out
+
+
 def run_counted(torch, eng, suspend_at: int | None = None):
     """Drive the engine to the end with the launch counts zeroed just
     before and read just after; returns (seconds, ticks, counts)."""
@@ -671,11 +854,19 @@ def path_kernels(cfg) -> list[str]:
     return [name for name in KERNELS if name != skip]
 
 
-def check_path_counts(tag, cfg, spent, counts, m) -> None:
+COUNTERS = ("pages_out", "pages_in", "fused_kernel_passes",
+            "fused_kernel_bytes", "activate_stalls", "transit_crc_errors",
+            "bypass_pages", "hybrid_attention")
+
+
+def check_path_counts(tag, cfg, spent, counts, m, transit) -> None:
     """Every launch on the path went through its kernel, once per layer,
-    and every prefill layer through the flash kernel of its route.  A page
-    that bypassed to the host tier comes back in without the codec, so
-    the codec's counts are exact only where nothing bypassed."""
+    and every prefill layer through the flash kernel of its route; the
+    codec launched once for each deactivate that paged out and, where
+    nothing bypassed, once for each activate that paged in, and the cache
+    counted the reference's 2 passes per layer per page.  A page that
+    bypassed to the host tier comes back in without the codec, so the
+    page-in counts are exact only where nothing bypassed."""
     from repro_torch.kernels.flash_attention import flash_route
     n_pre = len(spent["prefill_s"])
     check(counts.get("flash_attention", 0) == cfg.n_layers * n_pre,
@@ -690,14 +881,21 @@ def check_path_counts(tag, cfg, spent, counts, m) -> None:
           == cfg.n_layers * spent["decode_steps"],
           f"{tag}: {counts.get('paged_attention', 0)} attention launches for "
           f"{spent['decode_steps']} decode steps")
+    out, inn = transit["deactivate"], transit["activate"]
+    check(counts.get("gather_quantize_crc", 0) == out["calls_moving_pages"]
+          and out["pages"] == m.get("pages_out", 0),
+          f"{tag}: {counts.get('gather_quantize_crc', 0)} spill launches for "
+          f"{out['calls_moving_pages']} page-outs")
     if m.get("bypass_pages", 0):
         return
-    check(counts.get("gather_quantize_crc", 0)
-          == 2 * cfg.n_layers * m.get("pages_out", 0),
-          f"{tag}: page-outs did not all go through the fused kernel")
-    check(counts.get("scatter_dequantize_crc", 0)
-          == 2 * cfg.n_layers * m.get("pages_in", 0),
-          f"{tag}: page-ins did not all go through the fused kernel")
+    check(counts.get("scatter_dequantize_crc", 0) == inn["calls_moving_pages"]
+          and inn["pages"] == m.get("pages_in", 0),
+          f"{tag}: {counts.get('scatter_dequantize_crc', 0)} restore "
+          f"launches for {inn['calls_moving_pages']} page-ins")
+    check(m.get("fused_kernel_passes", 0) == 2 * cfg.n_layers
+          * (m.get("pages_out", 0) + m.get("pages_in", 0)),
+          f"{tag}: {m.get('fused_kernel_passes', 0)} fused passes for "
+          f"{m.get('pages_out', 0)} pages out and {m.get('pages_in', 0)} in")
 
 
 def serve_full(torch, np, cfg, params, profile: bool) -> dict:
@@ -716,9 +914,12 @@ def serve_full(torch, np, cfg, params, profile: bool) -> dict:
     reqs = [eng.submit(rng.integers(2, cfg.vocab, size=128).tolist(),
                        max_new_tokens=16) for _ in range(4)]
     spent = timed_engine(torch, eng)
+    calls = timed_transit(torch, eng)
     e2e, ticks, counts = run_counted(torch, eng, suspend_at=3)
     untime(eng)
+    untime_transit(eng)
     m = dict(eng.metrics.count)
+    transit = transit_summary(calls)
     tag = f"serve {cfg.name}"
 
     check(all(r.done and len(r.out_tokens) == 16 for r in reqs),
@@ -734,9 +935,10 @@ def serve_full(torch, np, cfg, params, profile: bool) -> dict:
     for name in path_kernels(cfg):
         check(kernel_launches(counts).get(name, 0) > 0,
               f"{tag}: {name} never launched")
-    check_path_counts(tag, cfg, spent, counts, m)
+    check_path_counts(tag, cfg, spent, counts, m, transit)
     check(eng.cache.free_pages() == cache_cfg.n_pages and len(eng.cache.host)
           == 0, f"{tag}: pages leaked")
+    transit["profile"] = profile_transit(torch, eng, 144)
     # the output itself: a fresh prompt's logits at full width
     sid = eng.cache.new_sequence()
     logits = eng.lm.prefill(np.asarray(reqs[0].prompt[:32], np.int32), sid)
@@ -746,8 +948,8 @@ def serve_full(torch, np, cfg, params, profile: bool) -> dict:
           f"{tag}: full-width logits not finite")
     out = dict(spent, prefill_s=sum(spent["prefill_s"]),
                prefills=len(spent["prefill_s"]), e2e_s=e2e, ticks=ticks,
-               launches=counts, pages_out=m["pages_out"],
-               pages_in=m["pages_in"],
+               launches=counts, transit=transit,
+               counters={k: m.get(k, 0) for k in COUNTERS},
                decode_tok_s=spent["decode_tokens"] / spent["decode_s"],
                max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     if profile:
@@ -758,6 +960,7 @@ def serve_full(torch, np, cfg, params, profile: bool) -> dict:
         f"prefill {out['prefill_s']:.2f} s; pages out/in "
         f"{m['pages_out']}/{m['pages_in']}; launches {counts}; peak memory "
         f"{out['max_memory_gb']:.2f} GB")
+    transit_line(tag, transit)
     del eng
     return out
 
@@ -778,9 +981,12 @@ def long_prompts(torch, np, cfg, params) -> dict:
     reqs = [eng.submit(rng.integers(2, cfg.vocab, size=n).tolist(),
                        max_new_tokens=5) for n in lens]
     spent = timed_engine(torch, eng)
+    calls = timed_transit(torch, eng)
     e2e, ticks, counts = run_counted(torch, eng)
     untime(eng)
+    untime_transit(eng)
     m = dict(eng.metrics.count)
+    transit = transit_summary(calls)
     tag = f"long prompts {cfg.name}"
     check(all(r.done and len(r.out_tokens) == 5 for r in reqs),
           f"{tag}: unfinished")
@@ -791,17 +997,20 @@ def long_prompts(torch, np, cfg, params) -> dict:
     check(m.get("bypass_pages", 0) == 0 and m.get("hybrid_attention", 0) == 0,
           f"{tag}: the pool should hold both prompts")
     check(m.get("transit_crc_errors", 0) == 0, f"{tag}: transit crc errors")
-    check_path_counts(tag, cfg, spent, counts, m)
+    check_path_counts(tag, cfg, spent, counts, m, transit)
     check(eng.cache.free_pages() == cache_cfg.n_pages and len(eng.cache.host)
           == 0, f"{tag}: pages leaked")
+    transit["profile"] = profile_transit(torch, eng, lens[1])
     out = {"prompt_tokens": list(lens), "prefill_s": spent["prefill_s"],
            "decode_s": spent["decode_s"], "decode_steps": 4, "e2e_s": e2e,
-           "launches": counts, "pages_out": m.get("pages_out", 0),
+           "launches": counts, "transit": transit,
+           "counters": {k: m.get(k, 0) for k in COUNTERS},
            "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     log(f"{tag}: prefill {lens[0]} tokens {spent['prefill_s'][0]:.3f} s, "
         f"{lens[1]} tokens {spent['prefill_s'][1]:.3f} s; 4 decode steps "
-        f"{spent['decode_s']:.3f} s; launches {counts}; peak memory "
-        f"{out['max_memory_gb']:.2f} GB")
+        f"{spent['decode_s']:.3f} s; end to end {e2e:.3f} s; launches "
+        f"{counts}; peak memory {out['max_memory_gb']:.2f} GB")
+    transit_line(tag, transit)
     del eng
     return out
 
@@ -887,8 +1096,7 @@ def parity_smoke(torch, np) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    keys = ("pages_out", "pages_in", "bypass_pages", "hybrid_attention",
-            "activate_stalls", "transit_crc_errors")
+    keys = COUNTERS
     launches = {}
     for arch in (QWEN, PHI3):
         cfg = get_config(arch, smoke=True, dtype=torch.float32)
@@ -909,14 +1117,16 @@ def parity_smoke(torch, np) -> dict:
                                                 size=n).tolist(),
                                    max_new_tokens=8) for n in (12, 20, 9)]
                 spent = timed_engine(torch, eng)
+                calls = timed_transit(torch, eng)
                 _, _, launched = run_counted(torch, eng, suspend_at=2)
                 untime(eng)
+                untime_transit(eng)
                 check(all(r.done for r in reqs), f"{tag}: unfinished")
                 tokens[dev] = [r.out_tokens for r in reqs]
                 counts[dev] = {k: eng.metrics.count.get(k, 0) for k in keys}
                 if dev == "cuda":
                     check_path_counts(f"{tag} (cuda)", cfg, spent, launched,
-                                      counts[dev])
+                                      counts[dev], transit_summary(calls))
                     launches[f"{arch} {label}"] = launched
             check(tokens["cuda"] == tokens["cpu"], f"{tag}: cuda "
                   f"{tokens['cuda']} != cpu {tokens['cpu']}")

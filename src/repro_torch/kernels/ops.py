@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 
 from .block_transit import (gather_quantize_crc_plain, gather_quantize_cuda,
-                            gather_quantize_plain,
+                            gather_quantize_plain, one_slot,
                             scatter_dequantize_crc_plain,
                             scatter_dequantize_cuda, scatter_dequantize_plain)
 from .flash_attention import flash_attention_cuda, flash_attention_plain
@@ -17,7 +17,8 @@ from .paged_attention import paged_attention_cuda, paged_attention_plain
 
 __all__ = ["flash_attention", "paged_attention", "gather_quantize",
            "scatter_dequantize", "gather_quantize_crc",
-           "scatter_dequantize_crc"]
+           "scatter_dequantize_crc", "gather_quantize_crc_units",
+           "scatter_dequantize_crc_units"]
 
 
 def _on_card(t) -> bool:
@@ -65,31 +66,50 @@ def paged_attention(q, k_pool, v_pool, block_table, seq_lens):
     return paged_attention_plain(q, k_pool, v_pool, block_table, seq_lens)
 
 
+def gather_quantize_crc_units(stack, units):
+    """Fused spill codec over a batch: stack (S, P, page, F), units (n, 2)
+    int32 (slot, page) -> (q (n, page, F) int8, scales (n, page) f32,
+    crcs (n,) int64 Adler-32), in one pass."""
+    if _on_card(stack):
+        return gather_quantize_cuda(stack, units)
+    return gather_quantize_crc_plain(stack, units)
+
+
+def scatter_dequantize_crc_units(stack, units, q, scales):
+    """Fused restore codec over a batch, in place -> (stack, crcs of each
+    unit's payload as received), in one pass."""
+    if _on_card(stack):
+        return scatter_dequantize_cuda(stack, units, q, scales)
+    return scatter_dequantize_crc_plain(stack, units, q, scales)
+
+
+# The one-pool API of the reference: a pool (P, page, F) and page ids (n,),
+# through the same codec as a stack of one slot.
 def gather_quantize(pool, page_ids):
     """pool (P, page, F); page_ids (n,) int32 -> (q int8, scales f32)."""
     if _on_card(pool):
-        return gather_quantize_cuda(pool, page_ids, with_crc=False)
-    return gather_quantize_plain(pool, page_ids)
+        return gather_quantize_cuda(*one_slot(pool, page_ids),
+                                    with_crc=False)
+    return gather_quantize_plain(*one_slot(pool, page_ids))
 
 
 def scatter_dequantize(pool, page_ids, q, scales):
     """Writes the dequantized pages into ``pool`` in place; returns it."""
     if _on_card(pool):
-        return scatter_dequantize_cuda(pool, page_ids, q, scales,
-                                       with_crc=False)
-    return scatter_dequantize_plain(pool, page_ids, q, scales)
+        scatter_dequantize_cuda(*one_slot(pool, page_ids), q, scales,
+                                with_crc=False)
+    else:
+        scatter_dequantize_plain(*one_slot(pool, page_ids), q, scales)
+    return pool
 
 
 def gather_quantize_crc(pool, page_ids):
     """Fused spill codec -> (q int8, scales f32, crcs int64 Adler-32)."""
-    if _on_card(pool):
-        return gather_quantize_cuda(pool, page_ids)
-    return gather_quantize_crc_plain(pool, page_ids)
+    return gather_quantize_crc_units(*one_slot(pool, page_ids))
 
 
 def scatter_dequantize_crc(pool, page_ids, q, scales):
     """Fused restore codec, in place -> (pool, crcs of the payload as
     received)."""
-    if _on_card(pool):
-        return scatter_dequantize_cuda(pool, page_ids, q, scales)
-    return scatter_dequantize_crc_plain(pool, page_ids, q, scales)
+    return pool, scatter_dequantize_crc_units(
+        *one_slot(pool, page_ids), q, scales)[1]

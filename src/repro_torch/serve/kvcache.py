@@ -20,10 +20,14 @@ structures is the reference's:
                                  overflow onto a volume; not ported yet, the
                                  parameter is kept and raises when given
 
-The pools are one tensor per layer, (P, page_size, Hkv, hd), on the
-cache's device, and they are **updated in place** (a token write is an
-indexed copy, a page-in is the restore kernel writing one page), where
-the JAX cache rebuilt immutable arrays with ``.at[].set``.  So the
+The pools are one tensor per layer and K/V, (P, page_size, Hkv, hd), on
+the cache's device: views ``k_pool[l] = kv[l, 0]`` and ``v_pool[l] =
+kv[l, 1]`` of one (L, 2, P, page_size, Hkv, hd) allocation, which the
+transit codec reads as a stack of 2L slots, so that a sequence's whole
+page-out (every page, layer and K/V) is one launch, and so is its
+page-in.  They are **updated in place** (a token write is an indexed
+copy, a page-in is the restore kernel writing the pages), where the JAX
+cache rebuilt immutable arrays with ``.at[].set``.  So the
 reference's "eviction workers gather from an immutable snapshot" no longer
 holds: every pool read and write happens under ``_tlock``.
 
@@ -42,8 +46,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.metrics import Metrics
-from repro_torch.kernels.ops import (gather_quantize_crc, paged_attention,
-                                     scatter_dequantize_crc)
+from repro_torch.kernels.ops import (gather_quantize_crc_units,
+                                     paged_attention,
+                                     scatter_dequantize_crc_units)
 from repro_torch.volume.read_tier import ReadTier
 
 
@@ -118,10 +123,10 @@ class PagedKVCache:
         self._tlock = threading.Lock()
         L, P, pg, H, hd = (cfg.n_layers, cfg.n_pages, cfg.page_size,
                            cfg.n_kv_heads, cfg.head_dim)
-        self.k_pool = [torch.zeros((P, pg, H, hd), dtype=cfg.dtype,
-                                   device=self.device) for _ in range(L)]
-        self.v_pool = [torch.zeros((P, pg, H, hd), dtype=cfg.dtype,
-                                   device=self.device) for _ in range(L)]
+        self._kv = torch.zeros((L, 2, P, pg, H, hd), dtype=cfg.dtype,
+                               device=self.device)
+        self.k_pool = [self._kv[li, 0] for li in range(L)]
+        self.v_pool = [self._kv[li, 1] for li in range(L)]
         self._free: list[int] = list(range(P))          # global free set
         self.host = HostTier()
         # clean read tier over the host tier: caches dequantized pages for
@@ -155,7 +160,7 @@ class PagedKVCache:
                 continue
             for li, entry in enumerate(seq.table):
                 if entry[0] == "hbm":
-                    self._page_out_locked(seq, li)
+                    self._page_out_locked(seq, [li])
                     return True
         return False
 
@@ -265,33 +270,62 @@ class PagedKVCache:
         return {"k": np.zeros((L, pg, H, hd), np.float32),
                 "v": np.zeros((L, pg, H, hd), np.float32)}
 
-    def _pool_pages(self, pool) -> torch.Tensor:
-        """A layer's pool as (P, page, Hkv * hd), the codec's layout."""
-        return pool.view(self.cfg.n_pages, self.cfg.page_size, -1)
+    def _slots(self) -> torch.Tensor:
+        """The pools as the codec's stack: (2L, P, page, Hkv * hd), slot
+        ``2 * layer`` for K and ``2 * layer + 1`` for V."""
+        return self._kv.view(2 * self.cfg.n_layers, self.cfg.n_pages,
+                             self.cfg.page_size, -1)
+
+    def _units(self, pages: list[int]) -> np.ndarray:
+        """The codec's (n, 2) int32 (slot, page) list for these pages, in
+        the reference's loop order: page, then layer, then K before V."""
+        slots = 2 * self.cfg.n_layers
+        units = np.empty((len(pages), slots, 2), np.int32)
+        units[..., 0] = np.arange(slots, dtype=np.int32)
+        units[..., 1] = np.asarray(pages, np.int32)[:, None]
+        return units.reshape(-1, 2)
+
+    def _to_host(self, *tensors) -> list[np.ndarray]:
+        """Copy device tensors to the host with one synchronisation (pinned
+        buffers, asynchronous copies); CPU tensors are returned as they
+        are."""
+        if self.device.type != "cuda":
+            return [t.numpy() for t in tensors]
+        out = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+               for t in tensors]
+        for o, t in zip(out, tensors):
+            o.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return [o.numpy() for o in out]
 
     # ----------------------------------------------------------- transit ops
-    def _page_out_locked(self, seq: Sequence, logical: int) -> None:
-        """Transit one device page to the host tier via the FUSED kernel:
-        gather + int8 pack + wire checksum in one pass per layer and K/V."""
-        kind, page = seq.table[logical]
-        assert kind == "hbm"
-        handles = []
-        ids = torch.tensor([page], dtype=torch.int32, device=self.device)
-        for li in range(self.cfg.n_layers):
-            qk, sk, ck = gather_quantize_crc(self._pool_pages(self.k_pool[li]),
-                                             ids)
-            qv, sv, cv = gather_quantize_crc(self._pool_pages(self.v_pool[li]),
-                                             ids)
-            hk = self.host.put(li, qk[0].cpu().numpy(), sk[0].cpu().numpy(),
-                               int(ck[0]))
-            hv = self.host.put(li, qv[0].cpu().numpy(), sv[0].cpu().numpy(),
-                               int(cv[0]))
-            self.metrics.bump("fused_kernel_passes", 2)
-            self.metrics.bump("fused_kernel_bytes", qk.numel() + qv.numel())
-            handles.append((hk, hv))
-        seq.table[logical] = ("host", handles)
-        self._free.append(page)
-        self.metrics.bump("pages_out")
+    def _page_out_locked(self, seq: Sequence, logicals: list[int]) -> None:
+        """Transit these device pages of ``seq`` to the host tier via the
+        FUSED kernel: gather + int8 pack + wire checksum of every page,
+        layer and K/V in one launch, one copy of each result to the host
+        and one synchronisation.  The pool pages go back to the free list
+        only once every host entry has been read."""
+        if not logicals:
+            return
+        L = self.cfg.n_layers
+        pages = [seq.table[lg][1] for lg in logicals]
+        units = torch.from_numpy(self._units(pages)).to(self.device)
+        q, scales, crcs = self._to_host(
+            *gather_quantize_crc_units(self._slots(), units))
+        # one host entry per unit, in unit order, each owning its bytes (a
+        # copy: an entry is freed on its own)
+        entries = zip(map(np.ndarray.copy, q), map(np.ndarray.copy, scales),
+                      crcs.tolist())
+        for lg, page in zip(logicals, pages):
+            seq.table[lg] = ("host", [(self.host.put(li, *next(entries)),
+                                       self.host.put(li, *next(entries)))
+                                      for li in range(L)])
+            self._free.append(page)
+            self.metrics.bump("pages_out")
+        # what the reference's loop counts: 2 passes and the K and V
+        # payloads' bytes per layer per page
+        self.metrics.bump("fused_kernel_passes", 2 * L * len(pages))
+        self.metrics.bump("fused_kernel_bytes", q.nbytes)
 
     # ----------------------------------------------- pager record layout
     def _pack_page(self, handles) -> bytes:
@@ -334,84 +368,117 @@ class PagedKVCache:
             out.append((qk, sk, ck, qv, sv, cv))
         return out
 
-    def _page_in_locked(self, seq: Sequence, logical: int) -> bool:
-        """Bring a cold page back into the pool (dequantize + scatter).
+    def _restore_locked(self, seq: Sequence, got: list) -> np.ndarray:
+        """Dequantize + scatter the packed host pages of ``got`` ((logical,
+        pool page) pairs) into their pool pages in one launch, from one
+        upload of their payloads, scales and unit list; returns the crcs
+        of the payloads as received, (pages, L, 2)."""
+        L, pg = self.cfg.n_layers, self.cfg.page_size
+        entries = [self.host.get(li, h) for lg, _ in got
+                   for li, pair in enumerate(seq.table[lg][1]) for h in pair]
+        n, F = len(entries), entries[0][0].shape[-1]
+        # one byte buffer: scales, units, then the int8 payloads at a
+        # 16-byte boundary (the kernel's vector loads)
+        s_end = n * pg * 4
+        q_at = -(-(s_end + n * 8) // 16) * 16
+        buf = torch.empty(q_at + n * pg * F, dtype=torch.uint8,
+                          pin_memory=self.device.type == "cuda")
+        host = buf.numpy()
+        scales = host[:s_end].view(np.float32).reshape(n, pg)
+        q = host[q_at:].view(np.int8).reshape(n, pg, F)
+        for u, (qe, se, _) in enumerate(entries):
+            q[u] = qe
+            scales[u] = se
+        host[s_end:s_end + n * 8].view(np.int32)[:] = self._units(
+            [page for _, page in got]).reshape(-1)
+        dev = buf.to(self.device, non_blocking=True)
+        _, crcs = scatter_dequantize_crc_units(
+            self._slots(), dev[s_end:s_end + n * 8].view(torch.int32)
+            .view(n, 2), dev[q_at:].view(torch.int8).view(n, pg, F),
+            dev[:s_end].view(torch.float32).view(n, pg))
+        return crcs.cpu().numpy().reshape(len(got), L, 2)
 
-        The fused restore kernel writes the newly allocated page in place
-        and checksums the int8 payload as received; the page goes live
-        only once every layer verified against its spill-time crc.  On a
-        mismatch the page (not yet in any table) goes back to the free list
-        and the host entries stay put — an IOError never leaks capacity."""
-        kind, payload = seq.table[logical]
-        page = self._alloc_page()
-        if page is None:
-            return False
-        if kind == "host":
-            ids = torch.tensor([page], dtype=torch.int32, device=self.device)
-            dev = self.device
-            try:
+    def _page_in_locked(self, seq: Sequence, got: list) -> None:
+        """Bring the cold pages of ``got`` ((logical, allocated pool page)
+        pairs, in table order) back into the pool.
+
+        The fused restore kernel writes every packed page in place and
+        checksums each int8 payload as received, all in one launch; then
+        the pages are verified and committed in table order, layer by
+        layer, K before V, as the reference's loop meets them.  At the
+        first payload that does not match its spill-time crc, that page
+        and every page allocated after it go back to the free list (in
+        the order that leaves it as the reference's would be), their host
+        entries stay put, and IOError is raised: an IOError never leaks
+        capacity.  Raw f32 (host-fresh) pages are written as they commit."""
+        codec = [(lg, page) for lg, page in got if seq.table[lg][0] == "host"]
+        crcs = self._restore_locked(seq, codec) if codec else None
+        j = 0
+        for i, (lg, page) in enumerate(got):
+            kind, payload = seq.table[lg]
+            if kind == "host":
+                rc = crcs[j]
+                j += 1
                 for li, (hk, hv) in enumerate(payload):
-                    qk, sk, ck = self.host.get(li, hk)
-                    qv, sv, cv = self.host.get(li, hv)
-                    _, rck = scatter_dequantize_crc(
-                        self._pool_pages(self.k_pool[li]), ids,
-                        torch.tensor(qk, device=dev)[None],
-                        torch.tensor(sk, device=dev)[None])
-                    _, rcv = scatter_dequantize_crc(
-                        self._pool_pages(self.v_pool[li]), ids,
-                        torch.tensor(qv, device=dev)[None],
-                        torch.tensor(sv, device=dev)[None])
+                    qk, _, ck = self.host.get(li, hk)
+                    qv, _, cv = self.host.get(li, hv)
                     self.metrics.bump("fused_kernel_passes", 2)
                     self.metrics.bump("fused_kernel_bytes",
                                       qk.nbytes + qv.nbytes)
-                    if int(rck[0]) != ck or int(rcv[0]) != cv:
+                    if int(rc[li, 0]) != ck or int(rc[li, 1]) != cv:
                         self.metrics.bump("transit_crc_errors")
+                        for _, p in reversed(got[i:]):   # no capacity leak
+                            self._free.append(p)
                         raise IOError(
                             f"KV transit checksum mismatch: layer {li} page "
-                            f"{logical} of seq {seq.seq_id} tore in transit")
-            except IOError:
-                self._free.append(page)                  # no capacity leak
-                raise
-            for li, (hk, hv) in enumerate(payload):      # verified: commit
-                if self.read_tier is not None:
-                    self.read_tier.invalidate(("page", li, hk, hv))
-                self.host.pop(li, hk)
-                self.host.pop(li, hv)
-        else:                                            # host-fresh (raw f32)
-            for li in range(self.cfg.n_layers):
-                self.k_pool[li][page] = torch.tensor(
-                    payload["k"][li], device=self.device).to(self.cfg.dtype)
-                self.v_pool[li][page] = torch.tensor(
-                    payload["v"][li], device=self.device).to(self.cfg.dtype)
-        seq.table[logical] = ("hbm", page)
-        self.metrics.bump("pages_in")
-        return True
+                            f"{lg} of seq {seq.seq_id} tore in transit")
+                for li, (hk, hv) in enumerate(payload):  # verified: commit
+                    if self.read_tier is not None:
+                        self.read_tier.invalidate(("page", li, hk, hv))
+                    self.host.pop(li, hk)
+                    self.host.pop(li, hv)
+            else:                                        # host-fresh (raw f32)
+                for li in range(self.cfg.n_layers):
+                    self.k_pool[li][page] = torch.tensor(
+                        payload["k"][li], device=self.device).to(self.cfg.dtype)
+                    self.v_pool[li][page] = torch.tensor(
+                        payload["v"][li], device=self.device).to(self.cfg.dtype)
+            seq.table[lg] = ("hbm", page)
+            self.metrics.bump("pages_in")
 
     def deactivate(self, sid: int) -> None:
-        """Sequence paused/finished: eagerly transit its pages out.  The
-        whole page-out loop runs under ``_tlock`` — a concurrent deactivate
-        of the same sequence sees "host" entries and skips, instead of
-        double-freeing pool pages."""
+        """Sequence paused/finished: eagerly transit its pages out, all in
+        one codec launch.  The page-out runs under ``_tlock`` — a
+        concurrent deactivate of the same sequence sees "host" entries and
+        skips, instead of double-freeing pool pages."""
         with self._tlock:
             seq = self.seqs[sid]
             seq.active = False
             if not self.cfg.eager_eviction:
                 return
-            for li, entry in enumerate(seq.table):
-                if entry[0] == "hbm":
-                    self._page_out_locked(seq, li)
+            self._page_out_locked(seq, [li for li, entry in
+                                        enumerate(seq.table)
+                                        if entry[0] == "hbm"])
 
     def activate(self, sid: int) -> None:
-        """Resume a sequence: page everything back in (may stall when the
-        pool is full: the rest pages in on a later call)."""
+        """Resume a sequence: page everything back in, the packed pages in
+        one codec launch.  It may stall when the pool is full: the pages
+        that got a pool page come in, and the rest pages in on a later
+        call."""
         with self._tlock:
             seq = self.seqs[sid]
             seq.active = True
-            for li, entry in enumerate(seq.table):
-                if entry[0] in ("host", "host-fresh"):
-                    if not self._page_in_locked(seq, li):
-                        self.metrics.bump("activate_stalls")
-                        return                            # partial: retry later
+            cold = [li for li, entry in enumerate(seq.table)
+                    if entry[0] in ("host", "host-fresh")]
+            got = []
+            for li in cold:
+                page = self._alloc_page()
+                if page is None:
+                    break
+                got.append((li, page))
+            self._page_in_locked(seq, got)
+            if len(got) < len(cold):
+                self.metrics.bump("activate_stalls")    # partial: retry later
 
     def release(self, sid: int) -> None:
         with self._tlock:

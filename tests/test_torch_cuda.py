@@ -66,28 +66,58 @@ def test_paged_attention_kernel_matches_plain(card, B, H, Hkv, hd, page, P,
                                rtol=TOL[dtype])
 
 
+def _units(card, rng, S, P, n):
+    """2n distinct (slot, page) units in mixed order: n to read, n others
+    to write."""
+    idx = rng.permutation(S * P)[:2 * n]
+    pairs = np.stack([idx // P, idx % P], 1).astype(np.int32)
+    return (torch.tensor(pairs[:n], device=card),
+            torch.tensor(pairs[n:], device=card))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("P,page,F,n", [(64, 16, 256, 1), (16, 8, 384, 4),
-                                        (16, 16, 32, 3),
-                                        (64, 16, 3072, 2)])   # phi3 width
-def test_transit_codec_kernels_bit_exact(card, P, page, F, n, dtype):
+@pytest.mark.parametrize("S,P,page,F,n", [
+    (1, 64, 16, 256, 1),      # one unit
+    (72, 3, 16, 256, 72),     # a qwen2.5-3b page: 36 layers x K/V
+    (64, 3, 16, 3072, 64),    # a phi3-mini-3.8b page: 32 layers x K/V
+    (1, 16, 8, 384, 4), (1, 16, 16, 32, 3), (1, 64, 16, 3072, 2)])
+def test_transit_codec_kernels_bit_exact(card, S, P, page, F, n, dtype):
+    """One launch over n units against the plain version bit for bit, the
+    crcs against zlib; a flipped byte in unit k moves crc k only, and the
+    restore leaves every unit it is not given untouched."""
     g = torch.Generator(device=card).manual_seed(1)
-    pool = (torch.randn((P, page, F), generator=g, device=card) * 3).to(dtype)
-    ids = torch.randperm(P, generator=g, device=card)[:2 * n].int()
-    src, dst = ids[:n].contiguous(), ids[n:].contiguous()
-    q, s, c = gather_quantize_cuda(pool, src)
-    qp, sp, cp = gather_quantize_crc_plain(pool, src)
+    stack = (torch.randn((S, P, page, F), generator=g, device=card)
+             * 3).to(dtype)
+    src, dst = _units(card, np.random.default_rng(1), S, P, n)
+    q, s, c = gather_quantize_cuda(stack, src)
+    qp, sp, cp = gather_quantize_crc_plain(stack, src)
+    q2, s2 = gather_quantize_cuda(stack, src, with_crc=False)
     assert torch.equal(q, qp) and torch.equal(s, sp) and torch.equal(c, cp)
+    assert torch.equal(q2, qp) and torch.equal(s2, sp)
     qh = q.cpu().numpy()
     assert c.tolist() == [zlib.adler32(qh[i].tobytes()) for i in range(n)]
-    pk, pp = pool.clone(), pool.clone()
+    pk, pp, p2 = stack.clone(), stack.clone(), stack.clone()
     _, rc = scatter_dequantize_cuda(pk, dst, q, s)
     _, rcp = scatter_dequantize_crc_plain(pp, dst, q, s)
+    scatter_dequantize_cuda(p2, dst, q, s, with_crc=False)
     torch.cuda.synchronize()
-    assert torch.equal(pk, pp) and torch.equal(rc, c) and torch.equal(rcp, c)
+    assert torch.equal(pk, pp) and torch.equal(p2, pp)
+    assert torch.equal(rc, c) and torch.equal(rcp, c)
+    keep = torch.ones((S, P), dtype=torch.bool, device=card)
+    keep[dst[:, 0].long(), dst[:, 1].long()] = False
+    assert torch.equal(pk[keep], stack[keep])
+    k = n // 2
+    qc = q.clone()
+    qc[k, page // 2, F // 3] ^= 1
+    _, rc2 = scatter_dequantize_cuda(stack.clone(), dst, qc, s)
+    torch.cuda.synchronize()
+    moved = (rc2 != c).nonzero().flatten().tolist()
+    assert moved == [k]
 
 
 def test_ops_route_cuda_tensors_to_the_kernels(card):
+    """The one-pool API and the batched one each launch the kernel once a
+    call, whatever the number of units."""
     pool = torch.randn((8, 16, 64), device=card)
     ids = torch.tensor([3], dtype=torch.int32, device=card)
     before = _build.launch_counts()
@@ -96,6 +126,53 @@ def test_ops_route_cuda_tensors_to_the_kernels(card):
     after = _build.launch_counts()
     for name in ("gather_quantize_crc", "scatter_dequantize_crc"):
         assert after.get(name, 0) == before.get(name, 0) + 1
+    stack = torch.randn((6, 8, 16, 64), device=card)
+    units = torch.tensor([(sl, p) for p in (1, 5) for sl in range(6)],
+                         dtype=torch.int32, device=card)
+    q, s, _ = ops.gather_quantize_crc_units(stack, units)
+    ops.scatter_dequantize_crc_units(stack, units, q, s)
+    for name in ("gather_quantize_crc", "scatter_dequantize_crc"):
+        assert _build.launch_counts()[name] == after[name] + 1
+
+
+def test_one_codec_launch_per_page_out_and_page_in(card):
+    """On a SMOKE engine with a suspend and a resume, every deactivate that
+    pages out launches the spill kernel once, every activate that pages in
+    launches the restore kernel once, and the cache counts the reference's
+    2 passes per layer per page."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve import PagedCacheConfig, ServeEngine
+    cfg = get_config("qwen2.5-3b", smoke=True, dtype=torch.float32)
+    params = init_lm(cfg, torch.Generator(device=card).manual_seed(0))
+    eng = ServeEngine(cfg, params, max_batch=2, device=card,
+                      cache_cfg=PagedCacheConfig(
+                          n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
+                          head_dim=cfg.hd, page_size=8, n_pages=64,
+                          max_pages_per_seq=16, dtype=cfg.dtype))
+    moved = {"deactivate": 0, "activate": 0}
+    count = eng.metrics.count
+    for name, key in (("deactivate", "pages_out"), ("activate", "pages_in")):
+        def call(sid, _fn=getattr(eng.cache, name), _name=name, _key=key):
+            before = count.get(_key, 0)
+            _fn(sid)
+            moved[_name] += count.get(_key, 0) > before
+        setattr(eng.cache, name, call)
+    for n in (12, 20, 9):
+        eng.submit(list(range(2, 2 + n)), max_new_tokens=6)
+    _build.reset_launch_counts()
+    eng.step()
+    eng.step()
+    eng.suspend(eng.running[0])
+    eng.run()
+    torch.cuda.synchronize()
+    launched = _build.launch_counts()
+    assert moved["deactivate"] == 4 and moved["activate"] == 1
+    assert launched["gather_quantize_crc"] == moved["deactivate"]
+    assert launched["scatter_dequantize_crc"] == moved["activate"]
+    assert count["fused_kernel_passes"] == \
+        2 * cfg.n_layers * (count["pages_out"] + count["pages_in"])
+    assert eng.cache.free_pages() == 64 and len(eng.cache.host) == 0
 
 
 def _qkv(card, B, T, S, H, Hkv, hd, dtype, seed=0):

@@ -254,6 +254,51 @@ def test_fused_transit_crc_matches_three_pass_property(shape, seed, n_ids,
     assert np.array_equal(np32(new_pool), np32(exp_pool))
 
 
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("L,P,page,F", [(2, 6, 4, 32), (3, 5, 16, 48),
+                                        (1, 4, 8, 256)])
+def test_batched_codec_over_a_stack_matches_jax_per_unit(L, P, page, F, dt):
+    """The codec over a (L, 2, P, page, F) stack, one call for units in
+    mixed order, is bit-identical on q, scales and crc to the JAX oracles
+    run eagerly on each unit's pool and page alone; each crc is
+    zlib.adler32 of the unit's bytes; the restore into other pages writes
+    what scatter_dequantize_ref writes there and nothing else."""
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((L, 2, P, page, F)) * rng.uniform(
+        1e-3, 1e2, (L, 2, P, page, 1))
+    x[:, :, :, 0] = 0.0                               # an all-zero row
+    xj, xt = both(x, dt)
+    pools_j = xj.reshape(2 * L, P, page, F)
+    stack = xt.view(2 * L, P, page, F)
+    half = P // 2
+    pairs = np.array([(s, p) for s in range(2 * L) for p in range(half)],
+                     np.int32)
+    units = pairs[rng.permutation(len(pairs))]
+    q, sc, crc = ops.gather_quantize_crc_units(stack, torch.tensor(units))
+    assert crc.dtype == torch.int64 and q.shape == (len(units), page, F)
+    for u, (slot, p) in enumerate(units):
+        qr, sr = jref.gather_quantize_ref(pools_j[slot],
+                                          jnp.asarray([p], jnp.int32))
+        assert np.array_equal(q[u].numpy(), np.asarray(qr)[0])
+        assert np.array_equal(sc[u].numpy(), np.asarray(sr)[0])
+        assert int(crc[u]) == int(jref.transit_crc_ref(qr)[0]) \
+            == zlib.adler32(q[u].numpy().tobytes())
+    dst = units + np.array([0, half], np.int32)       # the other pages
+    before = stack.clone()
+    out, rcrc = ops.scatter_dequantize_crc_units(stack, torch.tensor(dst), q,
+                                                 sc)
+    assert out is stack and torch.equal(rcrc, crc)
+    written = np.zeros((2 * L, P), bool)
+    for u, (slot, p) in enumerate(dst):
+        exp = jref.scatter_dequantize_ref(
+            pools_j[slot], jnp.asarray([p], jnp.int32),
+            jnp.asarray(q[u].numpy())[None], jnp.asarray(sc[u].numpy())[None])
+        assert np.array_equal(np32(stack[slot, p]), np32(exp[p]))
+        written[slot, p] = True
+    keep = torch.tensor(~written)
+    assert torch.equal(stack[keep], before[keep])
+
+
 def test_fused_crc_detects_payload_corruption():
     """Flipping ONE byte of a quantized page moves its crc only."""
     rng = np.random.default_rng(9)

@@ -2,13 +2,23 @@
 the JAX cache's layout and oracles: pack/unpack byte-identical, page-out
 q/scales/crc bit-identical to ``repro.kernels.ref``, the page-out ->
 page-in round trip, conditional bypass, release accounting,
-max_pages_per_seq, and a torn payload on page-in."""
+max_pages_per_seq, and a torn payload on page-in.
+
+The port pages a sequence out, or in, with one codec call over every
+page, layer and K/V; the JAX cache loops page by page, layer by layer.
+``test_transit_end_state_equals_the_reference_loop`` runs both caches
+through the same page-outs, page-ins, torn payloads and stalls and holds
+every end state equal: tables, the free list in order, host entries,
+pool pages, pager bytes and counters.  The JAX cache's Pallas codec does
+not trace on this jax, so there it calls the eager ``repro.kernels.ref``
+oracles, which the codec equals bit for bit."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.serve import kvcache as jkv
 from repro.serve.kvcache import PagedCacheConfig as JaxCacheConfig
 from repro.serve.kvcache import PagedKVCache as JaxKVCache
 from repro_torch.core.metrics import Metrics
@@ -74,19 +84,24 @@ def test_page_out_matches_jax_codec_and_roundtrips():
     sid = c.new_sequence()
     ks, _ = _fill(c, sid, 10, rng)                 # 3 pages, last partial
     pages = [e[1] for e in c.seqs[sid].table]
-    pools = [c.k_pool[0][p].reshape(4, -1).numpy().copy() for p in pages]
+    pools = {(li, kv, p): (c.k_pool if kv == 0 else c.v_pool)[li][p]
+             .reshape(4, -1).numpy().copy()
+             for li in range(2) for kv in range(2) for p in pages}
     c.deactivate(sid)
     assert c.metrics.count["pages_out"] == 3
     assert c.free_pages() == 8
     assert c.metrics.count["fused_kernel_passes"] == 3 * 2 * 2
-    for logical, pool_page in enumerate(pools):
-        hk, _hv = c.seqs[sid].table[logical][1][0]
-        q, s, crc = c.host.get(0, hk)
-        qr, sr = jref.gather_quantize_ref(jnp.asarray(pool_page)[None],
-                                          jnp.asarray([0], jnp.int32))
-        assert np.array_equal(q, np.asarray(qr)[0])
-        assert np.array_equal(s, np.asarray(sr)[0])
-        assert crc == int(jref.transit_crc_ref(qr)[0])
+    for logical, page in enumerate(pages):
+        for li, pair in enumerate(c.seqs[sid].table[logical][1]):
+            for kv, h in enumerate(pair):
+                q, s, crc = c.host.get(li, h)
+                qr, sr = jref.gather_quantize_ref(
+                    jnp.asarray(pools[li, kv, page])[None],
+                    jnp.asarray([0], jnp.int32))
+                assert np.array_equal(q, np.asarray(qr)[0])
+                assert np.array_equal(s, np.asarray(sr)[0])
+                assert crc == int(jref.transit_crc_ref(qr)[0])
+                assert q.flags.owndata and s.flags.owndata
     c.activate(sid)
     assert c.metrics.count["pages_in"] == 3
     assert c.metrics.count.get("transit_crc_errors", 0) == 0
@@ -263,3 +278,188 @@ def test_unported_spill_hooks_raise(hook):
     cfg = PagedCacheConfig(**SHAPE, n_pages=4, dtype=torch.float32)
     with pytest.raises(NotImplementedError):
         PagedKVCache(cfg, device="cpu", **{hook: object()})
+
+
+# ------------------------------------------ batched transit vs reference loop
+COUNTERS = ("pages_out", "pages_in", "activate_stalls", "transit_crc_errors",
+            "fused_kernel_passes", "fused_kernel_bytes", "bypass_pages")
+
+
+def _oracle_gather(pool, ids):
+    q, s = jref.gather_quantize_ref(pool, ids)
+    return q, s, jref.transit_crc_ref(q)
+
+
+def _oracle_scatter(pool, ids, q, s):
+    return (jref.scatter_dequantize_ref(pool, ids, q, s),
+            jref.transit_crc_ref(q))
+
+
+class _Twins:
+    """The port's cache and the JAX cache, driven by the same calls."""
+
+    def __init__(self, **kw):
+        self.t = _cache(**kw)
+        base = dict(SHAPE, n_pages=8, max_pages_per_seq=8, read_tier_pages=8)
+        base.update(kw, dtype=jnp.float32)
+        self.j = JaxKVCache(JaxCacheConfig(**base))
+        self.rng = np.random.default_rng(7)
+
+    def new(self) -> int:
+        sid = self.t.new_sequence()
+        assert self.j.new_sequence() == sid
+        return sid
+
+    def fill(self, sid, n_tokens) -> None:
+        L, H, hd = SHAPE["n_layers"], SHAPE["n_kv_heads"], SHAPE["head_dim"]
+        for _ in range(n_tokens):
+            kv = self.rng.standard_normal((2, L, H, hd)).astype(np.float32)
+            self.t.append_token(sid, list(torch.tensor(kv[0])),
+                                list(torch.tensor(kv[1])))
+            self.j.append_token(sid, list(jnp.asarray(kv[0])),
+                                list(jnp.asarray(kv[1])))
+
+    def both(self, method, sid) -> None:
+        """Call ``method`` on both; they raise the same error or none."""
+        errors = []
+        for c in (self.t, self.j):
+            try:
+                getattr(c, method)(sid)
+                errors.append(None)
+            except IOError as e:
+                errors.append(str(e))
+        assert errors[0] == errors[1]
+        return errors[0]
+
+    def tear(self, sid, logical, layer, kv) -> tuple:
+        """Flip one payload byte of a host entry in both caches; returns
+        what restores it."""
+        saved = []
+        for c in (self.t, self.j):
+            h = c.seqs[sid].table[logical][1][layer][kv]
+            q, s, crc = c.host.get(layer, h)
+            torn = np.array(q)
+            torn[1, 3] ^= 0x20
+            c.host.pages[(layer, h)] = (torn, s, crc)
+            saved.append((c, (layer, h), (q, s, crc)))
+        return saved
+
+    def assert_same(self) -> None:
+        t, j = self.t, self.j
+        assert list(t._free) == list(j._free)
+        assert ({k: t.metrics.count.get(k, 0) for k in COUNTERS}
+                == {k: j.metrics.count.get(k, 0) for k in COUNTERS})
+        assert t.host.pages.keys() == j.host.pages.keys()
+        for key, (q, s, crc) in t.host.pages.items():
+            jq, js, jcrc = j.host.pages[key]
+            assert np.array_equal(q, np.asarray(jq))
+            assert np.array_equal(s, np.asarray(js))
+            assert crc == int(jcrc)
+        assert t.seqs.keys() == j.seqs.keys()
+        for sid, seq in t.seqs.items():
+            jt = j.seqs[sid].table
+            assert [e[0] for e in seq.table] == [e[0] for e in jt]
+            for et, ej in zip(seq.table, jt):
+                if et[0] == "hbm":
+                    assert et[1] == ej[1]
+                    for li in range(SHAPE["n_layers"]):
+                        for tp, jp in ((t.k_pool, j.k_pool),
+                                       (t.v_pool, j.v_pool)):
+                            assert np.array_equal(tp[li][et[1]].numpy(),
+                                                  np.asarray(jp[li][ej[1]]))
+                elif et[0] == "host":
+                    assert et[1] == ej[1]
+                    assert t._pack_page(et[1]) == j._pack_page(ej[1])
+                else:
+                    for kv in ("k", "v"):
+                        assert np.array_equal(et[1][kv], ej[1][kv])
+
+
+@pytest.fixture
+def twins(monkeypatch):
+    monkeypatch.setattr(jkv, "gather_quantize_crc", _oracle_gather)
+    monkeypatch.setattr(jkv, "scatter_dequantize_crc", _oracle_scatter)
+    return _Twins
+
+
+@pytest.mark.parametrize("scenario", ["page-out", "round-trip", "torn",
+                                      "torn-before-fresh", "stall",
+                                      "fresh-first"])
+def test_transit_end_state_equals_the_reference_loop(twins, scenario):
+    L = SHAPE["n_layers"]
+    if scenario in ("page-out", "round-trip", "torn"):
+        tw = twins()
+        other = tw.new()
+        tw.fill(other, 5)                  # 2 pages, so the ids interleave
+        sid = tw.new()
+        tw.fill(sid, 10)                   # 3 pages, the last partial
+        tw.both("deactivate", sid)
+        tw.assert_same()
+        assert tw.t.metrics.count["fused_kernel_passes"] == 3 * 2 * L
+        if scenario == "torn":             # layer 1 of page 2 of 3
+            saved = tw.tear(sid, 2, 1, 0)
+            assert "layer 1 page 2" in tw.both("activate", sid)
+            tw.assert_same()
+            assert tw.t.metrics.count["transit_crc_errors"] == 1
+            assert [e[0] for e in tw.t.seqs[sid].table] == \
+                ["hbm", "hbm", "host"]
+            # the reference bumps before it checks: pages 0-1 whole, and
+            # page 2 up to the torn layer
+            assert tw.t.metrics.count["fused_kernel_passes"] == \
+                3 * 2 * L + 2 * 2 * L + 2 * 2
+            for c, key, entry in saved:
+                c.host.pages[key] = entry
+        if scenario != "page-out":
+            assert tw.both("activate", sid) is None
+            tw.assert_same()
+            assert tw.t.metrics.count.get("transit_crc_errors", 0) == \
+                (scenario == "torn")
+    elif scenario == "torn-before-fresh":  # [host, host, host (torn), fresh]
+        tw = twins(n_pages=4)
+        a = tw.new()
+        tw.fill(a, 4)
+        sid = tw.new()
+        tw.fill(sid, 16)                   # 3 device pages, then bypass
+        tw.both("deactivate", sid)
+        tw.both("release", a)
+        assert [e[0] for e in tw.t.seqs[sid].table] == \
+            ["host", "host", "host", "host-fresh"]
+        saved = tw.tear(sid, 2, 1, 1)
+        assert "layer 1 page 2" in tw.both("activate", sid)
+        tw.assert_same()
+        assert tw.t.free_pages() == 2
+        for c, key, entry in saved:
+            c.host.pages[key] = entry
+        assert tw.both("activate", sid) is None
+        tw.assert_same()
+    elif scenario == "stall":              # one free page too few
+        tw = twins(n_pages=4)
+        sid = tw.new()
+        tw.fill(sid, 16)                   # 4 pages
+        tw.both("deactivate", sid)
+        other = tw.new()
+        tw.fill(other, 2)                  # takes 1 of the 4 pages
+        tw.both("activate", sid)
+        tw.assert_same()
+        assert tw.t.metrics.count["activate_stalls"] == 1
+        assert tw.t.metrics.count["pages_in"] == 3
+        assert [e[0] for e in tw.t.seqs[sid].table] == \
+            ["hbm", "hbm", "hbm", "host"]
+        tw.both("release", other)
+        tw.both("activate", sid)
+        tw.assert_same()
+        assert tw.t.metrics.count["activate_stalls"] == 1
+    else:                                  # fresh-first: [fresh, host]
+        tw = twins(n_pages=2)
+        a = tw.new()
+        tw.fill(a, 8)                      # the whole pool
+        sid = tw.new()
+        tw.fill(sid, 4)                    # page 0 bypasses
+        tw.both("deactivate", a)
+        tw.fill(sid, 4)                    # page 1 on the device
+        tw.both("deactivate", sid)
+        assert [e[0] for e in tw.t.seqs[sid].table] == ["host-fresh", "host"]
+        tw.assert_same()
+        tw.both("activate", sid)
+        tw.assert_same()
+        assert tw.t.metrics.count["pages_in"] == 2
