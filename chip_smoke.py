@@ -41,22 +41,37 @@ Phases, each ending in ``torch.cuda.synchronize()``:
             prompts of 1000 and 4000 tokens prefilled, decoded 4 tokens
             and retired (63 and 251 pages out, one launch each), the
             transit timed and profiled as in phase 3;
-5. phi3   — phi3-mini-3.8b FULL (32 layers, d_model 3072, MHA 32 heads of
+5. spill  — the same model and weights through the volume-backed spill
+            tier: 8 requests of 128 prompt and 32 new tokens at batch 4,
+            the first running request suspended every 6 ticks, a KVPager on
+            a striped volume (``SPILL_VOLUME``) behind a 4-page host tier,
+            prefetch depth 2; then the same traffic and suspends with no
+            pager.  The greedy tokens must be equal; pages must spill, be
+            prefetched and restored, with no wire or transit crc error and
+            no slot, pool page or host entry left; it prints the seconds
+            per spill, per fetch and per activate of a volume-resident
+            session, the records, blocks and bytes written, the dedup and
+            prefetch hit rates and each run's end-to-end time;
+6. phi3   — phi3-mini-3.8b FULL (32 layers, d_model 3072, MHA 32 heads of
             96, vocab 32064) in bf16, served as in phase 3 without the
             decode profile;
-6. parity — qwen2.5-3b and phi3-mini-3.8b SMOKE in f32 (TF32 off) served on
-            the card and on the CPU from the same weights, once with a roomy
-            pool (page-out and page-in) and once with a 2-page pool
-            (conditional bypass and hybrid attention, which runs the
-            paged-attention kernel): the greedy tokens and the cache's
-            counters are equal.
+7. parity — qwen2.5-3b and phi3-mini-3.8b SMOKE in f32 (TF32 off) served on
+            the card and on the CPU from the same weights, with a roomy
+            pool (page-out and page-in), with a 2-page pool (conditional
+            bypass and hybrid attention, which runs the paged-attention
+            kernel), and with a 6-page pool behind a pager with no host
+            budget (``PARITY_CASES``: a resume stalls right after promoting
+            a spilled page, and the hybrid path reads spilled pages): the
+            greedy tokens and the cache's counters are equal.
 
-Launch counts are zeroed just before each of phases 3-6 drives the path
+Launch counts are zeroed just before each of phases 3-7 drives the path
 and read just after; every bf16 prefill layer must run the tensor-core
 flash kernel, every f32 one the SIMT kernel; the spill kernel launches
-once for each ``deactivate`` that pages out and the restore kernel once
-for each ``activate`` that pages in, and the cache counts the
-reference's 2 fused passes per layer per page.  Then it prints the
+once for each ``deactivate`` that pages out, and the restore kernel at
+most once for each volume record an ``activate`` fetched plus once for
+each ``activate`` that pages in (exactly once where no record was
+fetched and nothing bypassed); the cache counts the reference's 2 fused
+passes per layer per page.  Then it prints the
 phases' results, a ``{"kernels": [...]}`` line, the card's name and power
 limit from nvidia-smi, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Any failed check
@@ -674,7 +689,7 @@ def time_kernels(torch, rng, results) -> None:
             f"{r['bound_ms']:.6f} ms ({r['bound_by']})")
 
 
-# ------------------------------------------------------------- phase 3-5
+# ------------------------------------------------------------- phase 3-6
 def init_full(torch, arch: str):
     """FULL config and random bf16 parameters on the card from seed 0."""
     from repro_torch.configs import get_config
@@ -726,20 +741,28 @@ def untime(eng) -> None:
     del eng.lm.prefill, eng.lm.decode_step
 
 
+def _fetched(count) -> int:
+    """Volume records read back so far (whole or failing their crc)."""
+    return count.get("kv_restores", 0) + count.get("kv_restore_crc_errors", 0)
+
+
 def timed_transit(torch, eng) -> dict:
     """Wrap the cache's page-out (``deactivate``) and page-in
-    (``activate``) with synchronised host clocks: per call its seconds and
-    the pages it moved (restore with ``untime_transit``)."""
+    (``activate``) with synchronised host clocks: per call its seconds,
+    the pages it moved and the volume records it fetched (restore with
+    ``untime_transit``)."""
     calls = {"deactivate": [], "activate": []}
     count = eng.cache.metrics.count
     for name, key in (("deactivate", "pages_out"), ("activate", "pages_in")):
         def timed(sid, _fn=getattr(eng.cache, name), _log=calls[name],
                   _key=key):
             torch.cuda.synchronize()
-            before, t = count.get(_key, 0), time.perf_counter()
+            before, got, t = count.get(_key, 0), _fetched(count), \
+                time.perf_counter()
             _fn(sid)
             torch.cuda.synchronize()
-            _log.append((time.perf_counter() - t, count.get(_key, 0) - before))
+            _log.append((time.perf_counter() - t, count.get(_key, 0) - before,
+                         _fetched(count) - got))
         setattr(eng.cache, name, timed)
     return calls
 
@@ -749,15 +772,16 @@ def untime_transit(eng) -> None:
 
 
 def transit_summary(calls) -> dict:
-    """Calls, the calls that moved pages, pages, seconds and the longest
-    call, for page-out and for page-in."""
+    """Calls, the calls that moved pages, pages, volume records fetched,
+    seconds and the longest call, for page-out and for page-in."""
     out = {}
     for name, log_ in calls.items():
         out[name] = {"calls": len(log_),
-                     "calls_moving_pages": sum(n > 0 for _, n in log_),
-                     "pages": sum(n for _, n in log_),
-                     "s": sum(t for t, _ in log_),
-                     "longest_s": max((t for t, _ in log_), default=0.0)}
+                     "calls_moving_pages": sum(n > 0 for _, n, _ in log_),
+                     "pages": sum(n for _, n, _ in log_),
+                     "records_fetched": sum(f for _, _, f in log_),
+                     "s": sum(t for t, _, _ in log_),
+                     "longest_s": max((t for t, _, _ in log_), default=0.0)}
     return out
 
 
@@ -828,9 +852,12 @@ def profile_transit(torch, eng, tokens: int, repeats: int = 3) -> dict:
     return out
 
 
-def run_counted(torch, eng, suspend_at: int | None = None):
+def run_counted(torch, eng, suspend_at: int | None = None,
+                suspend_every: int | None = None, suspend_all: bool = False):
     """Drive the engine to the end with the launch counts zeroed just
-    before and read just after; returns (seconds, ticks, counts)."""
+    before and read just after; returns (seconds, ticks, counts).  After
+    tick ``suspend_at`` (or every ``suspend_every`` ticks) the first
+    running request is suspended (with ``suspend_all``, every one)."""
     from repro_torch.kernels import _build
     torch.cuda.synchronize()
     _build.reset_launch_counts()
@@ -839,8 +866,10 @@ def run_counted(torch, eng, suspend_at: int | None = None):
     while eng.queue or eng.running or eng.suspended:
         eng.step()
         ticks += 1
-        if ticks == suspend_at:              # preempt mid-decode
-            eng.suspend(eng.running[0])
+        if eng.running and (ticks == suspend_at or (
+                suspend_every and ticks % suspend_every == 0)):
+            for req in list(eng.running) if suspend_all else eng.running[:1]:
+                eng.suspend(req)             # preempt mid-decode
     torch.cuda.synchronize()
     return time.perf_counter() - t0, ticks, _build.launch_counts()
 
@@ -862,11 +891,13 @@ COUNTERS = ("pages_out", "pages_in", "fused_kernel_passes",
 def check_path_counts(tag, cfg, spent, counts, m, transit) -> None:
     """Every launch on the path went through its kernel, once per layer,
     and every prefill layer through the flash kernel of its route; the
-    codec launched once for each deactivate that paged out and, where
-    nothing bypassed, once for each activate that paged in, and the cache
-    counted the reference's 2 passes per layer per page.  A page that
-    bypassed to the host tier comes back in without the codec, so the
-    page-in counts are exact only where nothing bypassed."""
+    codec launched once for each deactivate that paged out, at most once
+    for each volume record an activate fetched plus once for each
+    activate, and, where nothing bypassed and no record was fetched, once
+    for each activate that paged in; and the cache counted the
+    reference's 2 passes per layer per page.  A page that bypassed to the
+    host tier comes back in without the codec, so the page-in counts are
+    exact only where nothing bypassed."""
     from repro_torch.kernels.flash_attention import flash_route
     n_pre = len(spent["prefill_s"])
     check(counts.get("flash_attention", 0) == cfg.n_layers * n_pre,
@@ -886,12 +917,21 @@ def check_path_counts(tag, cfg, spent, counts, m, transit) -> None:
           and out["pages"] == m.get("pages_out", 0),
           f"{tag}: {counts.get('gather_quantize_crc', 0)} spill launches for "
           f"{out['calls_moving_pages']} page-outs")
+    # an activate launches once, and once more before each record it
+    # fetches after pages it has not restored yet
+    restores = counts.get("scatter_dequantize_crc", 0)
+    most = inn["calls_moving_pages"] + inn["records_fetched"]
+    check(restores <= most, f"{tag}: {restores} restore launches for "
+          f"{inn['calls_moving_pages']} page-ins that fetched "
+          f"{inn['records_fetched']} volume records")
     if m.get("bypass_pages", 0):
         return
-    check(counts.get("scatter_dequantize_crc", 0) == inn["calls_moving_pages"]
-          and inn["pages"] == m.get("pages_in", 0),
-          f"{tag}: {counts.get('scatter_dequantize_crc', 0)} restore "
-          f"launches for {inn['calls_moving_pages']} page-ins")
+    check(inn["pages"] == m.get("pages_in", 0)
+          and restores >= inn["calls_moving_pages"]
+          and (inn["records_fetched"] > 0
+               or restores == inn["calls_moving_pages"]),
+          f"{tag}: {restores} restore launches for "
+          f"{inn['calls_moving_pages']} page-ins")
     check(m.get("fused_kernel_passes", 0) == 2 * cfg.n_layers
           * (m.get("pages_out", 0) + m.get("pages_in", 0)),
           f"{tag}: {m.get('fused_kernel_passes', 0)} fused passes for "
@@ -1015,6 +1055,173 @@ def long_prompts(torch, np, cfg, params) -> dict:
     return out
 
 
+# the spill phase's volume: 885 slots of a qwen2.5-3b FULL record (74
+# blocks), against at most 80 live records.  The in-flight window holds
+# every record of the 2 prefetched requests (10 pages each) as linked
+# reads, with room for spill writes: the default of 16 holds no record, so
+# nothing would be prefetched, and a window that cuts a chain short makes
+# the pager cancel the chain's queued links, which takes time doubling
+# with each link (the error text of each link's cancellation quotes the
+# one before)
+SPILL_VOLUME = dict(n_lbas=1 << 16, n_shards=2, aio_workers=2,
+                    cache_bytes=1 << 22, max_inflight=2048)
+
+
+def timed_pager(pager) -> dict:
+    """Wrap the pager's ``spill``, ``fetch`` and ``prefetch`` with host
+    clocks: the seconds of each call (restore with ``untime_pager``).  A
+    prefetch first waits for its records' spill writes to land."""
+    spent = {"spill": [], "fetch": [], "prefetch": []}
+    for name, log_ in spent.items():
+        def timed(*args, _fn=getattr(pager, name), _log=log_):
+            t = time.perf_counter()
+            out = _fn(*args)
+            _log.append(time.perf_counter() - t)
+            return out
+        setattr(pager, name, timed)
+    return spent
+
+
+def untime_pager(pager) -> None:
+    del pager.spill, pager.fetch, pager.prefetch
+
+
+def _mean_max(xs) -> tuple[float, float]:
+    return (sum(xs) / len(xs), max(xs)) if xs else (0.0, 0.0)
+
+
+def spill_full(torch, np, cfg, params) -> dict:
+    """8 requests x (128 prompt + 32 new tokens) at full width, batch 4,
+    the first running request suspended every 6 ticks, through a pager on
+    a volume (host tier 4 pages, prefetch depth 2), then the same traffic
+    and suspends with no pager and an unbounded host tier: the greedy
+    tokens must be equal, pages must have spilled, been prefetched and
+    restored with no crc error, and nothing may be left behind."""
+    from repro_torch.launch.serve import record_blocks
+    from repro_torch.serve import KVPager, PagedCacheConfig, ServeEngine
+    from repro_torch.volume.volume import make_volume
+
+    tag = f"spill {cfg.name}"
+    runs = {}
+    for mode in ("pager", "no pager"):
+        torch.cuda.reset_peak_memory_stats()
+        vol = make_volume(**SPILL_VOLUME) if mode == "pager" else None
+        try:
+            pager = KVPager(vol) if vol is not None else None
+            cache_cfg = PagedCacheConfig(
+                n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.hd, page_size=16, n_pages=64,
+                host_pages=4 if pager else 1 << 30, max_pages_per_seq=16,
+                dtype=cfg.dtype)
+            eng = ServeEngine(cfg, params, cache_cfg=cache_cfg, max_batch=4,
+                              pager=pager, prefetch_depth=2, device="cuda")
+            rng = np.random.default_rng(4)
+            reqs = [eng.submit(rng.integers(2, cfg.vocab, size=128).tolist(),
+                               max_new_tokens=32) for _ in range(8)]
+            spent = timed_engine(torch, eng)
+            calls = timed_transit(torch, eng)
+            io = timed_pager(pager) if pager else None
+            e2e, ticks, counts = run_counted(torch, eng, suspend_every=6)
+            untime(eng)
+            untime_transit(eng)
+            m = dict(eng.metrics.count)
+            transit = transit_summary(calls)
+            check(all(r.done and len(r.out_tokens) == 32 for r in reqs),
+                  f"{tag} ({mode}): not every request finished")
+            check(spent["finite"], f"{tag} ({mode}): logits not finite")
+            check(m.get("transit_crc_errors", 0) == 0,
+                  f"{tag} ({mode}): transit crc errors")
+            check(m.get("bypass_pages", 0) == 0,
+                  f"{tag} ({mode}): the pool should hold the batch")
+            for name in path_kernels(cfg):
+                check(kernel_launches(counts).get(name, 0) > 0,
+                      f"{tag} ({mode}): {name} never launched")
+            check_path_counts(f"{tag} ({mode})", cfg, spent, counts, m,
+                              transit)
+            check(eng.cache.free_pages() == cache_cfg.n_pages
+                  and len(eng.cache.host) == 0
+                  and eng.cache.host_page_count() == 0,
+                  f"{tag} ({mode}): pages or host entries left behind")
+            run = {"e2e_s": e2e, "ticks": ticks, "launches": counts,
+                   "tokens": [r.out_tokens for r in reqs],
+                   "prefill_s": sum(spent["prefill_s"]),
+                   "decode_s": spent["decode_s"],
+                   "decode_tok_s": spent["decode_tokens"] / spent["decode_s"],
+                   "suspends": m.get("suspends", 0),
+                   "resumes": m.get("resumes", 0), "transit": transit,
+                   "counters": {k: m.get(k, 0) for k in COUNTERS},
+                   "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+            if pager is not None:
+                untime_pager(pager)
+                st = pager.stats()
+                check(st["records"] == 0 and st["free_slots"] == st["n_slots"],
+                      f"{tag}: pager slots left behind {st}")
+                path = eng.metrics.kv_paging_path()
+                resident = [t for t, _, f in calls["activate"] if f > 0]
+                blocks = path["kv_spill_blocks"]
+                run.update(
+                    kv_paging=path, slot_blocks=st["slot_blocks"],
+                    n_slots=st["n_slots"],
+                    record_blocks=record_blocks(cfg, 16),
+                    spill_s=io["spill"], fetch_s=io["fetch"],
+                    prefetch_s=io["prefetch"],
+                    spill_s_mean_max=_mean_max(io["spill"]),
+                    fetch_s_mean_max=_mean_max(io["fetch"]),
+                    resident_activate_s=resident,
+                    blocks_written=blocks,
+                    bytes_written=blocks * vol.block_size)
+            runs[mode] = run
+            del eng
+        finally:
+            if vol is not None:
+                vol.close()
+    got, ref = runs["pager"], runs["no pager"]
+    check(got["tokens"] == ref["tokens"],
+          f"{tag}: greedy tokens differ from the run with no pager")
+    check(got["suspends"] == ref["suspends"] > 0
+          and got["resumes"] == got["suspends"],
+          f"{tag}: suspends/resumes {got['suspends']}/{got['resumes']}")
+    p = got["kv_paging"]
+    for key in ("kv_spills", "kv_restores", "kv_prefetch_issued",
+                "kv_prefetch_hits"):
+        check(p[key] > 0, f"{tag}: {key} = {p[key]}")
+    check(p["kv_restore_crc_errors"] == 0, f"{tag}: wire crc errors")
+    check(got["slot_blocks"] == got["record_blocks"],
+          f"{tag}: {got['slot_blocks']}-block records, "
+          f"{got['record_blocks']} expected")
+    (sm, sx), (fm, fx) = got["spill_s_mean_max"], got["fetch_s_mean_max"]
+    log(f"{tag}: 8 requests x 32 tokens in {got['e2e_s']:.2f} s end to end "
+        f"with the pager ({got['ticks']} ticks), {ref['e2e_s']:.2f} s with no "
+        f"pager ({ref['ticks']} ticks); decode {got['decode_tok_s']:.1f} / "
+        f"{ref['decode_tok_s']:.1f} tok/s; suspends/resumes "
+        f"{got['suspends']}/{got['resumes']}; greedy tokens equal the run "
+        f"with no pager")
+    log(f"{tag}: volume: {p['kv_spills']} records of {got['slot_blocks']} "
+        f"blocks written ({got['n_slots']} slots), {got['blocks_written']} "
+        f"blocks = {got['bytes_written']} bytes; dedup rate "
+        f"{p['dedup_rate']:.3f}; prefetch {p['kv_prefetch_issued']} issued / "
+        f"{p['kv_prefetch_hits']} hits / {p['kv_prefetch_wasted']} wasted, "
+        f"hit rate {p['prefetch_hit_rate']:.3f}; {p['kv_restores']} restores, "
+        f"{p['kv_restore_crc_errors']} crc errors, {p['kv_spill_frees']} "
+        f"slots freed")
+    log(f"{tag}: seconds per spill {sm} (max {sx}), per fetch {fm} (max "
+        f"{fx}); activate of a volume-resident session "
+        f"{got['resident_activate_s']} s")
+    log(f"{tag}: where the time goes, pager / no pager: prefill "
+        f"{got['prefill_s']} / {ref['prefill_s']} s, decode "
+        f"{got['decode_s']} / {ref['decode_s']} s, deactivate "
+        f"{got['transit']['deactivate']['s']} / "
+        f"{ref['transit']['deactivate']['s']} s, activate "
+        f"{got['transit']['activate']['s']} / "
+        f"{ref['transit']['activate']['s']} s; {len(got['prefetch_s'])} "
+        f"prefetch calls {sum(got['prefetch_s'])} s (max "
+        f"{max(got['prefetch_s'], default=0.0)})")
+    transit_line(f"{tag} (pager)", got["transit"])
+    for run in runs.values():
+        del run["tokens"]
+    return {"launches": got["launches"], "pager": got, "no_pager": ref}
+
+
 def profile_decode(torch, np, eng, cfg) -> dict:
     """Where a full-width decode step's time goes: 4 fresh requests are
     admitted, then 3 pure decode steps (no admission, no retirement) run
@@ -1081,49 +1288,72 @@ def _leaves(tree):
         yield tree
 
 
-# ------------------------------------------------------------- phase 6
+# ------------------------------------------------------------- phase 7
 def parity_smoke(torch, np) -> dict:
-    """For each served architecture, two pools: a roomy one (64 pages of
-    8), where every page stays on the card and the suspended request pages
-    out and back in; and a tiny one (2 pages of 4), where pages bypass to
-    the host tier and decode runs the hybrid attention path.  Tokens and
-    the cache's counters must be the same on the card and on the CPU, and
+    """For each served architecture, the pools of ``PARITY_CASES``: a
+    roomy one (64 pages of 8), where every page stays on the card and the
+    suspended request pages out and back in; a tiny one (2 pages of 4),
+    where pages bypass to the host tier and decode runs the hybrid
+    attention path; and 6 pages of 4 behind a pager on a volume with no
+    host budget, where a stalled resume leaves spilled pages that the
+    hybrid path reads without promoting them.  Tokens and the cache's
+    counters (the spill tier's too, and the spilled pages read) must be
+    the same on the card and on the CPU, nothing may be left behind, and
     on the card every prefill layer launches the flash kernel once and
     every decode layer the paged-attention kernel once, hybrid or not."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_lm
-    from repro_torch.serve import PagedCacheConfig, ServeEngine
+    from repro_torch.core.metrics import KV_PAGING_COUNTERS
+    from repro_torch.serve import KVPager, PagedCacheConfig, ServeEngine
+    from repro_torch.volume.volume import make_volume
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    keys = COUNTERS
+    keys = (*COUNTERS, *KV_PAGING_COUNTERS)
     launches = {}
     for arch in (QWEN, PHI3):
         cfg = get_config(arch, smoke=True, dtype=torch.float32)
         params = init_lm(cfg, torch.Generator().manual_seed(0))
-        for label, n_pages, page_size in (("roomy", 64, 8), ("bypass", 2, 4)):
+        for label, n_pages, page_size, lens, drive in PARITY_CASES:
             tag = f"parity {arch} {label}"
             tokens, counts = {}, {}
             for dev in ("cuda", "cpu"):
-                eng = ServeEngine(cfg, _to(params, dev), max_batch=2,
-                                  device=dev, cache_cfg=PagedCacheConfig(
-                                      n_layers=cfg.n_layers,
-                                      n_kv_heads=cfg.n_kv_heads,
-                                      head_dim=cfg.hd, page_size=page_size,
-                                      n_pages=n_pages, max_pages_per_seq=16,
-                                      dtype=cfg.dtype))
-                rng = np.random.default_rng(1)
-                reqs = [eng.submit(rng.integers(2, cfg.vocab,
-                                                size=n).tolist(),
-                                   max_new_tokens=8) for n in (12, 20, 9)]
-                spent = timed_engine(torch, eng)
-                calls = timed_transit(torch, eng)
-                _, _, launched = run_counted(torch, eng, suspend_at=2)
-                untime(eng)
-                untime_transit(eng)
-                check(all(r.done for r in reqs), f"{tag}: unfinished")
+                vol = (make_volume(n_lbas=4096, n_shards=2, aio_workers=2,
+                                   cache_bytes=1 << 22)
+                       if label == "pager" else None)
+                try:
+                    eng = ServeEngine(
+                        cfg, _to(params, dev), max_batch=2, device=dev,
+                        pager=KVPager(vol) if vol is not None else None,
+                        cache_cfg=PagedCacheConfig(
+                            n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
+                            head_dim=cfg.hd, page_size=page_size,
+                            n_pages=n_pages, max_pages_per_seq=16,
+                            host_pages=0 if vol is not None else 1024,
+                            dtype=cfg.dtype))
+                    vol_reads = count_vol_page_reads(eng.cache)
+                    rng = np.random.default_rng(1)
+                    reqs = [eng.submit(rng.integers(2, cfg.vocab,
+                                                    size=n).tolist(),
+                                       max_new_tokens=8) for n in lens]
+                    spent = timed_engine(torch, eng)
+                    calls = timed_transit(torch, eng)
+                    _, _, launched = run_counted(torch, eng, **drive)
+                    untime(eng)
+                    untime_transit(eng)
+                    check(all(r.done for r in reqs), f"{tag}: unfinished")
+                    check(eng.cache.free_pages() == n_pages
+                          and len(eng.cache.host) == 0
+                          and (vol is None
+                               or eng.cache.pager.stats()["records"] == 0),
+                          f"{tag} ({dev}): pages, host entries or records "
+                          f"left behind")
+                finally:
+                    if vol is not None:
+                        vol.close()
                 tokens[dev] = [r.out_tokens for r in reqs]
                 counts[dev] = {k: eng.metrics.count.get(k, 0) for k in keys}
+                counts[dev]["vol_page_reads"] = len(vol_reads)
                 if dev == "cuda":
                     check_path_counts(f"{tag} (cuda)", cfg, spent, launched,
                                       counts[dev], transit_summary(calls))
@@ -1139,10 +1369,43 @@ def parity_smoke(torch, np) -> dict:
             else:
                 check(c["bypass_pages"] > 0 and c["hybrid_attention"] > 0,
                       f"{tag}: no bypass or hybrid attention {c}")
+            if label == "pager":
+                check(c["kv_spills"] > 0 and c["kv_restores"] > 0
+                      and c["activate_stalls"] > 0 and c["vol_page_reads"] > 0
+                      and c["kv_restore_crc_errors"] == 0,
+                      f"{tag}: no spill, stalled resume or hybrid read of a "
+                      f"spilled page {c}")
             log(f"{tag}: SMOKE f32 (TF32 off) greedy tokens equal on cuda "
                 f"and cpu: {tokens['cuda']}; counters {c}; cuda launches "
                 f"{launches[f'{arch} {label}']}")
     return launches
+
+
+# (label, pool pages, page size, prompt lengths, how run_counted suspends):
+# a roomy pool (page-out and page-in); a 2-page pool (bypass and hybrid
+# attention); and a 6-page pool behind a pager with no host budget, where
+# suspending both running requests at once makes the second resume stall
+# right after promoting a spilled page with spilled pages behind it, so
+# decode reads those through the hybrid path without promoting them
+PARITY_CASES = [
+    ("roomy", 64, 8, (12, 20, 9), {"suspend_at": 2}),
+    ("bypass", 2, 4, (12, 20, 9), {"suspend_at": 2}),
+    ("pager", 6, 4, (8, 16, 9), {"suspend_at": 5, "suspend_all": True}),
+]
+
+
+def count_vol_page_reads(cache) -> list:
+    """Wrap the cache's one-page read of the hybrid path; the returned
+    list gets an entry for each spilled page it read."""
+    reads = []
+    page_kv = cache._page_kv
+
+    def counted(layer, entry):
+        if entry[0] == "vol":
+            reads.append(layer)
+        return page_kv(layer, entry)
+    cache._page_kv = counted
+    return reads
 
 
 def _to(tree, dev):
@@ -1192,6 +1455,8 @@ def main() -> int:
     paths = {"serve": serve_full(torch, np, cfg, params, profile=True)}
     torch.cuda.synchronize()
     paths["long_prompts"] = long_prompts(torch, np, cfg, params)
+    torch.cuda.synchronize()
+    paths["spill"] = spill_full(torch, np, cfg, params)
     del params
     torch.cuda.empty_cache()
     check(torch.cuda.memory_allocated() < 1e9,
@@ -1204,7 +1469,7 @@ def main() -> int:
     parity = parity_smoke(torch, np)
     torch.cuda.synchronize()
 
-    # launches of each kernel on the paths of phases 3-6, each counted
+    # launches of each kernel on the paths of phases 3-7, each counted
     # alone: the full-width paths and the SMOKE f32 parity runs
     by_path = {k: kernel_launches(p["launches"]) for k, p in paths.items()}
     by_path.update({f"parity {k}": kernel_launches(c)

@@ -10,7 +10,9 @@ Scheduling follows the paper's transit discipline:
   * finished / preempted sequences are *eagerly* packed to the host tier
     (``deactivate``) so the device pool stays near-empty;
   * when admission would overflow the pool anyway, the new sequence's pages
-    *bypass* to the host tier rather than stall a running decode.
+    *bypass* to the host tier rather than stall a running decode;
+  * with a pager, host-tier overflow descends to a volume, and the next
+    suspended requests' records are prefetched each tick before admission.
 
 The layer loop runs on the host in Python, and the parameters are a plain
 dict on the engine's device (``models.transformer``).
@@ -140,15 +142,21 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params: dict, *,
                  cache_cfg: PagedCacheConfig | None = None,
                  max_batch: int = 8, eos_token: int = -1, rng_seed: int = 0,
-                 pager=None, device="cuda") -> None:
+                 pager=None, prefetch_depth: int = 2,
+                 device="cuda") -> None:
         self.cfg = cfg
         self.metrics = Metrics()
-        # pager= (the volume-backed KV spill tier) is not ported yet: the
-        # cache raises when one is given
+        # optional volume-backed KV spill tier (serve.kvpager.KVPager):
+        # suspended sessions' cold pages descend past the host tier onto
+        # the volume; prefetch_depth suspended requests get decode-ahead
+        # linked reads issued each tick so their resume overlaps decode
+        self.prefetch_depth = prefetch_depth
+        # the default pools are the cache config's own dtype (bf16), as
+        # the reference's are, whatever the model's dtype
         self.cache = PagedKVCache(cache_cfg or PagedCacheConfig(
             n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
-            head_dim=cfg.hd, dtype=cfg.dtype), metrics=self.metrics,
-            pager=pager, device=device)
+            head_dim=cfg.hd), metrics=self.metrics, pager=pager,
+            device=device)
         self.lm = PagedLM(cfg, params, self.cache)
         if self.lm.device != self.cache.device:
             raise ValueError(f"parameters on {self.lm.device}, cache on "
@@ -172,12 +180,21 @@ class ServeEngine:
 
     # ----------------------------------------------------------- scheduling
     def suspend(self, req: Request) -> None:
-        """Preempt a running request: its pages eagerly transit out to the
-        host tier; ``_admit`` resumes it ahead of fresh prompts."""
+        """Preempt a running request: its pages eagerly transit out
+        (host tier, then the volume once the host budget overflows);
+        ``_admit`` resumes it ahead of fresh prompts."""
         self.running.remove(req)
         self.cache.deactivate(req.seq_id)
         self.suspended.append(req)
         self.metrics.bump("suspends")
+
+    def _prefetch_ahead(self) -> None:
+        """Decode-ahead restore: linked async reads for the next
+        ``prefetch_depth`` suspended requests' spilled pages, issued
+        BEFORE admission so the volume round trip overlaps this tick's
+        decode instead of stalling activate()."""
+        for req in self.suspended[:self.prefetch_depth]:
+            self.cache.prefetch(req.seq_id)
 
     def _admit(self) -> None:
         # resumes first: a suspended request already holds KV
@@ -218,6 +235,7 @@ class ServeEngine:
 
     def step(self) -> int:
         """One scheduler tick: admit, decode one token for every runner."""
+        self._prefetch_ahead()
         self._admit()
         if not self.running:
             return 0

@@ -16,9 +16,12 @@ structures is the reference's:
                                  evicting someone's hot page
   volume read tier            -> a CLOCK cache of dequantized host pages
                                  for the hybrid-attention slow path
-  durable tier                -> a pager (``pager=``) that spills host-tier
-                                 overflow onto a volume; not ported yet, the
-                                 parameter is kept and raises when given
+  durable tier                -> an optional :class:`~repro_torch.serve
+                                 .kvpager.KVPager` spills the host tier's
+                                 overflow (past ``host_pages``) onto a
+                                 striped volume as content-addressed atomic
+                                 records, with decode-ahead prefetch, so
+                                 session KV is bounded by the volume
 
 The pools are one tensor per layer and K/V, (P, page_size, Hkv, hd), on
 the cache's device: views ``k_pool[l] = kv[l, 0]`` and ``v_pool[l] =
@@ -31,10 +34,16 @@ cache rebuilt immutable arrays with ``.at[].set``.  So the
 reference's "eviction workers gather from an immutable snapshot" no longer
 holds: every pool read and write happens under ``_tlock``.
 
+A page-in keeps the reference loop's order where the volume is involved:
+a spilled page's record is fetched (and promoted to the host tier) only
+once every packed page before it in the table is restored and verified,
+so ``activate`` restores the pending pages in one launch before each such
+fetch and in one launch at the end.
+
 Concurrency contract: ``seq.table``, ``self._free``, the host tier, the
 active flags and the pools are guarded by ``_tlock`` — public entry points
 take it, ``_locked`` helpers assume it.  The reference's eviction pool
-(``evict_pool=``) is not ported yet either: page-outs run on the caller's
+(``evict_pool=``) is not ported yet: page-outs run on the caller's
 thread.
 """
 from __future__ import annotations
@@ -59,6 +68,8 @@ class PagedCacheConfig:
     head_dim: int
     page_size: int = 16
     n_pages: int = 256            # device pool pages (per layer)
+    host_pages: int = 1024        # host-tier page budget (spill target
+                                  # when a KVPager is attached)
     max_pages_per_seq: int = 64
     dtype: torch.dtype = torch.bfloat16
     eager_eviction: bool = True
@@ -97,7 +108,7 @@ class Sequence:
     seq_id: int
     length: int = 0
     # logical page -> ("hbm", phys_page) | ("host", [(k_handle, v_handle)
-    # per layer]) | ("host-fresh", {"k","v" raw f32})
+    # per layer]) | ("host-fresh", {"k","v" raw f32}) | ("vol", pager handle)
     table: list = field(default_factory=list)
     active: bool = True
 
@@ -116,10 +127,15 @@ class PagedKVCache:
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
-        if evict_pool is not None or pager is not None:
-            raise NotImplementedError(
-                "the eviction pool and the volume pager are not ported yet")
+        if evict_pool is not None:
+            raise NotImplementedError("the eviction pool is not ported yet")
         self.metrics = metrics or Metrics()
+        # optional volume-backed spill tier: host pages past
+        # ``cfg.host_pages`` descend to KVPager records
+        self.pager = pager
+        if pager is not None and getattr(pager, "own_metrics", False):
+            pager.metrics = self.metrics     # unify the kv_* counters
+            pager.own_metrics = False
         self._tlock = threading.Lock()
         L, P, pg, H, hd = (cfg.n_layers, cfg.n_pages, cfg.page_size,
                            cfg.n_kv_heads, cfg.head_dim)
@@ -131,7 +147,9 @@ class PagedKVCache:
         self.host = HostTier()
         # clean read tier over the host tier: caches dequantized pages for
         # the hybrid-attention slow path
-        self.read_tier = (ReadTier(cfg.read_tier_pages, metrics=self.metrics)
+        self.read_tier = (ReadTier(block_size=None,
+                                   n_slots=cfg.read_tier_pages,
+                                   metrics=self.metrics)
                           if cfg.read_tier_pages > 0 else None)
         self.seqs: dict[int, Sequence] = {}
         self._next_seq = 0
@@ -191,10 +209,12 @@ class PagedKVCache:
                     if over:
                         self.metrics.bump("long_seq_bypass")
                     seq.table.append(("host-fresh", self._host_fresh_page()))
+                    self._maybe_spill_locked()
                 else:
                     with self.metrics.timer("cache_eviction_and_write"):
                         if not self._evict_coldest_locked():
                             raise MemoryError("KV pool exhausted")
+                    self._maybe_spill_locked()
                     page = self._alloc_page()
                     seq.table.append(("hbm", page))
             else:
@@ -219,7 +239,9 @@ class PagedKVCache:
         """The bulk write path of prefill: k/v_seq are per-layer lists of
         (T, Hkv, hd) tensors for T new tokens.  The pool ends up as T
         ``append_token`` calls would leave it, with one indexed copy per
-        layer for the tokens that land in device pages."""
+        layer for the tokens that land in device pages.  A spill that a
+        reservation triggers takes only inactive sequences' packed pages,
+        never the slots being reserved."""
         T = k_seq[0].shape[0]
         with self._tlock:
             seq = self.seqs[sid]
@@ -327,7 +349,12 @@ class PagedKVCache:
         self.metrics.bump("fused_kernel_passes", 2 * L * len(pages))
         self.metrics.bump("fused_kernel_bytes", q.nbytes)
 
-    # ----------------------------------------------- pager record layout
+    # ------------------------------------------------------ volume spill tier
+    def host_page_count(self) -> int:
+        """Logical pages currently in the host tier (packed or fresh)."""
+        return sum(1 for seq in self.seqs.values()
+                   for e in seq.table if e[0] in ("host", "host-fresh"))
+
     def _pack_page(self, handles) -> bytes:
         """Serialize one packed host page (all layers) for the pager:
         per layer, the fused-kernel crcs then the int8 payloads + f32
@@ -367,6 +394,64 @@ class PagedKVCache:
             off += sn
             out.append((qk, sk, ck, qv, sv, cv))
         return out
+
+    def _maybe_spill_locked(self) -> None:
+        """Descend host-tier overflow onto the volume: while the host
+        holds more than ``cfg.host_pages`` logical pages, spill the
+        oldest INACTIVE sequence's packed pages as pager records
+        (content-hash dedup makes prefix-shared pages one record).
+        Host-fresh pages (raw f32, still being written) never spill."""
+        if self.pager is None:
+            return
+        while self.host_page_count() > self.cfg.host_pages:
+            victim = None
+            for seq in self.seqs.values():               # oldest sid first
+                if seq.active:
+                    continue
+                for li, entry in enumerate(seq.table):
+                    if entry[0] == "host":
+                        victim = (seq, li, entry[1])
+                        break
+                if victim is not None:
+                    break
+            if victim is None:                           # all hot: tolerate
+                return
+            seq, li, handles = victim
+            handle = self.pager.spill(self._pack_page(handles))
+            for lj, (hk, hv) in enumerate(handles):
+                if self.read_tier is not None:
+                    self.read_tier.invalidate(("page", lj, hk, hv))
+                self.host.pop(lj, hk)
+                self.host.pop(lj, hv)
+            seq.table[li] = ("vol", handle)
+
+    def prefetch(self, sid: int) -> int:
+        """Decode-ahead restore for a suspended sequence: issue linked
+        async reads for its volume records so ``activate()`` finds the
+        payloads already in flight.  Returns chains issued."""
+        if self.pager is None:
+            return 0
+        with self._tlock:
+            seq = self.seqs.get(sid)
+            if seq is None:
+                return 0
+            handles = [e[1] for e in seq.table if e[0] == "vol"]
+        if not handles:
+            return 0
+        return self.pager.prefetch(handles)
+
+    def _promote_locked(self, seq: Sequence, logical: int) -> None:
+        """Bring a spilled page's record back into the host tier: fetch it
+        (the pager verifies its wire crc and raises IOError before
+        anything changes), install its layers as host entries, drop the
+        record's reference."""
+        handle = seq.table[logical][1]
+        raw = self.pager.fetch(handle)                   # may raise IOError
+        handles = [(self.host.put(li, qk, sk, ck), self.host.put(li, qv, sv, cv))
+                   for li, (qk, sk, ck, qv, sv, cv)
+                   in enumerate(self._unpack_page(raw))]
+        self.pager.release(handle)
+        seq.table[logical] = ("host", handles)
 
     def _restore_locked(self, seq: Sequence, got: list) -> np.ndarray:
         """Dequantize + scatter the packed host pages of ``got`` ((logical,
@@ -459,26 +544,35 @@ class PagedKVCache:
             self._page_out_locked(seq, [li for li, entry in
                                         enumerate(seq.table)
                                         if entry[0] == "hbm"])
+            self._maybe_spill_locked()
 
     def activate(self, sid: int) -> None:
         """Resume a sequence: page everything back in, the packed pages in
-        one codec launch.  It may stall when the pool is full: the pages
-        that got a pool page come in, and the rest pages in on a later
-        call."""
+        one codec launch.  A spilled page's record is fetched and promoted
+        to the host tier only after the pages before it are restored and
+        verified, so the pending pages go in one launch before each fetch
+        (an IOError, from the fetch or a restore, leaves the pages before
+        it resident).  It may stall when the pool is full: the pages that
+        got a pool page come in, a promoted record stays in the host tier,
+        and the rest pages in on a later call."""
         with self._tlock:
             seq = self.seqs[sid]
             seq.active = True
-            cold = [li for li, entry in enumerate(seq.table)
-                    if entry[0] in ("host", "host-fresh")]
             got = []
-            for li in cold:
+            for li, entry in enumerate(seq.table):
+                if entry[0] not in ("host", "host-fresh", "vol"):
+                    continue
+                if entry[0] == "vol":
+                    self._page_in_locked(seq, got)
+                    got = []
+                    self._promote_locked(seq, li)
                 page = self._alloc_page()
                 if page is None:
-                    break
+                    self._page_in_locked(seq, got)
+                    self.metrics.bump("activate_stalls")  # partial: retry
+                    return
                 got.append((li, page))
             self._page_in_locked(seq, got)
-            if len(got) < len(cold):
-                self.metrics.bump("activate_stalls")    # partial: retry later
 
     def release(self, sid: int) -> None:
         with self._tlock:
@@ -492,6 +586,12 @@ class PagedKVCache:
                             self.read_tier.invalidate(("page", li, hk, hv))
                         self.host.pop(li, hk)
                         self.host.pop(li, hv)
+                elif entry[0] == "vol":
+                    if self.read_tier is not None:
+                        for li in range(self.cfg.n_layers):
+                            self.read_tier.invalidate(
+                                ("vol-page", li, entry[1]))
+                    self.pager.release(entry[1])
 
     # -------------------------------------------------------------- attention
     def _table_for_locked(self, sids: list[int]):
@@ -524,6 +624,9 @@ class PagedKVCache:
         """One logical page's (page_size, Hkv, hd) f32 k/v from whichever
         tier holds it (the transit read path: cache hit OR backend read)."""
         pg, H, hd = self.cfg.page_size, self.cfg.n_kv_heads, self.cfg.head_dim
+
+        def dequant(q, scale):
+            return (q.astype(np.float32) * scale[:, None]).reshape(pg, H, hd)
         if entry[0] == "hbm":
             return (_host_f32(self.k_pool[layer][entry[1]]),
                     _host_f32(self.v_pool[layer][entry[1]]))
@@ -535,11 +638,28 @@ class PagedKVCache:
                     return cached
             qk, sk, _ck = self.host.get(layer, hk)
             qv, sv, _cv = self.host.get(layer, hv)
-            k = (qk.astype(np.float32) * sk[:, None]).reshape(pg, H, hd)
-            v = (qv.astype(np.float32) * sv[:, None]).reshape(pg, H, hd)
+            k, v = dequant(qk, sk), dequant(qv, sv)
             if self.read_tier is not None:
                 self.read_tier.insert(("page", layer, hk, hv), (k, v))
             return k, v
+        if entry[0] == "vol":
+            # hybrid attention over a spilled page: restore the record
+            # WITHOUT promoting it (the sequence stays cold); the read
+            # tier amortizes the volume round trip across layers/steps
+            handle = entry[1]
+            if self.read_tier is not None:
+                cached = self.read_tier.lookup(("vol-page", layer, handle))
+                if cached is not None:
+                    return cached
+            out = None
+            for li, (qk, sk, _ck, qv, sv, _cv) in enumerate(
+                    self._unpack_page(self.pager.fetch(handle))):
+                k, v = dequant(qk, sk), dequant(qv, sv)
+                if self.read_tier is not None:
+                    self.read_tier.insert(("vol-page", li, handle), (k, v))
+                if li == layer:
+                    out = (k, v)
+            return out
         return (entry[1]["k"][layer].astype(np.float32),
                 entry[1]["v"][layer].astype(np.float32))   # host-fresh
 
@@ -564,8 +684,14 @@ class PagedKVCache:
                            for sid in sids)
             if resident:
                 table, lens = self._table_for_locked(sids)
-                return paged_attention(q, self.k_pool[layer],
-                                       self.v_pool[layer], table, lens)
+                kp, vp = self.k_pool[layer], self.v_pool[layer]
+                if q.dtype == kp.dtype:
+                    return paged_attention(q, kp, vp, table, lens)
+                # a model whose dtype is not the pools' (an f32 model over
+                # the default bf16 pools): f32 arithmetic over the widened
+                # pools, as the reference's attention does
+                return paged_attention(q.float(), kp.float(), vp.float(),
+                                       table, lens).to(q.dtype)
             self.metrics.bump("hybrid_attention")
             n_pg = max(len(self.seqs[s].table) for s in sids)
             k = np.zeros((B, n_pg, pg, H, hd), np.float32)

@@ -365,3 +365,158 @@ def test_hybrid_attention_on_the_card_matches_the_plain_tiers(card):
     assert _build.launch_counts()["paged_attention"] == before + 1
     assert caches["cuda"].metrics.count["hybrid_attention"] == 1
     torch.testing.assert_close(got.cpu(), exp, atol=2e-5, rtol=2e-5)
+
+
+def _pager_engine(dev, vol, cfg, params):
+    """A SMOKE engine whose pool is so small that resuming two suspended
+    requests at once stalls the second right after promoting a spilled
+    page, with spilled pages behind it: decode then runs the hybrid path
+    over ``vol`` pages."""
+    from repro_torch.serve import KVPager, PagedCacheConfig, ServeEngine
+    eng = ServeEngine(cfg, params, max_batch=2, device=dev,
+                      pager=KVPager(vol, capacity_blocks=2048),
+                      cache_cfg=PagedCacheConfig(
+                          n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
+                          head_dim=cfg.hd, page_size=4, n_pages=6,
+                          host_pages=0, max_pages_per_seq=16,
+                          dtype=cfg.dtype))
+    vol_reads = []
+    page_kv = eng.cache._page_kv
+
+    def counted(layer, entry):
+        vol_reads.append(entry[0] == "vol")
+        return page_kv(layer, entry)
+    eng.cache._page_kv = counted
+    rng = np.random.default_rng(1)
+    reqs = [eng.submit(rng.integers(2, cfg.vocab, size=n).tolist(),
+                       max_new_tokens=8) for n in (8, 16, 9)]
+    ticks = 0
+    while eng.queue or eng.running or eng.suspended:
+        eng.step()
+        ticks += 1
+        if ticks == 5:
+            for r in list(eng.running):
+                eng.suspend(r)
+    return eng, [r.out_tokens for r in reqs], sum(vol_reads)
+
+
+def test_engine_with_a_pager_equal_on_cuda_and_cpu(card):
+    """SMOKE f32 (TF32 off) through the spill tier, a stalled resume and
+    hybrid attention over spilled pages: the greedy tokens and every
+    counter are the same on the card and on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.metrics import KV_PAGING_COUNTERS
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.volume.volume import make_volume
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen2.5-3b", smoke=True, dtype=torch.float32)
+    params = init_lm(cfg, torch.Generator().manual_seed(0))
+    keys = (*KV_PAGING_COUNTERS, "pages_out", "pages_in", "activate_stalls",
+            "transit_crc_errors", "fused_kernel_passes", "fused_kernel_bytes",
+            "bypass_pages", "hybrid_attention", "suspends", "resumes")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        vol = make_volume(n_lbas=4096, n_shards=2, aio_workers=2,
+                          cache_bytes=1 << 22)
+        try:
+            eng, tokens, vol_reads = _pager_engine(dev, vol, cfg,
+                                                   _to(params, dev))
+        finally:
+            vol.close()
+        count = eng.metrics.count
+        got[dev] = (tokens, {k: count.get(k, 0) for k in keys}, vol_reads)
+        assert eng.cache.free_pages() == 6 and len(eng.cache.host) == 0
+        assert eng.cache.pager.stats()["records"] == 0
+    assert got["cuda"] == got["cpu"]
+    _, c, vol_reads = got["cuda"]
+    assert c["kv_spills"] > 0 and c["kv_restores"] > 0
+    assert c["activate_stalls"] > 0 and vol_reads > 0
+    assert c["kv_restore_crc_errors"] == 0 and c["transit_crc_errors"] == 0
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def _spilled_caches(vols, devices, host_pages):
+    """One cache per device, each on its own pager and volume, holding the
+    same 3-page sequence, deactivated: ``host_pages`` of them stay in the
+    host tier and the others spill."""
+    from repro_torch.core.metrics import Metrics
+    from repro_torch.serve import KVPager, PagedCacheConfig, PagedKVCache
+    from repro_torch.volume.volume import make_volume
+    rng = np.random.default_rng(5)
+    kv = rng.standard_normal((12, 2, 2, 2, 128)).astype(np.float32) * 4
+    caches = {}
+    for dev in devices:
+        vols.append(make_volume(n_lbas=1024, n_shards=2, aio_workers=2,
+                                cache_bytes=1 << 22))
+        caches[dev] = c = PagedKVCache(PagedCacheConfig(
+            n_layers=2, n_kv_heads=2, head_dim=128, page_size=4, n_pages=8,
+            host_pages=host_pages, max_pages_per_seq=8,
+            dtype=torch.bfloat16), metrics=Metrics(),
+            pager=KVPager(vols[-1], capacity_blocks=512), device=dev)
+        sid = c.new_sequence()
+        for t in range(12):
+            c.append_token(sid, [torch.tensor(x, device=dev)
+                                 for x in kv[t, 0]],
+                           [torch.tensor(x, device=dev) for x in kv[t, 1]])
+        c.deactivate(sid)
+    return caches
+
+
+def test_spilled_page_restores_on_the_card_bit_exactly(card):
+    """The same spilled records, restored through the pager into a cache
+    on the card and into the same cache on the CPU: the pool pages are
+    equal bit for bit, from a restore launch before the second record's
+    fetch and one at the end."""
+    vols = []
+    try:
+        caches = _spilled_caches(vols, ("cuda", "cpu"), host_pages=1)
+        for c in caches.values():
+            assert [e[0] for e in c.seqs[0].table] == ["vol", "vol", "host"]
+        recs = [caches[d].pager.fetch(caches[d].seqs[0].table[0][1])
+                for d in caches]
+        assert recs[0] == recs[1]                  # the same record bytes
+        _build.reset_launch_counts()
+        caches["cuda"].activate(0)
+        torch.cuda.synchronize()
+        n = _build.launch_counts().get("scatter_dequantize_crc", 0)
+        assert n == 2            # before the 2nd record's fetch, at the end
+        caches["cpu"].activate(0)
+        for c in caches.values():
+            assert c.metrics.count.get("transit_crc_errors", 0) == 0
+            assert c.metrics.count.get("kv_restore_crc_errors", 0) == 0
+        for lg in range(3):
+            pc = caches["cuda"].seqs[0].table[lg][1]
+            pp = caches["cpu"].seqs[0].table[lg][1]
+            for li in range(2):
+                assert torch.equal(caches["cuda"].k_pool[li][pc].cpu(),
+                                   caches["cpu"].k_pool[li][pp])
+                assert torch.equal(caches["cuda"].v_pool[li][pc].cpu(),
+                                   caches["cpu"].v_pool[li][pp])
+    finally:
+        for vol in vols:
+            vol.close()
+
+
+def test_one_restore_launch_without_volume_records(card):
+    """With a pager attached but nothing spilled, a sequence's page-in is
+    one restore launch, as without a pager."""
+    vols = []
+    try:
+        c = _spilled_caches(vols, ("cuda",), host_pages=64)["cuda"]
+        assert [e[0] for e in c.seqs[0].table] == ["host"] * 3
+        _build.reset_launch_counts()
+        c.activate(0)
+        torch.cuda.synchronize()
+        assert _build.launch_counts().get("scatter_dequantize_crc", 0) == 1
+        assert [e[0] for e in c.seqs[0].table] == ["hbm"] * 3
+        assert c.metrics.count.get("transit_crc_errors", 0) == 0
+    finally:
+        for vol in vols:
+            vol.close()

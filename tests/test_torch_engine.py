@@ -17,7 +17,10 @@ import torch
 
 from repro.configs import get_config as jax_config
 from repro.models import build_model
+from repro.kernels import ref as jref
+from repro.serve import kvcache as jkv
 from repro.serve.engine import PagedLM as JaxPagedLM
+from repro.serve.engine import ServeEngine as JaxServeEngine
 from repro.serve.kvcache import PagedCacheConfig as JaxCacheConfig
 from repro.serve.kvcache import PagedKVCache as JaxKVCache
 from repro_torch.configs import get_config
@@ -191,6 +194,37 @@ def test_suspend_resume_through_the_scheduler(models):
     assert count["resumes"] == 1 and count["pages_in"] > 0
     assert count["pages_out"] > count["pages_in"]
     assert eng.cache.free_pages() == 64
+
+
+def test_default_cache_keeps_bf16_pools_like_the_reference(models,
+                                                          monkeypatch):
+    """With no ``cache_cfg`` the engine's pools take the cache config's
+    own dtype (bf16), as the reference's do, whatever the model's dtype: an
+    f32 SMOKE engine gives the reference engine's greedy tokens, through a
+    suspend (bf16 page-out and page-in).  The reference's Pallas codec
+    does not trace on this jax; its cache calls the eager oracles."""
+    monkeypatch.setattr(jkv, "gather_quantize_crc", lambda pool, ids: (
+        *jref.gather_quantize_ref(pool, ids),
+        jref.transit_crc_ref(jref.gather_quantize_ref(pool, ids)[0])))
+    monkeypatch.setattr(jkv, "scatter_dequantize_crc", lambda pool, ids, q, s: (
+        jref.scatter_dequantize_ref(pool, ids, q, s),
+        jref.transit_crc_ref(q)))
+    cj, _, params, ct, tp = models["f32"]
+    tokens = []
+    for eng in (ServeEngine(ct, tp, max_batch=2, device="cpu"),
+                JaxServeEngine(cj, params, max_batch=2, use_kernel=False)):
+        rng = np.random.default_rng(4)
+        reqs = [eng.submit(rng.integers(2, cj.vocab, size=n).tolist(),
+                           max_new_tokens=6) for n in (12, 20)]
+        eng.step()
+        eng.step()
+        eng.suspend(reqs[0])
+        eng.run()
+        assert eng.metrics.count["pages_in"] > 0
+        tokens.append([r.out_tokens for r in reqs])
+        pool = eng.cache.k_pool[0]
+        assert pool.dtype in (torch.bfloat16, jnp.bfloat16), pool.dtype
+    assert tokens[0] == tokens[1]
 
 
 def test_init_lm_is_seeded():

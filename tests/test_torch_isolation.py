@@ -32,6 +32,8 @@ def test_every_port_module_imports_without_jax_or_repro():
     assert "repro_torch.kernels.paged_attention" in mods
     assert "repro_torch.kernels.flash_attention" in mods
     assert "repro_torch.configs.phi3_mini" in mods
+    assert "repro_torch.volume.volume" in mods
+    assert "repro_torch.serve.kvpager" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -273,11 +273,19 @@ def test_prefill_bulk_write_equals_token_appends():
 
 @pytest.mark.parametrize("hook", ["pager", "evict_pool"])
 def test_unported_spill_hooks_raise(hook):
-    """The volume pager and the eviction pool are not ported: the cache
-    refuses one instead of ignoring it."""
+    """The eviction pool is not ported: the cache refuses one instead of
+    ignoring it, with or without the (ported) volume pager beside it, and
+    the refusal names the pool only."""
     cfg = PagedCacheConfig(**SHAPE, n_pages=4, dtype=torch.float32)
-    with pytest.raises(NotImplementedError):
-        PagedKVCache(cfg, device="cpu", **{hook: object()})
+    kw = {"evict_pool": object()}
+    if hook == "pager":
+        kw["pager"] = object()
+        assert PagedKVCache(cfg, device="cpu", pager=kw["pager"]).pager \
+            is kw["pager"]
+    with pytest.raises(NotImplementedError) as err:
+        PagedKVCache(cfg, device="cpu", **kw)
+    assert "eviction pool" in str(err.value)
+    assert "pager" not in str(err.value)
 
 
 # ------------------------------------------ batched transit vs reference loop
