@@ -12,10 +12,12 @@ Phases, each ending in ``torch.cuda.synchronize()``:
             library must show HGMMA (wgmma) instructions;
 2. kernels — each kernel against its plain PyTorch version on the card, at
             the serving path's full-width shapes (qwen2.5-3b: page 16, Hkv
-            2, hd 128; phi3-mini-3.8b: Hkv 32, hd 96) and at smoke shapes,
-            f32 and bf16: the codec's one launch over a stack of units
+            2, hd 128; phi3-mini-3.8b: Hkv 32, hd 96; deepseek-coder-33b:
+            56:8, n_rep 7) and at smoke shapes (deepseek's SMOKE: 7:1, hd
+            8), f32 and bf16: the codec's one launch over a stack of units
             (``CODEC_CASES``: one pool, a qwen2.5-3b page of 72 units, a
-            phi3-mini-3.8b page of 64, a 251-page qwen sequence of 18072)
+            phi3-mini-3.8b page of 64, a 251-page qwen sequence of 18072, a
+            deepseek-coder-33b page of 124)
             with q, scales and crcs bit-identical, every crc equal to
             ``zlib.adler32``, a flipped byte moving one crc and the units
             not named untouched; paged attention within
@@ -55,19 +57,42 @@ Phases, each ending in ``torch.cuda.synchronize()``:
 6. phi3   — phi3-mini-3.8b FULL (32 layers, d_model 3072, MHA 32 heads of
             96, vocab 32064) in bf16, served as in phase 3 without the
             decode profile;
-7. parity — qwen2.5-3b and phi3-mini-3.8b SMOKE in f32 (TF32 off) served on
-            the card and on the CPU from the same weights, with a roomy
-            pool (page-out and page-in), with a 2-page pool (conditional
-            bypass and hybrid attention, which runs the paged-attention
-            kernel), and with a 6-page pool behind a pager with no host
-            budget (``PARITY_CASES``: a resume stalls right after promoting
-            a spilled page, and the hybrid path reads spilled pages): the
-            greedy tokens and the cache's counters are equal.
+7. pool   — internlm2-1.8b FULL (24 layers, d_model 2048, 16:8 heads of
+            128, vocab 92544): 8 requests of 128 prompt and 32 new tokens
+            at batch 4, the first running request suspended every 6 ticks,
+            twice.  Leg A: the engine's model over a cache whose page-outs
+            run on a volume's 4-worker eviction pool, in batches of up to
+            8 items, each one codec launch from a worker thread.  Leg B: no
+            pool, every retired request appended to a request log on a
+            second volume with the autotuner attached, a control step every
+            4 ticks, driven by ``run()``.  Tokens must be equal, nothing
+            freed twice or left behind, the log must read back; it prints
+            the caller's seconds per deactivate against synchronous
+            page-outs, the waits of activate on the pool, the batches, the
+            longest lock hold, and the log's append and drain seconds;
+8. deepseek — deepseek-coder-33b FULL (62 layers, d_model 7168, 56:8 heads
+            of 128, 66.7 GB of bf16 weights) once every other full-width
+            phase has freed its weights: 2 requests of 128 + 8 tokens at
+            batch 2 in a 32-page pool, one suspend and resume, the memory
+            before init and its peaks, and the profiled decode step beside
+            the weight-bytes bound;
+9. parity — SMOKE in f32 (TF32 off) served on the card and on the CPU from
+            the same weights (``PARITY_RUNS``): qwen2.5-3b and
+            phi3-mini-3.8b with a roomy pool (page-out and page-in), with a
+            2-page pool (conditional bypass and hybrid attention, which
+            runs the paged-attention kernel), and with a 6-page pool behind
+            a pager with no host budget (a resume stalls right after
+            promoting a spilled page, and the hybrid path reads spilled
+            pages); internlm2-1.8b and deepseek-coder-33b (hd 8, n_rep 7)
+            with the roomy pool, deepseek's also behind an eviction pool:
+            the greedy tokens and the cache's counters are equal.
 
-Launch counts are zeroed just before each of phases 3-7 drives the path
-and read just after; every bf16 prefill layer must run the tensor-core
+Launch counts are zeroed just before each of phases 3-9 drives the path
+and read just after (with an eviction pool, after its work has drained);
+every bf16 prefill layer must run the tensor-core
 flash kernel, every f32 one the SIMT kernel; the spill kernel launches
-once for each ``deactivate`` that pages out, and the restore kernel at
+once for each ``deactivate`` that pages out (with an eviction pool, once
+for each batch of the workers that pages out), and the restore kernel at
 most once for each volume record an ``activate`` fetched plus once for
 each ``activate`` that pages in (exactly once where no record was
 fetched and nothing bypassed); the cache counts the reference's 2 fused
@@ -80,6 +105,7 @@ directory without the repository's ``src/repro_torch``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -104,6 +130,7 @@ TOL = {"f32": 2e-5, "bf16": 2e-2}
 # tile 0.07 or more.
 ROW_TOL = {"f32": 1e-4, "bf16": 1e-2}
 QWEN, PHI3 = "qwen2.5-3b", "phi3-mini-3.8b"
+INTERNLM2, DEEPSEEK = "internlm2-1.8b", "deepseek-coder-33b"
 
 # name -> (kernel source, TPU kernel it replaces).  Flash attention has two
 # kernels: "flash_attention_tc" (bf16 with hd % 8 == 0, every full-width
@@ -293,6 +320,8 @@ def check_paged_attention(torch, rng, results) -> None:
         ("mha-nrep1", 2, 2, 2, 64, 8, 8, 2, [9, 16]),
         ("phi3-full", 4, 32, 32, 96, 16, 64, 16, [144, 137, 129, 1]),
         ("qwen-long", 2, 16, 2, 128, 16, 512, 256, [1004, 4004]),
+        ("deepseek-full-nrep7", 2, 56, 8, 128, 16, 32, 9, [136, 129]),
+        ("deepseek-smoke-hd8", 2, 7, 1, 8, 16, 16, 4, [64, 17]),
     ]
     worst = worst_row = 0.0
     for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
@@ -338,6 +367,7 @@ CODEC_CASES = [
     ("qwen-page", 72, 4, 16, 256, 72),
     ("phi3-page", 64, 4, 16, 3072, 64),
     ("qwen-251pages", 72, 512, 16, 256, 72 * 251),
+    ("deepseek-page", 124, 4, 16, 1024, 124),
 ]
 
 
@@ -432,6 +462,9 @@ FLASH_CASES = [  # (label, B, T, S, H, Hkv, hd, causal, window, dtypes)
     ("qwen-T1000", 1, 1000, 1000, 16, 2, 128, True, 0, ("bf16",)),
     ("qwen-T4000", 1, 4000, 4000, 16, 2, 128, True, 0, ("bf16",)),
     ("phi3-T128", 1, 128, 128, 32, 32, 96, True, 0, ("bf16",)),
+    ("internlm2-T128", 1, 128, 128, 16, 8, 128, True, 0, ("bf16",)),
+    ("deepseek-T128-nrep7", 1, 128, 128, 56, 8, 128, True, 0, ("bf16",)),
+    ("deepseek-smoke-hd8", 1, 128, 128, 7, 1, 8, True, 0, ("f32", "bf16")),
 ]
 
 
@@ -584,7 +617,9 @@ def time_paged(torch, rng, label, B, H, Hkv, hd, page, P, maxp, lens,
 # a page of qwen2.5-3b and of phi3-mini-3.8b; a 144-token sequence of
 # each (9 pages: a serve phase's page-out and page-in, the first the
 # kernels line's numbers); the long-prompt phase's 1000- and 4000-token
-# sequences (63 and 251 pages).
+# sequences (63 and 251 pages); a 160-token internlm2-1.8b sequence (a
+# pool batch holds at most 8 of its pages) and a 144-token
+# deepseek-coder-33b one.
 CODEC_TIMED = [
     ("qwen-serve-9pages", 72, 64, 16, 256, 72 * 9),
     ("n1", 1, 64, 16, 256, 1),
@@ -593,6 +628,8 @@ CODEC_TIMED = [
     ("phi3-serve-9pages", 64, 20, 16, 3072, 64 * 9),
     ("qwen-63pages", 72, 128, 16, 256, 72 * 63),
     ("qwen-251pages", 72, 512, 16, 256, 72 * 251),
+    ("internlm2-10pages", 48, 20, 16, 1024, 48 * 10),
+    ("deepseek-serve-9pages", 124, 20, 16, 1024, 124 * 9),
 ]
 
 
@@ -644,11 +681,14 @@ def time_kernels(torch, rng, results) -> None:
     """Each path kernel at the serving path's full-width shapes in bf16:
     prefill attention on the tensor-core kernel at qwen2.5-3b's 128-token
     prompt (the row's numbers) and at 1000 and 4000 tokens and
-    phi3-mini-3.8b's prompt (``at_shapes``), and on the SIMT kernel at
-    qwen's 128 tokens in f32, the input its route takes; decode attention
-    over 4 sequences of 144 tokens (the last step; the row's numbers), and at
-    phi3-mini-3.8b's width and the long-prompt shape (2 sequences of 1004
-    and 4004 tokens over a 256-wide table) in ``at_shapes``; the codec at
+    phi3-mini-3.8b's, internlm2-1.8b's and deepseek-coder-33b's (n_rep 7)
+    prompts (``at_shapes``), and on the SIMT kernel at qwen's 128 tokens
+    in f32, the input its route takes; decode attention over 4 sequences
+    of 144 tokens (the last step; the row's numbers), and at
+    phi3-mini-3.8b's width, the long-prompt shape (2 sequences of 1004
+    and 4004 tokens over a 256-wide table), internlm2-1.8b's (4 x 160)
+    and deepseek-coder-33b's (2 x 136, n_rep 7) in ``at_shapes``; the
+    codec at
     ``CODEC_TIMED``'s shapes, a qwen2.5-3b serve page-out (9 pages, 648
     units) the row's numbers."""
     keys = ("ms", "plain_ms", "ms_from", "plain_ms_from", "call_ms",
@@ -657,6 +697,9 @@ def time_kernels(torch, rng, results) -> None:
              time_flash(torch, rng, "qwen-T1000", 1, 1000, 16, 2, 128, 50),
              time_flash(torch, rng, "qwen-T4000", 1, 4000, 16, 2, 128, 20),
              time_flash(torch, rng, "phi3-T128", 1, 128, 32, 32, 96, 200),
+             time_flash(torch, rng, "internlm2-T128", 1, 128, 16, 8, 128,
+                        200),
+             time_flash(torch, rng, "deepseek-T128", 1, 128, 56, 8, 128, 200),
              time_flash(torch, rng, "qwen-T128", 1, 128, 16, 2, 128, 200,
                         dtype="f32")]
     for name in ("flash_attention_tc", "flash_attention"):
@@ -669,7 +712,11 @@ def time_kernels(torch, rng, results) -> None:
               time_paged(torch, rng, "phi3-serve", B, 32, 32, 96, page, P,
                          maxp, [144] * B, 200),
               time_paged(torch, rng, "qwen-long", 2, H, Hkv, hd, page, 512,
-                         256, [1004, 4004], 50)]
+                         256, [1004, 4004], 50),
+              time_paged(torch, rng, "internlm2-serve", B, 16, 8, 128, page,
+                         P, maxp, [160] * B, 200),
+              time_paged(torch, rng, "deepseek-serve", 2, 56, 8, 128, page,
+                         32, 9, [136] * 2, 200)]
     results["paged_attention"].update(
         {k: shapes[0][k] for k in keys}, library_ms=None,
         at_shapes=shapes[1:])
@@ -888,16 +935,19 @@ COUNTERS = ("pages_out", "pages_in", "fused_kernel_passes",
             "bypass_pages", "hybrid_attention")
 
 
-def check_path_counts(tag, cfg, spent, counts, m, transit) -> None:
+def check_path_counts(tag, cfg, spent, counts, m, transit,
+                      pool_batches=None) -> None:
     """Every launch on the path went through its kernel, once per layer,
     and every prefill layer through the flash kernel of its route; the
-    codec launched once for each deactivate that paged out, at most once
-    for each volume record an activate fetched plus once for each
-    activate, and, where nothing bypassed and no record was fetched, once
-    for each activate that paged in; and the cache counted the
-    reference's 2 passes per layer per page.  A page that bypassed to the
-    host tier comes back in without the codec, so the page-in counts are
-    exact only where nothing bypassed."""
+    codec launched once for each deactivate that paged out (with an
+    eviction pool, ``pool_batches`` — the (items, paged out, seconds) of
+    each batch the workers ran — once for each batch that paged out, and
+    never on the caller's thread), at most once for each volume record an
+    activate fetched plus once for each activate, and, where nothing
+    bypassed and no record was fetched, once for each activate that paged
+    in; and the cache counted the reference's 2 passes per layer per
+    page.  A page that bypassed to the host tier comes back in without the
+    codec, so the page-in counts are exact only where nothing bypassed."""
     from repro_torch.kernels.flash_attention import flash_route
     n_pre = len(spent["prefill_s"])
     check(counts.get("flash_attention", 0) == cfg.n_layers * n_pre,
@@ -913,10 +963,15 @@ def check_path_counts(tag, cfg, spent, counts, m, transit) -> None:
           f"{tag}: {counts.get('paged_attention', 0)} attention launches for "
           f"{spent['decode_steps']} decode steps")
     out, inn = transit["deactivate"], transit["activate"]
-    check(counts.get("gather_quantize_crc", 0) == out["calls_moving_pages"]
-          and out["pages"] == m.get("pages_out", 0),
+    if pool_batches is None:
+        page_outs, pages_out = out["calls_moving_pages"], out["pages"]
+    else:
+        page_outs = sum(n > 0 for _, n, _ in pool_batches)
+        pages_out = sum(n for _, n, _ in pool_batches)
+    check(counts.get("gather_quantize_crc", 0) == page_outs
+          and pages_out == m.get("pages_out", 0),
           f"{tag}: {counts.get('gather_quantize_crc', 0)} spill launches for "
-          f"{out['calls_moving_pages']} page-outs")
+          f"{page_outs} page-outs")
     # an activate launches once, and once more before each record it
     # fetches after pages it has not restored yet
     restores = counts.get("scatter_dequantize_crc", 0)
@@ -938,21 +993,23 @@ def check_path_counts(tag, cfg, spent, counts, m, transit) -> None:
           f"{m.get('pages_out', 0)} pages out and {m.get('pages_in', 0)} in")
 
 
-def serve_full(torch, np, cfg, params, profile: bool) -> dict:
-    """4 requests x (128 prompt + 16 new tokens) at full width, one of them
-    suspended and resumed, then a fresh prompt's logits; with ``profile``
-    also the profiled decode window."""
+def serve_full(torch, np, cfg, params, profile: bool, n_req: int = 4,
+               new_tokens: int = 16, n_pages: int = 64) -> dict:
+    """``n_req`` requests x (128 prompt + ``new_tokens`` new tokens) at
+    full width and batch ``n_req``, one of them suspended and resumed,
+    then a fresh prompt's logits; with ``profile`` also the profiled
+    decode window."""
     from repro_torch.serve import PagedCacheConfig, ServeEngine
 
     torch.cuda.reset_peak_memory_stats()
     cache_cfg = PagedCacheConfig(
         n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
-        page_size=16, n_pages=64, max_pages_per_seq=16, dtype=cfg.dtype)
-    eng = ServeEngine(cfg, params, cache_cfg=cache_cfg, max_batch=4,
+        page_size=16, n_pages=n_pages, max_pages_per_seq=16, dtype=cfg.dtype)
+    eng = ServeEngine(cfg, params, cache_cfg=cache_cfg, max_batch=n_req,
                       device="cuda")
     rng = np.random.default_rng(0)
     reqs = [eng.submit(rng.integers(2, cfg.vocab, size=128).tolist(),
-                       max_new_tokens=16) for _ in range(4)]
+                       max_new_tokens=new_tokens) for _ in range(n_req)]
     spent = timed_engine(torch, eng)
     calls = timed_transit(torch, eng)
     e2e, ticks, counts = run_counted(torch, eng, suspend_at=3)
@@ -962,8 +1019,8 @@ def serve_full(torch, np, cfg, params, profile: bool) -> dict:
     transit = transit_summary(calls)
     tag = f"serve {cfg.name}"
 
-    check(all(r.done and len(r.out_tokens) == 16 for r in reqs),
-          f"{tag}: not every request finished with 16 tokens")
+    check(all(r.done and len(r.out_tokens) == new_tokens for r in reqs),
+          f"{tag}: not every request finished with {new_tokens} tokens")
     check(all(0 <= t < cfg.vocab for r in reqs for t in r.out_tokens),
           f"{tag}: a token outside the vocabulary")
     check(spent["finite"], f"{tag}: logits not finite")
@@ -994,7 +1051,8 @@ def serve_full(torch, np, cfg, params, profile: bool) -> dict:
                max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     if profile:
         out["profile"] = profile_decode(torch, np, eng, cfg)
-    log(f"{tag}: 4 requests x 16 tokens in {e2e:.2f} s end to end "
+    log(f"{tag}: {n_req} requests x {new_tokens} tokens in {e2e:.2f} s end "
+        f"to end "
         f"({ticks} ticks); decode {spent['decode_tokens']} tokens in "
         f"{spent['decode_s']:.2f} s = {out['decode_tok_s']:.1f} tok/s; "
         f"prefill {out['prefill_s']:.2f} s; pages out/in "
@@ -1067,23 +1125,27 @@ SPILL_VOLUME = dict(n_lbas=1 << 16, n_shards=2, aio_workers=2,
                     cache_bytes=1 << 22, max_inflight=2048)
 
 
-def timed_pager(pager) -> dict:
-    """Wrap the pager's ``spill``, ``fetch`` and ``prefetch`` with host
-    clocks: the seconds of each call (restore with ``untime_pager``).  A
-    prefetch first waits for its records' spill writes to land."""
-    spent = {"spill": [], "fetch": [], "prefetch": []}
+PAGER_CALLS = ("spill", "fetch", "prefetch")
+
+
+def timed_calls(obj, names) -> dict:
+    """Wrap these methods of ``obj`` with host clocks: the seconds of each
+    call, by name (restore with ``untime_calls``).  A pager's prefetch
+    first waits for its records' spill writes to land."""
+    spent = {name: [] for name in names}
     for name, log_ in spent.items():
-        def timed(*args, _fn=getattr(pager, name), _log=log_):
+        def timed(*args, _fn=getattr(obj, name), _log=log_):
             t = time.perf_counter()
             out = _fn(*args)
             _log.append(time.perf_counter() - t)
             return out
-        setattr(pager, name, timed)
+        setattr(obj, name, timed)
     return spent
 
 
-def untime_pager(pager) -> None:
-    del pager.spill, pager.fetch, pager.prefetch
+def untime_calls(obj, names) -> None:
+    for name in names:
+        delattr(obj, name)
 
 
 def _mean_max(xs) -> tuple[float, float]:
@@ -1120,7 +1182,7 @@ def spill_full(torch, np, cfg, params) -> dict:
                                max_new_tokens=32) for _ in range(8)]
             spent = timed_engine(torch, eng)
             calls = timed_transit(torch, eng)
-            io = timed_pager(pager) if pager else None
+            io = timed_calls(pager, PAGER_CALLS) if pager else None
             e2e, ticks, counts = run_counted(torch, eng, suspend_every=6)
             untime(eng)
             untime_transit(eng)
@@ -1152,7 +1214,7 @@ def spill_full(torch, np, cfg, params) -> dict:
                    "counters": {k: m.get(k, 0) for k in COUNTERS},
                    "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
             if pager is not None:
-                untime_pager(pager)
+                untime_calls(pager, PAGER_CALLS)
                 st = pager.stats()
                 check(st["records"] == 0 and st["free_slots"] == st["n_slots"],
                       f"{tag}: pager slots left behind {st}")
@@ -1222,15 +1284,226 @@ def spill_full(torch, np, cfg, params) -> dict:
     return {"launches": got["launches"], "pager": got, "no_pager": ref}
 
 
+# the pool phase's volumes: the eviction pool of the first (4 workers,
+# batches of at most 8 items) pages the KV cache out; the second holds
+# the request log and runs the control plane's ticks
+POOL_VOLUME = dict(n_lbas=1 << 14, n_shards=2, cache_bytes=1 << 22)
+
+
+def timed_evictions(cache) -> list:
+    """Wrap the pool workers' page-out of a batch (run under the cache's
+    lock): per batch handed to a hook, (items, items paged out, seconds
+    the worker held the lock for them).  Restore with ``del
+    cache._evict_items_locked``."""
+    batches = []
+    page_out = cache._evict_items_locked
+
+    def timed(items):
+        t = time.perf_counter()
+        n = page_out(items)
+        batches.append((len(items), n, time.perf_counter() - t))
+        return n
+    cache._evict_items_locked = timed
+    return batches
+
+
+def suspending(eng, every: int) -> None:
+    """Make ``eng.step`` suspend the first running request after every
+    ``every``-th tick, as ``run_counted`` does, so that ``run()`` drives
+    the same preemptions (restore with ``del eng.step``)."""
+    step, ticks = eng.step, [0]
+
+    def stepped():
+        n = step()
+        ticks[0] += 1
+        if eng.running and ticks[0] % every == 0:
+            eng.suspend(eng.running[0])
+        return n
+    eng.step = stepped
+
+
+def read_log(vol, n_records: int) -> list:
+    """The first ``n_records`` records of a request log at lba 0."""
+    out, lba = [], 0
+    for _ in range(n_records):
+        raw = bytes(vol.read(lba))
+        n = int.from_bytes(raw[:4], "little")
+        buf, blocks = raw[4:], 1
+        while len(buf) < n:
+            buf += bytes(vol.read(lba + blocks))
+            blocks += 1
+        out.append(json.loads(buf[:n].decode()))
+        lba += blocks
+    return out
+
+
+def pool_full(torch, np, cfg, params, sync_ref: dict) -> tuple[dict, dict]:
+    """8 requests x (128 prompt + 32 new tokens) at full width, batch 4,
+    the first running request suspended every 6 ticks, twice.  Leg A: the
+    engine's model over a cache whose page-outs run on the eviction pool of
+    a volume (the engine itself takes no pool, as the reference's takes
+    none), driven in ``ServeEngine.step``'s order.  Leg B: an engine with
+    no pool, a request log on a second volume with the stock autotuner
+    attached, ``autotune_every=4``, driven by ``run()`` with the same
+    suspends.  The greedy tokens must be equal; nothing may bypass, be
+    freed twice or be left behind; the log must read back record for
+    record.  ``sync_ref``: the qwen serve phase's synchronous page-outs."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve import (AsyncRequestLog, PagedCacheConfig,
+                                   PagedKVCache, PagedLM, ServeEngine)
+    from repro_torch.volume.volume import make_volume
+
+    tag = f"pool {cfg.name}"
+    cache_cfg = PagedCacheConfig(
+        n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+        page_size=16, n_pages=64, max_pages_per_seq=16, dtype=cfg.dtype)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(2, cfg.vocab, size=128).tolist()
+               for _ in range(8)]
+    legs = {}
+    vol, vol2 = make_volume(**POOL_VOLUME), None
+    try:
+        vol2 = make_volume(**POOL_VOLUME)
+        for leg in ("A", "B"):
+            torch.cuda.reset_peak_memory_stats()
+            log_ = io = None
+            if leg == "A":
+                eng = ServeEngine(cfg, params, cache_cfg=cache_cfg,
+                                  max_batch=4, device="cuda")
+                eng.cache = PagedKVCache(cache_cfg, metrics=eng.metrics,
+                                         evict_pool=vol.pool, device="cuda")
+                eng.lm = PagedLM(cfg, params, eng.cache)
+                drains = timed_calls(eng.cache, ("drain_evictions",))
+                batches = timed_evictions(eng.cache)
+            else:
+                vol2.attach_autotuner()
+                log_ = AsyncRequestLog(vol2)
+                io = timed_calls(log_, ("append", "drain"))
+                eng = ServeEngine(cfg, params, cache_cfg=cache_cfg,
+                                  max_batch=4, request_log=log_,
+                                  autotune_every=4, device="cuda")
+            reqs = [eng.submit(p, max_new_tokens=32) for p in prompts]
+            spent = timed_engine(torch, eng)
+            calls = timed_transit(torch, eng)
+            if leg == "A":
+                e2e, ticks, _ = run_counted(torch, eng, suspend_every=6)
+                untime_calls(eng.cache, ("drain_evictions",))
+                # retired requests' page-outs may still be queued
+                check(eng.cache.drain_evictions(), f"{tag}: drain")
+                del eng.cache._evict_items_locked
+            else:
+                suspending(eng, 6)
+                torch.cuda.synchronize()
+                _build.reset_launch_counts()
+                t0 = time.perf_counter()
+                eng.run()
+                torch.cuda.synchronize()
+                e2e, ticks = time.perf_counter() - t0, None
+                del eng.step
+                untime_calls(log_, ("append", "drain"))
+            torch.cuda.synchronize()
+            counts = _build.launch_counts()
+            untime(eng)
+            untime_transit(eng)
+            m = dict(eng.metrics.count)
+            transit = transit_summary(calls)
+            t = f"{tag} (leg {leg})"
+            check(all(r.done and len(r.out_tokens) == 32 for r in reqs),
+                  f"{t}: not every request finished")
+            check(spent["finite"], f"{t}: logits not finite")
+            check(m.get("bypass_pages", 0) == 0 and
+                  m.get("transit_crc_errors", 0) == 0,
+                  f"{t}: bypass or crc errors {m}")
+            free = eng.cache._free
+            check(len(free) == len(set(free)) == cache_cfg.n_pages
+                  and len(eng.cache.host) == 0,
+                  f"{t}: pages freed twice, or pages or host entries left")
+            for name in path_kernels(cfg):
+                check(kernel_launches(counts).get(name, 0) > 0,
+                      f"{t}: {name} never launched")
+            check_path_counts(t, cfg, spent, counts, m, transit,
+                              pool_batches=batches if leg == "A" else None)
+            run = {"e2e_s": e2e, "launches": counts, "transit": transit,
+                   "tokens": [r.out_tokens for r in reqs],
+                   "prefill_s": sum(spent["prefill_s"]),
+                   "decode_s": spent["decode_s"],
+                   "decode_tok_s": spent["decode_tokens"] / spent["decode_s"],
+                   "suspends": m.get("suspends", 0),
+                   "counters": {k: m.get(k, 0) for k in (
+                       *COUNTERS, "evict_batches", "evict_skipped",
+                       "request_log_failures", "autotune_moves")},
+                   "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+            if leg == "A":
+                check(m.get("evict_batches", 0) > 0, f"{t}: no batch")
+                sizes = [n for n, _, _ in batches]
+                run.update(ticks=ticks, deactivate_s=[
+                               x for x, _, _ in calls["deactivate"]],
+                           drain_wait_s=drains["drain_evictions"],
+                           batches=len(batches),
+                           batch_mean=sum(sizes) / len(sizes),
+                           batch_max=max(sizes),
+                           lock_held_max_s=max(x for _, _, x in batches),
+                           batch_items_paged_s=batches)
+            else:
+                check(m.get("request_log_failures", 0) == 0
+                      and log_.logged == 8 and not log_.errors,
+                      f"{t}: request log failures {log_.errors}")
+                got = read_log(vol2, 8)
+                want = [{"req_id": r.req_id, "prompt": r.prompt,
+                         "tokens": r.out_tokens} for r in reqs]
+                check(sorted(got, key=lambda r: r["req_id"]) == want,
+                      f"{t}: the log does not read back the requests")
+                run.update(deactivate_s=[x for x, _, _ in calls["deactivate"]],
+                           log_append_s=io["append"], log_drain_s=io["drain"],
+                           log_records=log_.logged,
+                           autotune_ticks=vol2.metrics.count.get(
+                               "autotune_ticks", 0))
+            legs[leg] = run
+            del eng
+    finally:
+        vol.close()
+        if vol2 is not None:
+            vol2.close()
+    a, b = legs["A"], legs["B"]
+    check(a["tokens"] == b["tokens"], f"{tag}: greedy tokens differ "
+          f"between the pool leg and the log leg")
+    check(a["suspends"] == b["suspends"] > 0, f"{tag}: suspends "
+          f"{a['suspends']} / {b['suspends']}")
+    (da, dax), (db, dbx) = _mean_max(a["deactivate_s"]), \
+        _mean_max(b["deactivate_s"])
+    ref = sync_ref["deactivate"]
+    log(f"{tag}: 8 requests x 32 tokens, end to end {a['e2e_s']:.3f} s with "
+        f"the pool / {b['e2e_s']:.3f} s with the log; decode "
+        f"{a['decode_tok_s']:.1f} / {b['decode_tok_s']:.1f} tok/s; greedy "
+        f"tokens equal; {a['suspends']} suspends")
+    log(f"{tag}: deactivate on the caller's thread {da} s mean (max {dax}) "
+        f"with the pool, {db} s (max {dbx}) synchronous; qwen serve's "
+        f"synchronous page-outs {ref['s'] / max(ref['calls'], 1)} s a call; "
+        f"activate waited in drain_evictions {a['drain_wait_s']} s")
+    log(f"{tag}: {a['batches']} batches, mean {a['batch_mean']:.2f} max "
+        f"{a['batch_max']} items; evict_batches "
+        f"{a['counters']['evict_batches']}, evict_skipped "
+        f"{a['counters']['evict_skipped']}; longest lock hold "
+        f"{a['lock_held_max_s']} s; pages out {a['counters']['pages_out']}")
+    log(f"{tag}: request log {b['log_records']} records, append "
+        f"{sum(b['log_append_s'])} s (max {max(b['log_append_s'])}), drain "
+        f"{b['log_drain_s']} s; autotune {b['autotune_ticks']} ticks, "
+        f"{b['counters']['autotune_moves']} moves; records read back equal")
+    for run in legs.values():
+        del run["tokens"]
+    return a, b
+
+
 def profile_decode(torch, np, eng, cfg) -> dict:
-    """Where a full-width decode step's time goes: 4 fresh requests are
-    admitted, then 3 pure decode steps (no admission, no retirement) run
+    """Where a full-width decode step's time goes: a batch of fresh
+    requests (the engine's ``max_batch``) is admitted, then 3 pure decode
+    steps (no admission, no retirement) run
     under torch.profiler.  Device busy time is the union of the device
     ops' intervals; the idle share is the rest of the window from the
     first device op's start to the last one's end."""
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(1)
-    for _ in range(4):
+    for _ in range(eng.max_batch):
         eng.submit(rng.integers(2, cfg.vocab, size=128).tolist(),
                    max_new_tokens=8)
     eng.step()
@@ -1288,49 +1561,115 @@ def _leaves(tree):
         yield tree
 
 
-# ------------------------------------------------------------- phase 7
+def release_weights(torch, params, arch: str) -> None:
+    """Free a phase's weights (the caller's name for them is its last
+    reference once the phase's engines are gone) and check that under
+    1 GB stays allocated on the card."""
+    params.clear()
+    gc.collect()          # a cache and its eviction pool refer to each other
+    torch.cuda.empty_cache()
+    check(torch.cuda.memory_allocated() < 1e9,
+          f"{arch} weights still held: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+
+
+def serve_deepseek(torch, np) -> dict:
+    """deepseek-coder-33b FULL (62 layers, d_model 7168, 56:8 heads of
+    128, 33.3 B parameters, 66.7 GB in bf16) after every other full-width
+    phase has freed its weights: 2 requests x (128 + 8) at batch 2, a pool
+    of 32 pages of 16, ``running[0]`` suspended and resumed at tick 3, and
+    the profiled decode window beside the step's weight-bytes bound."""
+    before = torch.cuda.memory_allocated()
+    check(before < 1e9, f"{before / 1e9:.2f} GB allocated before "
+          f"{DEEPSEEK}'s init")
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = init_full(torch, DEEPSEEK)
+    init_peak = torch.cuda.max_memory_allocated()
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    out = serve_full(torch, np, cfg, params, profile=True, n_req=2,
+                     new_tokens=8, n_pages=32)
+    out.update(memory_before_init_gb=before / 1e9,
+               init_peak_gb=init_peak / 1e9, weight_gb=weight_bytes / 1e9,
+               decode_bound_ms=bound_ms)
+    prof = out["profile"]
+    log(f"serve {DEEPSEEK}: allocated before init {before / 1e9:.3f} GB, "
+        f"weights {weight_bytes / 1e9:.2f} GB, peak after init "
+        f"{init_peak / 1e9:.2f} GB, peak while serving "
+        f"{out['max_memory_gb']:.2f} GB; prefill {out['prefill_s']:.3f} s "
+        f"(2 x 128), decode {out['decode_tok_s']:.2f} tok/s; profiled decode "
+        f"step {prof['step_ms']:.1f} ms, device busy "
+        f"{prof['device_busy_ms_per_step']:.2f} ms against the weight-bytes "
+        f"bound {bound_ms:.2f} ms")
+    release_weights(torch, params, DEEPSEEK)
+    return out
+
+
+# ------------------------------------------------------------- phase 7# ------------------------------------------------------------- phase 7
 def parity_smoke(torch, np) -> dict:
-    """For each served architecture, the pools of ``PARITY_CASES``: a
-    roomy one (64 pages of 8), where every page stays on the card and the
-    suspended request pages out and back in; a tiny one (2 pages of 4),
-    where pages bypass to the host tier and decode runs the hybrid
-    attention path; and 6 pages of 4 behind a pager on a volume with no
-    host budget, where a stalled resume leaves spilled pages that the
-    hybrid path reads without promoting them.  Tokens and the cache's
-    counters (the spill tier's too, and the spilled pages read) must be
-    the same on the card and on the CPU, nothing may be left behind, and
-    on the card every prefill layer launches the flash kernel once and
-    every decode layer the paged-attention kernel once, hybrid or not."""
+    """The SMOKE configs of ``PARITY_RUNS`` in f32 (TF32 off), each over
+    its pools of ``PARITY_CASES``: a roomy one (64 pages of 8), where every
+    page stays on the card and the suspended request pages out and back
+    in; a tiny one (2 pages of 4), where pages bypass to the host tier and
+    decode runs the hybrid attention path; 6 pages of 4 behind a pager on a
+    volume with no host budget, where a stalled resume leaves spilled
+    pages that the hybrid path reads without promoting them; and the roomy
+    pool with a 4-worker eviction pool, every running request's page-outs
+    run by the pool's workers.  Tokens and the cache's counters (the spill
+    tier's too, and the spilled pages read) must be the same on the card
+    and on the CPU — with the pool, all but the page-out counts, which
+    depend on whether a retiring request's queued page-outs run before
+    its release skips them — nothing may be left behind, and on the card
+    every prefill layer launches the flash kernel once and every decode
+    layer the paged-attention kernel once, hybrid or not."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import init_lm
     from repro_torch.core.metrics import KV_PAGING_COUNTERS
-    from repro_torch.serve import KVPager, PagedCacheConfig, ServeEngine
+    from repro_torch.kernels import _build
+    from repro_torch.serve import (KVPager, PagedCacheConfig, PagedKVCache,
+                                   PagedLM, ServeEngine)
+    from repro_torch.volume.evict_pool import SharedEvictionPool
     from repro_torch.volume.volume import make_volume
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    keys = (*COUNTERS, *KV_PAGING_COUNTERS)
     launches = {}
-    for arch in (QWEN, PHI3):
+    for arch, labels in PARITY_RUNS:
         cfg = get_config(arch, smoke=True, dtype=torch.float32)
         params = init_lm(cfg, torch.Generator().manual_seed(0))
         for label, n_pages, page_size, lens, drive in PARITY_CASES:
+            if label not in labels:
+                continue
             tag = f"parity {arch} {label}"
+            keys = (*COUNTERS, *KV_PAGING_COUNTERS)
+            if label == "pool":
+                keys = tuple(k for k in keys if k not in (
+                    "pages_out", "fused_kernel_passes", "fused_kernel_bytes"))
             tokens, counts = {}, {}
             for dev in ("cuda", "cpu"):
                 vol = (make_volume(n_lbas=4096, n_shards=2, aio_workers=2,
                                    cache_bytes=1 << 22)
                        if label == "pager" else None)
+                pool = SharedEvictionPool(4, name="parity") \
+                    if label == "pool" else None
                 try:
+                    cache_cfg = PagedCacheConfig(
+                        n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
+                        head_dim=cfg.hd, page_size=page_size,
+                        n_pages=n_pages, max_pages_per_seq=16,
+                        host_pages=0 if vol is not None else 1024,
+                        dtype=cfg.dtype)
                     eng = ServeEngine(
                         cfg, _to(params, dev), max_batch=2, device=dev,
                         pager=KVPager(vol) if vol is not None else None,
-                        cache_cfg=PagedCacheConfig(
-                            n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads,
-                            head_dim=cfg.hd, page_size=page_size,
-                            n_pages=n_pages, max_pages_per_seq=16,
-                            host_pages=0 if vol is not None else 1024,
-                            dtype=cfg.dtype))
+                        cache_cfg=cache_cfg)
+                    batches = None
+                    if pool is not None:
+                        eng.cache = PagedKVCache(cache_cfg,
+                                                 metrics=eng.metrics,
+                                                 evict_pool=pool, device=dev)
+                        eng.lm = PagedLM(cfg, eng.lm.params, eng.cache)
+                        batches = timed_evictions(eng.cache)
                     vol_reads = count_vol_page_reads(eng.cache)
                     rng = np.random.default_rng(1)
                     reqs = [eng.submit(rng.integers(2, cfg.vocab,
@@ -1339,24 +1678,33 @@ def parity_smoke(torch, np) -> dict:
                     spent = timed_engine(torch, eng)
                     calls = timed_transit(torch, eng)
                     _, _, launched = run_counted(torch, eng, **drive)
+                    if pool is not None:
+                        check(eng.cache.drain_evictions(), f"{tag}: drain")
+                        torch.cuda.synchronize()
+                        launched = _build.launch_counts()
                     untime(eng)
                     untime_transit(eng)
                     check(all(r.done for r in reqs), f"{tag}: unfinished")
-                    check(eng.cache.free_pages() == n_pages
+                    free = eng.cache._free
+                    check(len(free) == len(set(free)) == n_pages
                           and len(eng.cache.host) == 0
                           and (vol is None
                                or eng.cache.pager.stats()["records"] == 0),
-                          f"{tag} ({dev}): pages, host entries or records "
-                          f"left behind")
+                          f"{tag} ({dev}): pages freed twice, or pages, host "
+                          f"entries or records left behind")
                 finally:
                     if vol is not None:
                         vol.close()
+                    if pool is not None:
+                        pool.close()
                 tokens[dev] = [r.out_tokens for r in reqs]
                 counts[dev] = {k: eng.metrics.count.get(k, 0) for k in keys}
                 counts[dev]["vol_page_reads"] = len(vol_reads)
                 if dev == "cuda":
                     check_path_counts(f"{tag} (cuda)", cfg, spent, launched,
-                                      counts[dev], transit_summary(calls))
+                                      dict(eng.metrics.count),
+                                      transit_summary(calls),
+                                      pool_batches=batches)
                     launches[f"{arch} {label}"] = launched
             check(tokens["cuda"] == tokens["cpu"], f"{tag}: cuda "
                   f"{tokens['cuda']} != cpu {tokens['cpu']}")
@@ -1364,7 +1712,7 @@ def parity_smoke(torch, np) -> dict:
                   f"cuda {counts['cuda']} != cpu {counts['cpu']}")
             c = counts["cuda"]
             check(c["transit_crc_errors"] == 0, f"{tag}: crc errors")
-            if label == "roomy":
+            if label in ("roomy", "pool"):
                 check(c["pages_in"] > 0, f"{tag}: no page-in")
             else:
                 check(c["bypass_pages"] > 0 and c["hybrid_attention"] > 0,
@@ -1383,15 +1731,24 @@ def parity_smoke(torch, np) -> dict:
 
 # (label, pool pages, page size, prompt lengths, how run_counted suspends):
 # a roomy pool (page-out and page-in); a 2-page pool (bypass and hybrid
-# attention); and a 6-page pool behind a pager with no host budget, where
+# attention); a 6-page pool behind a pager with no host budget, where
 # suspending both running requests at once makes the second resume stall
 # right after promoting a spilled page with spilled pages behind it, so
-# decode reads those through the hybrid path without promoting them
+# decode reads those through the hybrid path without promoting them; and
+# the roomy pool with an eviction pool, a request suspended every 3 ticks
 PARITY_CASES = [
     ("roomy", 64, 8, (12, 20, 9), {"suspend_at": 2}),
     ("bypass", 2, 4, (12, 20, 9), {"suspend_at": 2}),
     ("pager", 6, 4, (8, 16, 9), {"suspend_at": 5, "suspend_all": True}),
+    ("pool", 64, 8, (12, 20, 9), {"suspend_every": 3}),
 ]
+# (arch, its PARITY_CASES): internlm2-1.8b and deepseek-coder-33b SMOKE
+# (hd 8, n_rep 7 on the SIMT flash kernel and the paged kernel) in the
+# roomy pool, deepseek's also with the eviction pool
+PARITY_RUNS = [(QWEN, ("roomy", "bypass", "pager")),
+               (PHI3, ("roomy", "bypass", "pager")),
+               (INTERNLM2, ("roomy",)),
+               (DEEPSEEK, ("roomy", "pool"))]
 
 
 def count_vol_page_reads(cache) -> list:
@@ -1457,15 +1814,15 @@ def main() -> int:
     paths["long_prompts"] = long_prompts(torch, np, cfg, params)
     torch.cuda.synchronize()
     paths["spill"] = spill_full(torch, np, cfg, params)
-    del params
-    torch.cuda.empty_cache()
-    check(torch.cuda.memory_allocated() < 1e9,
-          f"qwen2.5-3b weights still held: "
-          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    release_weights(torch, params, QWEN)
     cfg, params = init_full(torch, PHI3)
     paths["serve_phi3"] = serve_full(torch, np, cfg, params, profile=False)
-    del params
-    torch.cuda.empty_cache()
+    release_weights(torch, params, PHI3)
+    cfg, params = init_full(torch, INTERNLM2)
+    paths["pool_evict"], paths["pool_log"] = pool_full(
+        torch, np, cfg, params, paths["serve"]["transit"])
+    release_weights(torch, params, INTERNLM2)
+    paths["serve_deepseek"] = serve_deepseek(torch, np)
     parity = parity_smoke(torch, np)
     torch.cuda.synchronize()
 

@@ -9,6 +9,8 @@ from repro_torch.models.common import ModelConfig
 _MODULES = {
     "qwen2.5-3b": "repro_torch.configs.qwen25_3b",
     "phi3-mini-3.8b": "repro_torch.configs.phi3_mini",
+    "internlm2-1.8b": "repro_torch.configs.internlm2_1p8b",
+    "deepseek-coder-33b": "repro_torch.configs.deepseek_coder_33b",
 }
 
 ARCHS = tuple(_MODULES)

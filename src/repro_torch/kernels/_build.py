@@ -34,18 +34,24 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 _launches: dict[str, int] = {}
+_count_lock = threading.Lock()
 
 
 def count_launch(name: str) -> None:
-    _launches[name] = _launches.get(name, 0) + 1
+    # under a lock: the KV cache's eviction-pool workers launch the codec
+    # from their own threads, beside the decode thread's launches
+    with _count_lock:
+        _launches[name] = _launches.get(name, 0) + 1
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(_launches)
+    with _count_lock:
+        return dict(_launches)
 
 
 def reset_launch_counts() -> None:
-    _launches.clear()
+    with _count_lock:
+        _launches.clear()
 
 
 def nvcc_path() -> str:

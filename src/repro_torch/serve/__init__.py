@@ -1,6 +1,6 @@
-from .engine import PagedLM, Request, ServeEngine
+from .engine import AsyncRequestLog, PagedLM, Request, ServeEngine
 from .kvcache import PagedCacheConfig, PagedKVCache
 from .kvpager import KVPager
 
-__all__ = ["PagedLM", "Request", "ServeEngine", "PagedCacheConfig",
-           "PagedKVCache", "KVPager"]
+__all__ = ["AsyncRequestLog", "PagedLM", "Request", "ServeEngine",
+           "PagedCacheConfig", "PagedKVCache", "KVPager"]

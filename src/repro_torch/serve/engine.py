@@ -12,13 +12,17 @@ Scheduling follows the paper's transit discipline:
   * when admission would overflow the pool anyway, the new sequence's pages
     *bypass* to the host tier rather than stall a running decode;
   * with a pager, host-tier overflow descends to a volume, and the next
-    suspended requests' records are prefetched each tick before admission.
+    suspended requests' records are prefetched each tick before admission;
+  * with a request log, each retired request is appended to a volume
+    through its async frontend, overlapped with decode, and ``run()``
+    settles the appends with one fsync barrier at the end.
 
 The layer loop runs on the host in Python, and the parameters are a plain
 dict on the engine's device (``models.transformer``).
 """
 from __future__ import annotations
 
+import json
 import time
 from dataclasses import dataclass, field
 
@@ -136,16 +140,130 @@ class PagedLM:
         return self._logits(x)[:, 0]
 
 
+class AsyncRequestLog:
+    """Durable request log riding a striped volume's async frontend.
+
+    Each retired request is one JSON record (a 4-byte little-endian
+    length, then the text, padded to whole blocks), appended as a
+    ``write`` or chained ``write_multi`` through ``volume.submit``, so
+    the write overlaps the next decode step instead of stalling the
+    scheduler tick.  ``drain()`` issues one async fsync barrier, which
+    the volume orders after every in-flight append, then collects each
+    append's error: a device error surfaces as that record's failure,
+    not as a serving-loop exception.
+
+    The log is a ring over ``[base_lba, base_lba + capacity_blocks)``:
+    a long-running loop wraps and overwrites its oldest records instead
+    of writing past the volume.  A record may not exceed the device's
+    ``max_atomic_write_blocks()``, so a multi-block append commits
+    whole.  ``registered_buffers > 0`` appends through a pool of pinned
+    buffers registered with the volume's engine (the payload is never
+    copied under the engine's lock; buffers return to the pool when
+    their ticket settles)."""
+
+    def __init__(self, volume, *, base_lba: int = 0,
+                 capacity_blocks: int | None = None,
+                 tenant: str | None = None,
+                 registered_buffers: int = 0) -> None:
+        self.vol = volume
+        self.tenant = tenant
+        self.block_size = volume.block_size
+        self._reg = (volume.register_buffers(registered_buffers)
+                     if registered_buffers > 0 else None)
+        self._max_rec = volume.max_atomic_write_blocks()
+        self._base = base_lba
+        self._cap = (volume.n_lbas - base_lba if capacity_blocks is None
+                     else capacity_blocks)
+        if self._cap < 1:
+            raise ValueError(f"request log ring of {self._cap} blocks")
+        self._off = 0
+        self._tickets: list = []
+        self.logged = 0
+        self.wraps = 0
+        self.errors: list[tuple[int, BaseException]] = []
+
+    def _alloc(self, n_blocks: int) -> int:
+        if n_blocks > self._cap:
+            raise ValueError(f"record of {n_blocks} blocks is larger than "
+                             f"the log ring ({self._cap})")
+        if n_blocks > self._max_rec:
+            raise ValueError(f"record of {n_blocks} blocks exceeds the "
+                             f"device's whole-object-atomic bound "
+                             f"({self._max_rec})")
+        if self._off + n_blocks > self._cap:
+            self._off = 0                    # wrap: oldest records go
+            self.wraps += 1
+        lba = self._base + self._off
+        self._off += n_blocks
+        return lba
+
+    def append(self, record: dict) -> None:
+        raw = json.dumps(record).encode()
+        bs = self.block_size
+        payload = len(raw).to_bytes(4, "little") + raw
+        blocks = [payload[i:i + bs].ljust(bs, b"\x00")
+                  for i in range(0, len(payload), bs)]
+        if self._reg is not None:
+            regs = []
+            for chunk in blocks:
+                buf = self._reg.acquire()
+                buf.data[:len(chunk)] = np.frombuffer(chunk, np.uint8)
+                regs.append(buf)
+            blocks = regs
+        # block=True: a retirement burst deeper than the engine's in-flight
+        # window waits its turn; a record is never dropped
+        lba = self._alloc(len(blocks))
+        if len(blocks) > 1:
+            t = self.vol.submit("write_multi", lba, blocks=blocks,
+                                tenant=self.tenant, block=True)
+        else:
+            t = self.vol.submit("write", lba, data=blocks[0],
+                                tenant=self.tenant, block=True)
+        self._tickets.append((lba, t))
+        self.logged += 1
+
+    def drain(self) -> int:
+        """One async fsync barrier, then the appends' errors; returns how
+        many records failed since the previous drain (all failures stay in
+        ``errors``).  The barrier goes first: the volume orders it after
+        every in-flight append, so one wait covers them all."""
+        reported = len(self.errors)
+        sync = self.vol.submit("fsync", block=True)
+        self.vol.wait(sync)
+        tickets, self._tickets = self._tickets, []
+        for lba, t in tickets:           # already settled: collect
+            self.vol.wait(t)
+            if t.error is not None:
+                self.errors.append((lba, t.error))
+        if sync.error is not None:
+            raise sync.error
+        return len(self.errors) - reported
+
+
 class ServeEngine:
-    """Continuous-batching front end."""
+    """Continuous-batching front end.
+
+    ``pager`` adds the volume-backed KV spill tier, with ``prefetch_depth``
+    suspended requests' records read ahead each tick.  ``request_log``
+    (an :class:`AsyncRequestLog`) records every retired request's
+    ``{"req_id", "prompt", "tokens"}``; ``run()`` drains it at the end
+    and counts its failures (``request_log_failures``).  ``autotune_every
+    = N > 0`` runs one ``autotune_step()`` of the request log's volume
+    every N ticks of ``run()`` and counts the knobs it moved
+    (``autotune_moves``)."""
 
     def __init__(self, cfg: ModelConfig, params: dict, *,
                  cache_cfg: PagedCacheConfig | None = None,
                  max_batch: int = 8, eos_token: int = -1, rng_seed: int = 0,
+                 request_log: AsyncRequestLog | None = None,
+                 autotune_every: int = 0,
                  pager=None, prefetch_depth: int = 2,
                  device="cuda") -> None:
         self.cfg = cfg
         self.metrics = Metrics()
+        self.request_log = request_log
+        self.autotune_every = autotune_every
+        self._ticks_since_tune = 0
         # optional volume-backed KV spill tier (serve.kvpager.KVPager):
         # suspended sessions' cold pages descend past the host tier onto
         # the volume; prefetch_depth suspended requests get decode-ahead
@@ -231,6 +349,10 @@ class ServeEngine:
         req.t_done = time.perf_counter()
         self.cache.deactivate(req.seq_id)     # eager transit to host tier
         self.cache.release(req.seq_id)
+        if self.request_log is not None:      # overlapped, never a stall
+            self.request_log.append({"req_id": req.req_id,
+                                     "prompt": req.prompt,
+                                     "tokens": req.out_tokens})
         self.finished.append(req)
 
     def step(self) -> int:
@@ -257,10 +379,28 @@ class ServeEngine:
         self.running = still
         return len(reqs)
 
+    def _autotune_tick(self) -> None:
+        """Every ``autotune_every`` ticks, one control step of the request
+        log's volume (a no-op without a controller attached to it)."""
+        if self.autotune_every <= 0 or self.request_log is None:
+            return
+        self._ticks_since_tune += 1
+        if self._ticks_since_tune < self.autotune_every:
+            return
+        self._ticks_since_tune = 0
+        moves = self.request_log.vol.autotune_step()
+        if moves:
+            self.metrics.bump("autotune_moves", len(moves))
+
     def run(self, max_ticks: int = 10_000) -> list[Request]:
         ticks = 0
         while (self.queue or self.running or self.suspended) \
                 and ticks < max_ticks:
             self.step()
+            self._autotune_tick()
             ticks += 1
+        if self.request_log is not None:
+            n_bad = self.request_log.drain()  # settle overlapped appends
+            if n_bad:                         # surfaced, not swallowed
+                self.metrics.bump("request_log_failures", n_bad)
         return self.finished

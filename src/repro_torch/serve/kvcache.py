@@ -42,12 +42,21 @@ fetch and in one launch at the end.
 
 Concurrency contract: ``seq.table``, ``self._free``, the host tier, the
 active flags and the pools are guarded by ``_tlock`` — public entry points
-take it, ``_locked`` helpers assume it.  The reference's eviction pool
-(``evict_pool=``) is not ported yet: page-outs run on the caller's
-thread.
+take it, ``_locked`` helpers assume it.  With an eviction pool
+(``evict_pool=``, the volume's ``SharedEvictionPool``), ``deactivate``
+only queues one item per device page; the pool's workers run the
+page-outs through ``_evict_slot`` / ``_evict_slots``, which take the same
+lock for a whole batch, re-check each item under it (a sequence that is
+active again, released, or whose page is no longer on the device is
+skipped), gather every page of the batch in one codec launch, and return
+the pool pages to the free list only after the copy to the host has been
+synchronised.  ``activate`` drains the pool's work first.  A worker
+launches on the cache's device and on the default stream, as the decode
+thread does, so the two never overlap on the card.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from dataclasses import dataclass, field
 
@@ -127,8 +136,6 @@ class PagedKVCache:
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
-        if evict_pool is not None:
-            raise NotImplementedError("the eviction pool is not ported yet")
         self.metrics = metrics or Metrics()
         # optional volume-backed spill tier: host pages past
         # ``cfg.host_pages`` descend to KVPager records
@@ -137,6 +144,11 @@ class PagedKVCache:
             pager.metrics = self.metrics     # unify the kv_* counters
             pager.own_metrics = False
         self._tlock = threading.Lock()
+        # optional SharedEvictionPool: eager page-outs run on the volume's
+        # eviction workers instead of the caller's thread
+        self._evict_cv = threading.Condition(self._tlock)
+        self._evict_pool = evict_pool
+        self._inflight_evictions = 0
         L, P, pg, H, hd = (cfg.n_layers, cfg.n_pages, cfg.page_size,
                            cfg.n_kv_heads, cfg.head_dim)
         self._kv = torch.zeros((L, 2, P, pg, H, hd), dtype=cfg.dtype,
@@ -153,6 +165,8 @@ class PagedKVCache:
                           if cfg.read_tier_pages > 0 else None)
         self.seqs: dict[int, Sequence] = {}
         self._next_seq = 0
+        if evict_pool is not None:
+            evict_pool.register(self)
 
     # ------------------------------------------------------------ allocation
     def free_pages(self) -> int:
@@ -178,7 +192,7 @@ class PagedKVCache:
                 continue
             for li, entry in enumerate(seq.table):
                 if entry[0] == "hbm":
-                    self._page_out_locked(seq, [li])
+                    self._page_out_locked([(seq, li)])
                     return True
         return False
 
@@ -321,16 +335,19 @@ class PagedKVCache:
         return [o.numpy() for o in out]
 
     # ----------------------------------------------------------- transit ops
-    def _page_out_locked(self, seq: Sequence, logicals: list[int]) -> None:
-        """Transit these device pages of ``seq`` to the host tier via the
-        FUSED kernel: gather + int8 pack + wire checksum of every page,
-        layer and K/V in one launch, one copy of each result to the host
-        and one synchronisation.  The pool pages go back to the free list
-        only once every host entry has been read."""
-        if not logicals:
+    def _page_out_locked(self, items: list[tuple[Sequence, int]]) -> None:
+        """Transit these device pages ((sequence, logical page) pairs, of
+        one sequence or several) to the host tier via the FUSED kernel:
+        gather + int8 pack + wire checksum of every page, layer and K/V in
+        one launch, one copy of each result to the host and one
+        synchronisation.  Host entries and the free list change in item
+        order, as the reference's page-by-page loop changes them; the
+        pool pages go back to the free list only once every host entry
+        has been read."""
+        if not items:
             return
         L = self.cfg.n_layers
-        pages = [seq.table[lg][1] for lg in logicals]
+        pages = [seq.table[lg][1] for seq, lg in items]
         units = torch.from_numpy(self._units(pages)).to(self.device)
         q, scales, crcs = self._to_host(
             *gather_quantize_crc_units(self._slots(), units))
@@ -338,7 +355,7 @@ class PagedKVCache:
         # copy: an entry is freed on its own)
         entries = zip(map(np.ndarray.copy, q), map(np.ndarray.copy, scales),
                       crcs.tolist())
-        for lg, page in zip(logicals, pages):
+        for (seq, lg), page in zip(items, pages):
             seq.table[lg] = ("host", [(self.host.put(li, *next(entries)),
                                        self.host.put(li, *next(entries)))
                                       for li in range(L)])
@@ -532,19 +549,87 @@ class PagedKVCache:
             self.metrics.bump("pages_in")
 
     def deactivate(self, sid: int) -> None:
-        """Sequence paused/finished: eagerly transit its pages out, all in
-        one codec launch.  The page-out runs under ``_tlock`` — a
-        concurrent deactivate of the same sequence sees "host" entries and
-        skips, instead of double-freeing pool pages."""
+        """Sequence paused/finished: eagerly transit its pages out.
+
+        With an eviction pool, one item per device page is submitted to
+        the pool's workers (outside ``_tlock``) and the call returns; the
+        workers page the items out in batches.  Without one, the page-out
+        is one codec launch under ``_tlock`` — a concurrent deactivate of
+        the same sequence sees "host" entries and skips, instead of
+        double-freeing pool pages."""
         with self._tlock:
             seq = self.seqs[sid]
             seq.active = False
             if not self.cfg.eager_eviction:
                 return
-            self._page_out_locked(seq, [li for li, entry in
-                                        enumerate(seq.table)
-                                        if entry[0] == "hbm"])
+            items = [(seq, li) for li, entry in enumerate(seq.table)
+                     if entry[0] == "hbm"]
+            if self._evict_pool is None:
+                self._page_out_locked(items)
+                self._maybe_spill_locked()
+                return
+            self._inflight_evictions += len(items)
+        for it in items:
+            self._evict_pool.submit(self, it)
+
+    # eviction-pool participant hooks (the contract of the volume's caches)
+    def _device(self):
+        """The cache's card as the current device (a pool worker starts on
+        device 0); nothing on the CPU."""
+        return torch.cuda.device(self.device) if self.device.type == "cuda" \
+            else contextlib.nullcontext()
+
+    def _evict_slot(self, item) -> None:
+        """One queued page-out, from a pool worker."""
+        with self._device(), self._tlock:
+            if self._evict_items_locked([item]):
+                self._maybe_spill_locked()
+
+    def _evict_slots(self, items) -> None:
+        """A batch of queued page-outs, from a pool worker, possibly of
+        several sequences: one lock acquisition and one codec launch."""
+        self.metrics.bump("evict_batches")
+        with self._device(), self._tlock:
+            self._evict_items_locked(items)
             self._maybe_spill_locked()
+
+    def _evict_items_locked(self, items) -> int:
+        """Page out the items that still stand, in one launch; returns how
+        many.  An item is skipped (``evict_skipped``) when its sequence is
+        active again (a resume cancels its pending page-outs), has been
+        released (its pool pages are already free, perhaps given to
+        another sequence), or no longer has the page on the device."""
+        live, seen = [], set()
+        for seq, li in items:
+            if (seq.active or self.seqs.get(seq.seq_id) is not seq
+                    or seq.table[li][0] != "hbm" or (seq.seq_id, li) in seen):
+                self.metrics.bump("evict_skipped")
+                continue
+            seen.add((seq.seq_id, li))
+            live.append((seq, li))
+        self._page_out_locked(live)
+        return len(live)
+
+    def _complete_eviction(self) -> None:
+        with self._evict_cv:
+            self._inflight_evictions -= 1
+            self._evict_cv.notify_all()
+
+    def drain_evictions(self, timeout: float = 10.0,
+                        raise_on_timeout: bool = True) -> bool:
+        """Barrier: wait until every submitted page-out has run.  Returns
+        True when the drain completed; on expiry raises TimeoutError (or
+        returns False with ``raise_on_timeout=False``) — a silent timeout
+        would let ``activate()`` read tables that workers still change."""
+        with self._evict_cv:
+            done = self._evict_cv.wait_for(
+                lambda: self._inflight_evictions == 0, timeout=timeout)
+            pending = self._inflight_evictions
+        if not done and raise_on_timeout:
+            raise TimeoutError(
+                f"drain_evictions: {pending} page-outs still in flight "
+                f"after {timeout}s")
+        return done
 
     def activate(self, sid: int) -> None:
         """Resume a sequence: page everything back in, the packed pages in
@@ -554,7 +639,10 @@ class PagedKVCache:
         (an IOError, from the fetch or a restore, leaves the pages before
         it resident).  It may stall when the pool is full: the pages that
         got a pool page come in, a promoted record stays in the host tier,
-        and the rest pages in on a later call."""
+        and the rest pages in on a later call.  With an eviction pool it
+        first drains the pool's work (TimeoutError if that expires)."""
+        if self._evict_pool is not None:
+            self.drain_evictions()
         with self._tlock:
             seq = self.seqs[sid]
             seq.active = True

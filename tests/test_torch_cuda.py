@@ -47,6 +47,8 @@ def card():
     (3, 4, 2, 16, 16, 16, 4),      # qwen2.5-3b SMOKE
     (2, 8, 1, 128, 16, 12, 3),     # n_rep 8
     (4, 32, 32, 96, 16, 64, 16),   # phi3-mini-3.8b decode: hd 96, n_rep 1
+    (2, 56, 8, 128, 16, 32, 9),    # deepseek-coder-33b decode: n_rep 7
+    (2, 7, 1, 8, 16, 16, 4),       # deepseek SMOKE: n_rep 7, hd 8
 ])
 def test_paged_attention_kernel_matches_plain(card, B, H, Hkv, hd, page, P,
                                               maxp, dtype):
@@ -223,6 +225,8 @@ def test_flash_attention_kernel_matches_plain(card, B, T, S, H, Hkv, hd,
     (1, 200, 200, 4, 2, 64, True, 0),
     (1, 200, 200, 4, 2, 96, True, 0),
     (1, 200, 200, 4, 2, 128, True, 0),
+    (1, 128, 128, 56, 8, 128, True, 0),    # deepseek-coder-33b: n_rep 7
+    (1, 128, 128, 7, 1, 8, True, 0),       # deepseek SMOKE: hd 8, n_rep 7
 ])
 def test_flash_attention_tensor_core_kernel_matches_plain(
         card, B, T, S, H, Hkv, hd, causal, window):
@@ -520,3 +524,125 @@ def test_one_restore_launch_without_volume_records(card):
     finally:
         for vol in vols:
             vol.close()
+
+
+class _Blocker:
+    """A pool participant whose one item holds the pool's only worker
+    until ``gate`` is set, so that the items submitted meanwhile reach
+    the worker as one batch."""
+
+    def __init__(self, gate) -> None:
+        self.gate = gate
+
+    def _evict_slot(self, item) -> None:
+        self.gate.wait(timeout=10)
+
+    def _complete_eviction(self) -> None:
+        pass
+
+
+def test_pool_page_out_from_a_worker_is_the_synchronous_one(card):
+    """Two sequences' page-outs queued on a 1-worker pool reach the worker
+    as one batch of 5 items: one codec launch from the worker's thread,
+    and host entries bit-identical to the synchronous page-outs'."""
+    import threading
+
+    from repro_torch.core.metrics import Metrics
+    from repro_torch.serve import PagedCacheConfig, PagedKVCache
+    from repro_torch.volume.evict_pool import SharedEvictionPool
+    rng = np.random.default_rng(9)
+    kv = rng.standard_normal((20, 2, 2, 2, 128)).astype(np.float32) * 3
+    pool = SharedEvictionPool(1, name="test", batch_max=8)
+    try:
+        caches = []
+        for evict_pool in (pool, None):
+            c = PagedKVCache(PagedCacheConfig(
+                n_layers=2, n_kv_heads=2, head_dim=128, page_size=4,
+                n_pages=16, max_pages_per_seq=8, dtype=torch.bfloat16),
+                metrics=Metrics(), evict_pool=evict_pool, device=card)
+            for n in (12, 8):                      # 3 pages, then 2
+                sid = c.new_sequence()
+                for t in range(n):
+                    c.append_token(sid, [torch.tensor(x, device=card)
+                                         for x in kv[t, 0]],
+                                   [torch.tensor(x, device=card)
+                                    for x in kv[t, 1]])
+            caches.append(c)
+        pooled, sync = caches
+        gate = threading.Event()
+        blocker = _Blocker(gate)
+        pool.register(blocker)
+        pool.submit(blocker, None)                 # the worker waits
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        for sid in (0, 1):
+            pooled.deactivate(sid)
+        assert _build.launch_counts().get("gather_quantize_crc", 0) == 0
+        gate.set()
+        assert pooled.drain_evictions(timeout=10)
+        assert _build.launch_counts()["gather_quantize_crc"] == 1
+        assert pooled.metrics.count["evict_batches"] == 1
+        for sid in (0, 1):
+            sync.deactivate(sid)
+        assert _build.launch_counts()["gather_quantize_crc"] == 3
+        for key in ("pages_out", "fused_kernel_passes", "fused_kernel_bytes"):
+            assert pooled.metrics.count[key] == sync.metrics.count[key]
+        assert pooled.host.pages.keys() == sync.host.pages.keys()
+        for key, (q, s, crc) in pooled.host.pages.items():
+            q2, s2, crc2 = sync.host.pages[key]
+            assert np.array_equal(q, q2) and np.array_equal(s, s2)
+            assert crc == crc2 == zlib.adler32(q.tobytes())
+        assert sorted(pooled._free) == sorted(sync._free) == list(range(16))
+    finally:
+        pool.close()
+
+
+def test_engine_over_a_pool_equal_on_cuda_and_cpu(card):
+    """SMOKE f32 (TF32 off) in the engine's order over a cache with a
+    4-worker eviction pool, requests suspended every 3 ticks: the greedy
+    tokens and the cache's counters are the same on the card and the
+    CPU, and nothing is left behind."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve import (PagedCacheConfig, PagedKVCache, PagedLM,
+                                   ServeEngine)
+    from repro_torch.volume.evict_pool import SharedEvictionPool
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("deepseek-coder-33b", smoke=True, dtype=torch.float32)
+    params = init_lm(cfg, torch.Generator().manual_seed(0))
+    # pages_out is left out: whether a retiring request's queued page-out
+    # runs before its release skips it is up to the workers' timing
+    keys = ("pages_in", "suspends", "resumes", "transit_crc_errors",
+            "bypass_pages")
+    got = {}
+    for dev in ("cuda", "cpu"):
+        pool = SharedEvictionPool(4, name="test")
+        try:
+            cc = PagedCacheConfig(n_layers=cfg.n_layers,
+                                  n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+                                  page_size=4, n_pages=64,
+                                  max_pages_per_seq=16, dtype=cfg.dtype)
+            p = _to(params, dev)
+            eng = ServeEngine(cfg, p, cache_cfg=cc, max_batch=2, device=dev)
+            eng.cache = PagedKVCache(cc, metrics=eng.metrics, evict_pool=pool,
+                                     device=dev)
+            eng.lm = PagedLM(cfg, p, eng.cache)
+            rng = np.random.default_rng(2)
+            reqs = [eng.submit(rng.integers(2, cfg.vocab, size=n).tolist(),
+                               max_new_tokens=7) for n in (9, 14, 6, 11)]
+            ticks = 0
+            while eng.queue or eng.running or eng.suspended:
+                eng.step()
+                ticks += 1
+                if eng.running and ticks % 3 == 0:
+                    eng.suspend(eng.running[0])
+            assert eng.cache.drain_evictions(timeout=10)
+        finally:
+            pool.close()
+        count = eng.metrics.count
+        got[dev] = ([r.out_tokens for r in reqs],
+                    {k: count.get(k, 0) for k in keys})
+        assert len(eng.cache._free) == len(set(eng.cache._free)) == 64
+        assert len(eng.cache.host) == 0
+    assert got["cuda"] == got["cpu"]
+    assert got["cuda"][1]["suspends"] > 0 and got["cuda"][1]["pages_in"] > 0

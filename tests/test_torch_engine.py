@@ -1,6 +1,7 @@
 """The port's serving slice on the CPU against the JAX reference, on
-qwen2.5-3b SMOKE (and phi3-mini-3.8b SMOKE for the decode parity) with the
-JAX init converted by ``params_from_jax``.
+qwen2.5-3b SMOKE (and phi3-mini-3.8b, internlm2-1.8b and deepseek-coder-33b
+SMOKE for the decode parity and the parameter conversion) with the JAX
+init converted by ``params_from_jax``.
 
 f32: greedy tokens equal ``model.prefill``/``decode_step``'s (the dense
 ring-cache path) and logits agree within 1e-4.  bf16: logits agree with
@@ -72,10 +73,13 @@ def _engine(models, dt="f32", pool_pages=64, page_size=8):
                        max_batch=2, device="cpu")
 
 
-def test_params_from_jax_is_exact(models):
-    _, _, params, ct, tp = models["bf16"]
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "internlm2-1.8b",
+                                  "deepseek-coder-33b"])
+def test_params_from_jax_is_exact(arch):
+    _, _, params, ct, tp = _models(arch)["bf16"]
     assert len(tp["blocks"]) == ct.n_layers
-    for name in ("wq", "bq", "wo"):
+    assert ("bq" in tp["blocks"][0]["attn"]) == ct.qkv_bias
+    for name in ("wq", "bq", "wo") if ct.qkv_bias else ("wq", "wk", "wo"):
         for li in range(ct.n_layers):
             got = tp["blocks"][li]["attn"][name]
             assert got.dtype == torch.bfloat16
@@ -84,7 +88,8 @@ def test_params_from_jax_is_exact(models):
     assert tp["blocks"][1]["ln2"]["scale"].dtype == torch.float32
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "phi3-mini-3.8b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "phi3-mini-3.8b",
+                                  "internlm2-1.8b", "deepseek-coder-33b"])
 def test_paged_decode_matches_dense_reference(arch):
     """Greedy tokens from the port's engine == tokens from the reference
     dense-cache decode path, and the logits agree step by step."""

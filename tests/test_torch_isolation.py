@@ -1,9 +1,13 @@
 """The port stands alone: importing every ``repro_torch`` module pulls in
-neither JAX nor any module of the JAX package, and neither the port nor
-``chip_smoke.py`` calls PyTorch's fused attention or its compiler in place
-of a kernel of its own.  ``chip_smoke.py`` names the fused attention in one
-function only, the one that times it as flash attention's ``library_ms``."""
+neither JAX nor any module of the JAX package, no import statement of the
+port or of ``chip_smoke.py`` names either (not even one inside a function,
+which importing the module does not run), and neither calls PyTorch's
+fused attention or its compiler in place of a kernel of its own.
+``chip_smoke.py`` names the fused attention in one function only, the one
+that times it as flash attention's ``library_ms``.  The entry points run
+on the card unless the caller asks for another device."""
 import ast
+import inspect
 import json
 import os
 import pkgutil
@@ -32,6 +36,9 @@ def test_every_port_module_imports_without_jax_or_repro():
     assert "repro_torch.kernels.paged_attention" in mods
     assert "repro_torch.kernels.flash_attention" in mods
     assert "repro_torch.configs.phi3_mini" in mods
+    assert "repro_torch.configs.internlm2_1p8b" in mods
+    assert "repro_torch.configs.deepseek_coder_33b" in mods
+    assert "repro_torch.volume.evict_pool" in mods
     assert "repro_torch.volume.volume" in mods
     assert "repro_torch.serve.kvpager" in mods
     code = (
@@ -61,6 +68,51 @@ def test_no_library_attention_or_compiler_in_the_port():
         assert SDPA not in text, f"{f.relative_to(ROOT)}: {SDPA!r}"
         for lib in ("cublas", "cudnn"):      # no library kernels either
             assert lib not in text.lower(), f"{f.relative_to(ROOT)}: {lib}"
+
+
+def _forbidden_imports(source: str) -> list[str]:
+    """Every import statement of ``source``, at any depth, that names JAX
+    or the JAX package (``repro``), as ``module`` strings."""
+    bad = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad += [n for n in names if n.split(".")[0] in ("jax", "repro")]
+    return bad
+
+
+@pytest.mark.parametrize("case", ["as committed", "import in a function"])
+def test_no_import_of_jax_or_the_jax_package_at_any_depth(case):
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert PORT / "configs" / "deepseek_coder_33b.py" in files
+    assert PORT / "serve" / "engine.py" in files
+    if case == "as committed":
+        for f in files:
+            assert _forbidden_imports(f.read_text()) == [], \
+                f"{f.relative_to(ROOT)}"
+    else:
+        # the import forms the text search above does not see, inside a
+        # function, which importing the module does not run
+        source = "def f():\n    from repro import serve\n" \
+                 "    import repro.kernels.ref\n    from jax import numpy\n"
+        for word in ("import jax", "from repro.", "import repro\n"):
+            assert word not in source
+        assert _forbidden_imports(source) == ["repro", "repro.kernels.ref",
+                                              "jax"]
+
+
+def test_entry_points_default_to_the_card():
+    from repro_torch.launch.serve import build_parser
+    from repro_torch.models.layers import init_norm
+    from repro_torch.models.transformer import params_from_jax
+    from repro_torch.serve import PagedKVCache, ServeEngine
+    for fn in (PagedKVCache, ServeEngine, params_from_jax, init_norm):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert build_parser().parse_args([]).device == "cuda"
 
 
 def _sdpa_outside_timer(source: str) -> list[int]:
