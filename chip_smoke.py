@@ -24,9 +24,15 @@ Phases, each ending in ``torch.cuda.synchronize()``:
             2e-5 (f32) / 2e-2 (bf16) with poison written past each length;
             flash attention within the same tolerances over the reference's
             sweep, windows, non-causal, ragged lengths, hd 16 and 96 and
-            the prefill shapes, every bf16 case on the tensor-core kernel
-            and every f32 one on the SIMT kernel, and its gradient equal
-            to the plain one;
+            the prefill shapes (and the model API's, ``model_shapes``
+            from ``MODEL_RUNS``: each phase's prompt, non-causal with
+            T != S, 128 x 1600 at 32:8 and 64 x 1500 at 20:20 hd 64, the
+            whisper encoder's T = S = 1500, n_rep 16), every bf16 case on
+            the tensor-core kernel and every f32 one on the SIMT kernel,
+            and its gradient equal to the plain one; the model API's
+            decode attention (``model_shapes``: one paged launch over a
+            contiguous cache viewed as pages of 4, 8 or 16, n_rep 16 as
+            two rows of 8) against the plain version at the full n_rep;
             then each path kernel timed beside its plain version, its bound
             and, where one PyTorch call computes the same function, that
             call (``library_ms``), the codec at ``CODEC_TIMED``'s unit
@@ -85,7 +91,32 @@ Phases, each ending in ``torch.cuda.synchronize()``:
             promoting a spilled page, and the hybrid path reads spilled
             pages); internlm2-1.8b and deepseek-coder-33b (hd 8, n_rep 7)
             with the roomy pool, deepseek's also behind an eviction pool:
-            the greedy tokens and the cache's counters are equal.
+            the greedy tokens and the cache's counters are equal;
+10. moonshot — the model API (``build_model(cfg).prefill`` and
+            ``.decode_step``) on moonshot-v1-16b-a3b FULL (48 layers,
+            d_model 2048, 16:16 heads of 128, MoE 64 experts of 1408,
+            top-6, vocab 163840; 28.06 B parameters, 56.1 GB in bf16)
+            after deepseek's weights are freed: 4 prompts of 128 tokens
+            with ``s_max`` 144, then 16 greedy decode steps, the last 3
+            profiled beside the step's bound (at batch 4 the capacity
+            dispatch runs every expert, so the step reads every weight);
+11. vlm    — llama-3.2-vision-11b FULL (40 layers, a gated cross-attention
+            layer every 5th over 1600 patch embeddings drawn from the
+            seed; every xgate set to 0.5): 2 x (128 + 16);
+12. whisper — whisper-large-v3 FULL (32 encoder and 32 decoder layers,
+            hd 64, 1500 frames, xgate 0.5): 2 x (64 + 16);
+13. qwen3-moe — qwen3-moe-235b-a22b at full width cut to 4 of its 94
+            layers (22.1 GB; printed as ``reduced``): 4 x (128 + 8), the
+            attention kernels at n_rep 16;
+14. model parity — the model API at SMOKE in f32 (TF32 off) for
+            ``MODEL_PARITY`` (moonshot, qwen3-moe, whisper, llama-vision),
+            card against CPU: forward, prefill logits and cache, 8 greedy
+            decode steps within ``ROW_TOL["f32"]``, tokens equal.
+
+In phases 10-14 every self-attention over a prompt and every
+cross-attention runs the flash kernel (one launch a layer), every decode
+attention the paged kernel (one launch a layer and step); the counts are
+checked.
 
 Launch counts are zeroed just before each of phases 3-9 drives the path
 and read just after (with an eviction pool, after its work has drained);
@@ -131,6 +162,19 @@ TOL = {"f32": 2e-5, "bf16": 2e-2}
 ROW_TOL = {"f32": 1e-4, "bf16": 1e-2}
 QWEN, PHI3 = "qwen2.5-3b", "phi3-mini-3.8b"
 INTERNLM2, DEEPSEEK = "internlm2-1.8b", "deepseek-coder-33b"
+MOONSHOT, QWEN3_MOE = "moonshot-v1-16b-a3b", "qwen3-moe-235b-a22b"
+WHISPER, VISION = "whisper-large-v3", "llama-3.2-vision-11b"
+# The model API's full-width phases 10-13: (label, arch, B prompts of T
+# tokens, decode steps, config overrides, the cut printed as ``reduced``).
+# The kernel checks and timings at the model API's shapes are derived from
+# these (``model_shapes``), so they are the shapes the phases serve.
+MODEL_RUNS = [
+    ("moonshot", MOONSHOT, 4, 128, 16, {}, None),
+    ("vlm", VISION, 2, 128, 16, {}, None),
+    ("whisper", WHISPER, 2, 64, 16, {}, None),
+    ("qwen3-moe", QWEN3_MOE, 4, 128, 8, {"n_layers": 4},
+     "depth 94 -> 4 layers: 463 GB at full depth, 22.1 GB cut"),
+]
 
 # name -> (kernel source, TPU kernel it replaces).  Flash attention has two
 # kernels: "flash_attention_tc" (bf16 with hd % 8 == 0, every full-width
@@ -353,6 +397,94 @@ def check_paged_attention(torch, rng, results) -> None:
                                   "max_row_rel_err": worst_row}
 
 
+def model_shapes() -> tuple[list, list]:
+    """The attention kernels' inputs in the ``MODEL_RUNS`` phases, from
+    their configs: flash (label, B, T, S, H, Hkv, hd, causal) for each
+    prompt's self-attention (causal), whisper's encoder and every
+    cross-attention (non-causal, T != S); paged (label, B, S, H, Hkv, hd,
+    lens) for decode self-attention in the ``s_max = T + steps`` cache,
+    the lengths spread over the steps' pos + 1 (T + 1 .. s_max), and
+    cross-attention over every frame or patch.  The page is the cache's
+    (``layers.contiguous_page``): 16 for 144 slots, 8 for 136, 4 for 1500
+    frames; n_rep 16 (qwen3-moe) runs as two rows of 8."""
+    from repro_torch.configs import get_config
+    flash, paged = [], []
+    for label, arch, B, T, steps, _, _ in MODEL_RUNS:
+        cfg = get_config(arch)
+        heads = (cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+        S = T + steps
+        flash.append((f"{label}-self-T{T}", B, T, T, *heads, True))
+        paged.append((f"{label}-self-S{S}", B, S, *heads,
+                      [T + 1 + (steps - 1) * b // max(B - 1, 1)
+                       for b in range(B)]))
+        n = {"encdec": cfg.enc_seq, "vlm": cfg.n_img_tokens}.get(cfg.family)
+        if n is not None:
+            if cfg.family == "encdec":
+                flash.append((f"{label}-enc-{n}", B, n, n, *heads, False))
+            flash.append((f"{label}-cross-{T}x{n}", B, T, n, *heads, False))
+            paged.append((f"{label}-cross-{n}", B, n, *heads, [n] * B))
+    return flash, paged
+
+
+def contiguous_case(torch, rng, B, S, H, Hkv, hd, lens, dtype):
+    """q (B, 1, H, hd) and a contiguous cache with poison past each
+    length; the pages of ``layers.decode_pages``; and the plain version's
+    inputs: the cache as a pool, the identity table, the lengths."""
+    from repro_torch.models.layers import contiguous_page, decode_pages
+    q = torch.tensor(rng.standard_normal((B, 1, H, hd)), dtype=dtype,
+                     device="cuda")
+    k = rng.standard_normal((B, S, Hkv, hd)).astype("float32")
+    v = rng.standard_normal((B, S, Hkv, hd)).astype("float32")
+    for b, n in enumerate(lens):
+        k[b, n:], v[b, n:] = 99.0, -99.0
+    k, v = (torch.tensor(a, dtype=dtype, device="cuda") for a in (k, v))
+    n_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    pages = decode_pages(n_lens, S, H // Hkv)
+    page = contiguous_page(S)
+    table = torch.arange(B * S // page, dtype=torch.int32,
+                         device="cuda").view(B, -1)
+    plain = (q[:, 0], k.view(-1, page, Hkv, hd), v.view(-1, page, Hkv, hd),
+             table, n_lens)
+    return q, k, v, pages, plain
+
+
+def check_paged_contiguous(torch, rng, results) -> None:
+    """``layers.decode_attention`` (the model API's decode attention: one
+    launch of the paged kernel over the cache viewed as pages, n_rep above
+    8 split into rows) against the plain version at the full n_rep."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.paged_attention import paged_attention_plain
+    from repro_torch.models.layers import decode_attention
+    worst, worst_row = (results["paged_attention"][k] for k in (
+        "max_abs_err", "max_row_rel_err"))
+    for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for label, B, S, H, Hkv, hd, lens in model_shapes()[1]:
+            q, k, v, pages, plain = contiguous_case(torch, rng, B, S, H, Hkv,
+                                                    hd, lens, dtype)
+            before = _build.launch_counts().get("paged_attention", 0)
+            got = decode_attention(q, k, v, pages)[:, 0]
+            n = _build.launch_counts().get("paged_attention", 0) - before
+            exp = paged_attention_plain(*plain)
+            torch.cuda.synchronize()
+            tag = f"paged_attention contiguous {label}/{dt}"
+            check(n == 1, f"{tag}: {n} launches")
+            check(got.dtype == dtype and got.shape == (B, H, hd),
+                  f"{tag}: {got.dtype} {got.shape}")
+            err = (got.float() - exp.float()).abs()
+            row = row_rel_err(got, exp)
+            check(bool((err <= TOL[dt] + TOL[dt] * exp.float().abs()).all())
+                  and bool(torch.isfinite(got).all()),
+                  f"{tag}: max err {err.max():.3g}")
+            check(row <= ROW_TOL[dt], f"{tag}: row error {row:.3g}")
+            worst, worst_row = max(worst, float(err.max())), max(worst_row,
+                                                                 row)
+            log(f"{tag} ok: page {pages.page}, {pages.split} row(s) a "
+                f"sequence, n_rep {H // Hkv}, max abs err "
+                f"{float(err.max()):.3g}, max row rel err {row:.3g}")
+    results["paged_attention"].update(max_abs_err=worst,
+                                      max_row_rel_err=worst_row)
+
+
 # (label, S, P, page, F, n): a stack of S slots of P pages, n units read.
 # With S = 1 a single pool, as the one-pool API gives it; otherwise the
 # cache's layout, n // S pages of every slot, as one page-out or page-in
@@ -468,6 +600,16 @@ FLASH_CASES = [  # (label, B, T, S, H, Hkv, hd, causal, window, dtypes)
 ]
 
 
+def flash_cases() -> list:
+    """``FLASH_CASES`` and the model API's prefill shapes
+    (``model_shapes``): bf16, the served type, and the cross-attention
+    (T != S) in f32 too."""
+    return FLASH_CASES + [
+        (label, B, T, S, H, Hkv, hd, causal, 0,
+         ("bf16",) if T == S else ("f32", "bf16"))
+        for label, B, T, S, H, Hkv, hd, causal in model_shapes()[0]]
+
+
 def flash_case(torch, rng, B, T, S, H, Hkv, hd, dtype):
     return tuple(torch.tensor(rng.standard_normal(shape), dtype=dtype,
                               device="cuda")
@@ -484,7 +626,7 @@ def check_flash_attention(torch, rng, results) -> None:
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     worst = {"flash_attention": 0.0, "flash_attention_tc": 0.0}
     worst_row = dict(worst)
-    for label, B, T, S, H, Hkv, hd, causal, window, dts in FLASH_CASES:
+    for label, B, T, S, H, Hkv, hd, causal, window, dts in flash_cases():
         for dt in dts:
             q, k, v = flash_case(torch, rng, B, T, S, H, Hkv, hd, dtypes[dt])
             before = _build.launch_counts().get("flash_attention_tc", 0)
@@ -531,18 +673,19 @@ def check_flash_attention(torch, rng, results) -> None:
                          "max_row_rel_err": worst_row[name]}
 
 
-def library_attention_ms(torch, q, k, v, iters: int) -> tuple[float, str]:
+def library_attention_ms(torch, q, k, v, iters: int,
+                         causal: bool = True) -> tuple[float, str]:
     """``library_ms`` of flash attention: one call of PyTorch's fused
     attention on the same inputs (heads moved to dim 1 as it wants them,
-    causal, GQA), device time per call, or the CUDA-event time where the
-    profiler could not give it; and which of the two.  Timed here only:
-    the port never calls it."""
+    causal or not, GQA), device time per call, or the CUDA-event time
+    where the profiler could not give it; and which of the two.  Timed
+    here only: the port never calls it."""
     import torch.nn.functional as F
 
     def fn():
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True)
+            is_causal=causal, enable_gqa=True)
     dev = device_ms(fn, iters)
     return (dev, "profiler") if dev is not None else (time_ms(fn, iters),
                                                       "events")
@@ -558,27 +701,32 @@ def flash_pairs(T: int, S: int, causal: bool, window: int) -> int:
 
 
 def time_flash(torch, rng, label, B, T, H, Hkv, hd, iters,
-               dtype: str = "bf16") -> tuple[str, dict]:
+               dtype: str = "bf16", S: int | None = None,
+               causal: bool = True) -> tuple[str, dict]:
     """The flash kernel of the wrapper's route (bf16 here: tensor cores;
-    f32: SIMT), its plain version and the library call at one causal
-    prefill shape (S = T), beside the bound; with the kernel's name."""
+    f32: SIMT), its plain version and the library call at one prefill
+    shape (S = T unless given; causal unless not), beside the bound; with
+    the kernel's name."""
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain,
                                                      flash_route)
+    S = T if S is None else S
     tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
-    q, k, v = flash_case(torch, rng, B, T, T, H, Hkv, hd, tdt)
-    n_bytes = q.element_size() * (2 * B * T * H * hd + 2 * B * T * Hkv * hd)
-    n_ops = 4 * hd * H * B * flash_pairs(T, T, True, 0)
+    q, k, v = flash_case(torch, rng, B, T, S, H, Hkv, hd, tdt)
+    n_bytes = q.element_size() * (2 * B * T * H * hd + 2 * B * S * Hkv * hd)
+    n_ops = 4 * hd * H * B * flash_pairs(T, S, causal, 0)
     b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S if dtype == "bf16"
                        else F32_OPS_PER_S)
-    lib_ms, lib_from = library_attention_ms(torch, q, k, v, iters)
-    name = "flash_attention_tc" if flash_route(tdt, hd, T) == "tc" \
+    lib_ms, lib_from = library_attention_ms(torch, q, k, v, iters, causal)
+    name = "flash_attention_tc" if flash_route(tdt, hd, S) == "tc" \
         else "flash_attention"
-    r = dict(kernel_times(lambda: flash_attention_cuda(q, k, v),
-                          lambda: flash_attention_plain(q, k, v), iters,
-                          f"{name}_kernel"),
-             shape=[B, T, H, Hkv, hd], dtype=dtype, bound_ms=b_ms,
-             bound_by=b_by, library_ms=lib_ms, library_ms_from=lib_from)
+    r = dict(kernel_times(
+        lambda: flash_attention_cuda(q, k, v, causal=causal),
+        lambda: flash_attention_plain(q, k, v, causal=causal), iters,
+        f"{name}_kernel"),
+             label=label, shape=[B, T, H, Hkv, hd], S=S, causal=causal,
+             dtype=dtype, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+             library_ms_from=lib_from)
     log(f"time {name} {label}/{dtype}: kernel {r['ms']:.5f} ms "
         f"({r['ms_from']}), plain {r['plain_ms']:.5f} ms "
         f"({r['plain_ms_from']}), library {lib_ms:.5f} ms ({lib_from}); "
@@ -604,12 +752,44 @@ def time_paged(torch, rng, label, B, H, Hkv, hd, page, P, maxp, lens,
     out = dict(kernel_times(lambda: paged_attention_cuda(*args),
                             lambda: paged_attention_plain(*args), iters,
                             "paged_attention"),
-               shape=[B, H, Hkv, hd, page, maxp, list(lens)], dtype="bf16",
-               bound_ms=b_ms, bound_by=b_by)
+               label=label, shape=[B, H, Hkv, hd, page, maxp, list(lens)],
+               dtype="bf16", bound_ms=b_ms, bound_by=b_by)
     log(f"time paged_attention {label}: kernel {out['ms']:.5f} ms "
         f"({out['ms_from']}), plain {out['plain_ms']:.5f} ms "
         f"({out['plain_ms_from']}); per call: kernel {out['call_ms']:.5f} "
         f"ms; bound {b_ms:.6f} ms ({b_by})")
+    return out
+
+
+def time_paged_contiguous(torch, rng, label, B, S, H, Hkv, hd, lens,
+                          iters) -> dict:
+    """The model API's decode attention at one bf16 shape: the kernel on
+    the inputs ``layers.decode_attention`` gives it (a contiguous cache
+    viewed as pages; n_rep above 8 as rows of 8) and the plain version at
+    the full n_rep, beside the bound of ``time_paged``."""
+    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                     paged_attention_plain)
+    from repro_torch.models.layers import paged_view
+    q, k, v, pages, plain = contiguous_case(torch, rng, B, S, H, Hkv, hd,
+                                            lens, torch.bfloat16)
+    # the kernel on the inputs decode_attention gives it (n_rep 16: two
+    # rows of 8 a sequence)
+    args = (*paged_view(q, k, v, pages), pages.table, pages.lens)
+    n_pages = sum(math.ceil(n / pages.page) for n in lens)
+    n_bytes = (2 * B * H * hd * 2 + n_pages * pages.page * Hkv * hd * 2 * 2
+               + n_pages * 4 + B * 4)
+    n_ops = sum(4 * H * n * hd + 3 * H * n for n in lens)
+    b_ms, b_by = bound(n_bytes, n_ops)
+    out = dict(kernel_times(lambda: paged_attention_cuda(*args),
+                            lambda: paged_attention_plain(*plain), iters,
+                            "paged_attention"),
+               label=label, shape=[B, H, Hkv, hd, pages.page, S, list(lens)],
+               rows_per_sequence=pages.split, dtype="bf16", bound_ms=b_ms,
+               bound_by=b_by)
+    log(f"time paged_attention {label} (contiguous, page {pages.page}, "
+        f"{pages.split} row(s) a sequence): kernel {out['ms']:.5f} ms "
+        f"({out['ms_from']}), plain {out['plain_ms']:.5f} ms; per call "
+        f"{out['call_ms']:.5f} ms; bound {b_ms:.6f} ms ({b_by})")
     return out
 
 
@@ -687,8 +867,10 @@ def time_kernels(torch, rng, results) -> None:
     of 144 tokens (the last step; the row's numbers), and at
     phi3-mini-3.8b's width, the long-prompt shape (2 sequences of 1004
     and 4004 tokens over a 256-wide table), internlm2-1.8b's (4 x 160)
-    and deepseek-coder-33b's (2 x 136, n_rep 7) in ``at_shapes``; the
-    codec at
+    and deepseek-coder-33b's (2 x 136, n_rep 7) in ``at_shapes``, and
+    the model API's (``model_shapes``, every slot valid: the last
+    decode step), its flash shapes too (each phase's prompt, whisper's
+    encoder, the cross-attention); the codec at
     ``CODEC_TIMED``'s shapes, a qwen2.5-3b serve page-out (9 pages, 648
     units) the row's numbers."""
     keys = ("ms", "plain_ms", "ms_from", "plain_ms_from", "call_ms",
@@ -702,6 +884,10 @@ def time_kernels(torch, rng, results) -> None:
              time_flash(torch, rng, "deepseek-T128", 1, 128, 56, 8, 128, 200),
              time_flash(torch, rng, "qwen-T128", 1, 128, 16, 2, 128, 200,
                         dtype="f32")]
+    model_flash, model_paged = model_shapes()
+    flash += [time_flash(torch, rng, label, B_, T, H_, Hkv_, hd_,
+                         50 if T >= 1000 else 100, S=S, causal=causal)
+              for label, B_, T, S, H_, Hkv_, hd_, causal in model_flash]
     for name in ("flash_attention_tc", "flash_attention"):
         shapes = [r for n, r in flash if n == name]
         results[name].update({k: shapes[0][k] for k in (*keys, "library_ms")},
@@ -717,6 +903,9 @@ def time_kernels(torch, rng, results) -> None:
                          P, maxp, [160] * B, 200),
               time_paged(torch, rng, "deepseek-serve", 2, 56, 8, 128, page,
                          32, 9, [136] * 2, 200)]
+    shapes += [time_paged_contiguous(torch, rng, label, B_, S, H_, Hkv_, hd_,
+                                     [S] * B_, 200)
+               for label, B_, S, H_, Hkv_, hd_, _ in model_paged]
     results["paged_attention"].update(
         {k: shapes[0][k] for k in keys}, library_ms=None,
         at_shapes=shapes[1:])
@@ -1494,26 +1683,17 @@ def pool_full(torch, np, cfg, params, sync_ref: dict) -> tuple[dict, dict]:
     return a, b
 
 
-def profile_decode(torch, np, eng, cfg) -> dict:
-    """Where a full-width decode step's time goes: a batch of fresh
-    requests (the engine's ``max_batch``) is admitted, then 3 pure decode
-    steps (no admission, no retirement) run
-    under torch.profiler.  Device busy time is the union of the device
-    ops' intervals; the idle share is the rest of the window from the
-    first device op's start to the last one's end."""
+def profile_window(torch, fn, steps: int) -> dict:
+    """``steps`` calls of ``fn`` under torch.profiler.  Device busy time is
+    the union of the device ops' intervals; the idle share is the rest of
+    the window from the first device op's start to the last one's end."""
     from torch.profiler import ProfilerActivity, profile
-    rng = np.random.default_rng(1)
-    for _ in range(eng.max_batch):
-        eng.submit(rng.integers(2, cfg.vocab, size=128).tolist(),
-                   max_new_tokens=8)
-    eng.step()
     torch.cuda.synchronize()
-    steps = 3
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            eng.step()
+            fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     events = device_events(prof)
@@ -1533,16 +1713,29 @@ def profile_decode(torch, np, eng, cfg) -> dict:
         row[0] += e.time_range.end - e.time_range.start
         row[1] += 1
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"steps": steps, "step_ms": wall / steps * 1e3,
+            "device_busy_ms_per_step": busy / steps / 1e3,
+            "device_idle_share": (1.0 - busy / window) if window else None,
+            "device_ops_per_step": len(spans) / steps,
+            "top_device_us_per_step": [
+                [k, us / steps, n // steps] for k, (us, n) in top]}
+
+
+def profile_decode(torch, np, eng, cfg) -> dict:
+    """Where a full-width decode step's time goes: a batch of fresh
+    requests (the engine's ``max_batch``) is admitted, then 3 pure decode
+    steps (no admission, no retirement) run under torch.profiler
+    (``profile_window``)."""
+    rng = np.random.default_rng(1)
+    for _ in range(eng.max_batch):
+        eng.submit(rng.integers(2, cfg.vocab, size=128).tolist(),
+                   max_new_tokens=8)
+    eng.step()
+    out = profile_window(torch, eng.step, 3)
     eng.run()
     torch.cuda.synchronize()
     check(eng.cache.free_pages() == eng.cache.cfg.n_pages,
           "profile: pages leaked")
-    out = {"steps": steps, "step_ms": wall / steps * 1e3,
-           "device_busy_ms_per_step": busy / steps / 1e3,
-           "device_idle_share": (1.0 - busy / window) if window else None,
-           "device_ops_per_step": len(spans) / steps,
-           "top_device_us_per_step": [
-               [k, us / steps, n // steps] for k, (us, n) in top]}
     log(f"profile: decode step {out['step_ms']:.1f} ms (profiled), device "
         f"busy {out['device_busy_ms_per_step']:.2f} ms, idle share "
         f"{out['device_idle_share']}, {out['device_ops_per_step']:.0f} "
@@ -1605,7 +1798,281 @@ def serve_deepseek(torch, np) -> dict:
     return out
 
 
-# ------------------------------------------------------------- phase 7# ------------------------------------------------------------- phase 7
+# ------------------------------------------------------- phases 10-14
+def attention_layers(cfg) -> tuple[int, int, int]:
+    """(decoder self-attention, cross-attention, encoder) layers of a
+    transformer config: a prefill launches flash attention once for each
+    of the three, a decode step paged attention once for each of the
+    first two."""
+    if cfg.family == "encdec":
+        return cfg.n_layers, cfg.n_layers, cfg.enc_layers
+    if cfg.family == "vlm":
+        return cfg.n_layers, cfg.n_layers // cfg.cross_every, 0
+    return cfg.n_layers, 0, 0
+
+
+def set_xgate(params, value: float) -> int:
+    """Set every cross-attention gate to ``value``; returns how many.  The
+    reference initialises them to 0, and tanh(0) = 0 multiplies the
+    cross-attention away."""
+    blocks = params.get("dec_blocks", []) + [
+        g["cross"] for g in params.get("groups", [])]
+    for blk in blocks:
+        blk["xgate"].fill_(value)
+    return len(blocks)
+
+
+def model_batch(torch, cfg, B: int, T: int, device, seed: int = 0) -> dict:
+    """Prompt tokens and the family's stub frontend output (whisper's
+    frames, the VLM's patch embeddings), drawn from ``seed`` on
+    ``device``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    batch = {"tokens": torch.randint(2, cfg.vocab, (B, T), generator=g,
+                                     device=device)}
+    n = {"encdec": cfg.enc_seq, "vlm": cfg.n_img_tokens}.get(cfg.family)
+    if n is not None:
+        key = "frames" if cfg.family == "encdec" else "image_embeds"
+        batch[key] = torch.randn((B, n, cfg.d_model), generator=g,
+                                 device=device).to(cfg.dtype)
+    return batch
+
+
+def decode_step_work(cfg, params, B: int, self_len: float,
+                     cross_len: int) -> tuple[float, float]:
+    """(bytes, operations) one decode step needs at batch B: every weight
+    it reads once (the embedding's B rows; not the encoder, nor the
+    cross-attention's K/V projections, which run at prefill; each MoE
+    expert's weights once, for the capacity's tokens), the cache's valid
+    K/V read once and the new token's written, the logits written."""
+    from repro_torch.models.layers import moe_capacity
+    cap = (moe_capacity(B, cfg.moe.top_k, cfg.moe.n_experts,
+                        cfg.moe.capacity_factor) if cfg.moe else B)
+    n_bytes = n_ops = 0.0
+
+    def walk(tree, path):
+        nonlocal n_bytes, n_ops
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, path + (k,))
+        elif isinstance(tree, list):
+            for v in tree:
+                walk(v, path)
+        elif path[0] in ("enc_blocks", "enc_norm") or (
+                "xattn" in path and path[-1] in ("wk", "wv")):
+            return
+        elif path[0] == "embed":
+            n_bytes += B * tree.shape[1] * tree.element_size()
+        else:
+            n_bytes += tree.numel() * tree.element_size()
+            if tree.dim() >= 2:
+                tokens = cap if "moe" in path and path[-1] != "router" else B
+                n_ops += 2 * tree.numel() * tokens
+    walk(params, ())
+    n_self, n_cross, _ = attention_layers(cfg)
+    row = cfg.n_kv_heads * cfg.hd * 2 * 2          # K and V, bf16
+    n_bytes += B * row * (n_self * (self_len + 1) + n_cross * cross_len)
+    n_ops += 4 * B * cfg.n_heads * cfg.hd * (n_self * self_len
+                                             + n_cross * cross_len)
+    n_bytes += B * cfg.vocab * 4
+    return n_bytes, n_ops
+
+
+def serve_model(torch, np, arch: str, B: int, T: int, steps: int,
+                profiled: int = 3, reduced: str | None = None,
+                **overrides) -> dict:
+    """``build_model(cfg)`` at full width in bf16 with random weights
+    drawn on the card from seed 0 (every xgate set to 0.5): ``prefill`` of
+    B prompts of T tokens with ``s_max = T + steps``, then ``steps``
+    greedy ``decode_step``s, the last ``profiled`` of them under the
+    profiler.  Once under 1 GB is allocated (every other phase's weights
+    freed); the weights are freed at the end.  ``overrides`` cut the
+    config (``reduced`` says how, for the output)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.api import build_model
+    before = torch.cuda.memory_allocated()
+    check(before < 1e9, f"{before / 1e9:.2f} GB allocated before {arch}'s "
+          f"init")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch, **overrides)
+    model = build_model(cfg)
+    tag = f"model {arch}"
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = list(_leaves(params))
+    weight_bytes = sum(t.numel() * t.element_size() for t in weights)
+    init_peak = torch.cuda.max_memory_allocated()
+    gates = set_xgate(params, 0.5)
+    log(f"{tag}: {cfg.family}, {cfg.n_layers} layers"
+        f"{f' (+ {cfg.enc_layers} encoder)' if cfg.enc_layers else ''}, "
+        f"d_model {cfg.d_model}, heads {cfg.n_heads}:{cfg.n_kv_heads} of "
+        f"{cfg.hd}, {sum(t.numel() for t in weights) / 1e9:.3f} B params "
+        f"(param_count {cfg.param_count() / 1e9:.3f} B), "
+        f"{weight_bytes / 1e9:.2f} GB, init {init_s:.1f} s"
+        + (f"; reduced: {reduced}" if reduced else "")
+        + (f"; set {gates} xgate values to 0.5 (init leaves 0)" if gates
+           else ""))
+    n_self, n_cross, n_enc = attention_layers(cfg)
+    batch = model_batch(torch, cfg, B, T, "cuda")
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, batch, s_max=T + steps)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pre = dict(_build.launch_counts())
+    n_flash = n_self + n_cross + n_enc
+    check(pre.get("flash_attention", 0) == n_flash
+          and pre.get("flash_attention_tc", 0) == n_flash
+          and pre.get("paged_attention", 0) == 0,
+          f"{tag}: prefill launches {pre}, {n_flash} tensor-core flash "
+          f"launches expected")
+    out_logits = [logits]
+    tok = logits.argmax(-1)
+    state = {"i": 0, "tok": tok, "cache": cache}
+
+    def step():
+        i = state["i"]
+        lg, state["cache"] = model.decode_step(
+            params, state["cache"], state["tok"], np.full(B, T + i))
+        state["tok"] = lg.argmax(-1)
+        state["i"] = i + 1
+        out_logits.append(lg)
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps - profiled):
+        step()
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    prof = profile_window(torch, step, profiled)
+    dec = dict(_build.launch_counts())
+    check(dec.get("paged_attention", 0) == steps * (n_self + n_cross)
+          and dec.get("flash_attention", 0) == 0,
+          f"{tag}: decode launches {dec} for {steps} steps of "
+          f"{n_self + n_cross} attention layers")
+    peak = torch.cuda.max_memory_allocated()
+    lg = torch.stack(out_logits)
+    check(tuple(lg.shape) == (steps + 1, B, cfg.vocab)
+          and bool(torch.isfinite(lg).all()), f"{tag}: logits {lg.shape}, "
+          f"finite {bool(torch.isfinite(lg).all())}")
+    tokens = lg.argmax(-1).T.tolist()
+    check(all(0 <= t < cfg.vocab for row in tokens for t in row),
+          f"{tag}: a token outside the vocabulary")
+    # every slot of every row filled, 0..s_max-1, once prefill and decode
+    # have run
+    c = state["cache"]
+    pos = (c if cfg.family not in ("encdec", "vlm") else c["self"])["pos"]
+    check(bool((pos == torch.arange(T + steps, device="cuda")).all()),
+          f"{tag}: cache positions not 0..{T + steps - 1} in every row")
+    # the profiled steps' mean count of valid slots (pos + 1)
+    mean_len = T + steps - profiled / 2.0 + 0.5
+    cross_len = c["cross_k"].shape[2] if n_cross else 0
+    n_bytes, n_ops = decode_step_work(cfg, params, B, mean_len, cross_len)
+    b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
+    out = {"arch": arch, "family": cfg.family, "reduced": reduced,
+           "B": B, "prompt_tokens": T, "decode_steps": steps,
+           "params": sum(t.numel() for t in weights),
+           "memory_before_init_gb": before / 1e9,
+           "weight_gb": weight_bytes / 1e9, "init_peak_gb": init_peak / 1e9,
+           "peak_gb": peak / 1e9, "prefill_s": prefill_s,
+           "decode_tok_s": B * (steps - profiled) / decode_s,
+           "decode_step_ms": decode_s / (steps - profiled) * 1e3,
+           "profile": prof, "decode_bound_ms": b_ms,
+           "decode_bound_by": b_by, "decode_bytes": n_bytes,
+           "flash_per_prefill": pre.get("flash_attention", 0),
+           "paged_per_step": dec.get("paged_attention", 0) / steps,
+           "xgates_set": gates, "tokens": tokens,
+           "launches": {k: pre.get(k, 0) + dec.get(k, 0)
+                        for k in set(pre) | set(dec)}}
+    log(f"{tag}: allocated before init {before / 1e9:.3f} GB, weights "
+        f"{weight_bytes / 1e9:.2f} GB, peak {peak / 1e9:.2f} GB; prefill "
+        f"{prefill_s:.3f} s ({B} x {T}), decode {out['decode_tok_s']:.2f} "
+        f"tok/s ({out['decode_step_ms']:.1f} ms a step); profiled decode "
+        f"step {prof['step_ms']:.1f} ms, device busy "
+        f"{prof['device_busy_ms_per_step']:.2f} ms, idle share "
+        f"{prof['device_idle_share']}, {prof['device_ops_per_step']:.0f} "
+        f"device ops; bound {b_ms:.3f} ms ({b_by}: "
+        f"{n_bytes / 1e9:.2f} GB); flash launches a prefill "
+        f"{out['flash_per_prefill']}, paged a step {out['paged_per_step']}")
+    del out_logits, lg, logits, cache, state, batch, weights, c, pos
+    release_weights(torch, params, arch)
+    return out
+
+
+# the model API's SMOKE parity, card against CPU, one arch per family
+MODEL_PARITY = (MOONSHOT, QWEN3_MOE, WHISPER, VISION)
+
+
+def parity_models(torch, np) -> dict:
+    """The model API at SMOKE in f32 (TF32 off), every xgate 0.5, on the
+    card and on the CPU from the same weights: forward logits, prefill
+    logits and cache (``s_max``), and 8 greedy decode steps agree within
+    ``ROW_TOL["f32"]`` row by row, the cache positions and the tokens are
+    equal, and on the card the forward and the prefill each launch flash
+    attention once for each attention layer and each decode step the
+    paged kernel once for each decoder attention layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.api import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B, T, steps = 2, 12, 8
+    launches = {}
+    for arch in MODEL_PARITY:
+        cfg = get_config(arch, smoke=True, dtype=torch.float32)
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0))
+        set_xgate(params, 0.5)
+        batch = model_batch(torch, cfg, B, T, "cpu", seed=2)
+        got = {}
+        for dev in ("cuda", "cpu"):
+            p, b = _to(params, dev), _to(batch, dev)
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            fwd = model.forward(p, b)
+            logits, cache = model.prefill(p, b, s_max=T + steps)
+            steps_out = [logits]
+            for i in range(steps):
+                lg, cache = model.decode_step(
+                    p, cache, steps_out[-1].argmax(-1), np.full(B, T + i))
+                steps_out.append(lg)
+            torch.cuda.synchronize()
+            if dev == "cuda":
+                launches[arch] = dict(_build.launch_counts())
+            got[dev] = {"forward": fwd.cpu(), "logits": [
+                lg.cpu() for lg in steps_out], "cache": _to(cache, "cpu")}
+        tag = f"model parity {arch}"
+        a, c = got["cuda"], got["cpu"]
+        errs = [row_rel_err(a["forward"], c["forward"])] + [
+            row_rel_err(x, y) for x, y in zip(a["logits"], c["logits"])]
+        for x, y in zip(_leaves(a["cache"]), _leaves(c["cache"])):
+            if x.dtype == torch.int32:
+                check(torch.equal(x, y), f"{tag}: cache positions differ")
+            else:
+                errs.append(row_rel_err(x, y))
+        check(max(errs) <= ROW_TOL["f32"], f"{tag}: row error "
+              f"{max(errs):.3g} > {ROW_TOL['f32']}")
+        toks = {d: [lg.argmax(-1).tolist() for lg in got[d]["logits"]]
+                for d in got}
+        check(toks["cuda"] == toks["cpu"], f"{tag}: tokens cuda "
+              f"{toks['cuda']} != cpu {toks['cpu']}")
+        n_self, n_cross, n_enc = attention_layers(cfg)
+        n = launches[arch]
+        check(n.get("flash_attention", 0) == 2 * (n_self + n_cross + n_enc)
+              and n.get("flash_attention_tc", 0) == 0
+              and n.get("paged_attention", 0) == steps * (n_self + n_cross),
+              f"{tag}: launches {n}")
+        log(f"{tag}: SMOKE f32 (TF32 off), xgate 0.5: forward, prefill "
+            f"(logits, cache), {steps} decode steps agree card against CPU "
+            f"(max row rel err {max(errs):.3g}), tokens equal "
+            f"{toks['cuda'][1:]}; cuda launches {n}")
+    return launches
+
+
+# ------------------------------------------------------------- phase 7
 def parity_smoke(torch, np) -> dict:
     """The SMOKE configs of ``PARITY_RUNS`` in f32 (TF32 off), each over
     its pools of ``PARITY_CASES``: a roomy one (64 pages of 8), where every
@@ -1803,6 +2270,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     results: dict[str, dict] = {}
     check_paged_attention(torch, rng, results)
+    check_paged_contiguous(torch, rng, results)
     check_codec(torch, rng, results)
     check_flash_attention(torch, rng, results)
     time_kernels(torch, rng, results)
@@ -1823,7 +2291,13 @@ def main() -> int:
         torch, np, cfg, params, paths["serve"]["transit"])
     release_weights(torch, params, INTERNLM2)
     paths["serve_deepseek"] = serve_deepseek(torch, np)
+    # the model API (build_model's prefill and decode_step) at full width,
+    # each after the previous weights are freed
+    for label, arch, B, T, steps, overrides, reduced in MODEL_RUNS:
+        paths[f"model_{label.replace('-', '_')}"] = serve_model(
+            torch, np, arch, B, T, steps, reduced=reduced, **overrides)
     parity = parity_smoke(torch, np)
+    model_parity = parity_models(torch, np)
     torch.cuda.synchronize()
 
     # launches of each kernel on the paths of phases 3-7, each counted
@@ -1831,6 +2305,8 @@ def main() -> int:
     by_path = {k: kernel_launches(p["launches"]) for k, p in paths.items()}
     by_path.update({f"parity {k}": kernel_launches(c)
                     for k, c in parity.items()})
+    by_path.update({f"model parity {k}": kernel_launches(c)
+                    for k, c in model_parity.items()})
     launches = {name: sum(c.get(name, 0) for c in by_path.values())
                 for name in (*KERNELS, "gather_quantize", "scatter_dequantize")}
     for name in KERNELS:
@@ -1862,7 +2338,8 @@ def main() -> int:
     for key, p in paths.items():
         print(json.dumps({key: {k: v for k, v in p.items()
                                 if k != "launches"}}))
-    print(json.dumps({"parity_launches": parity}))
+    print(json.dumps({"parity_launches": parity,
+                      "model_parity_launches": model_parity}))
     print(json.dumps({"flash_launches_by_path": {
         k: {"calls": c.get("flash_attention", 0)
             + c.get("flash_attention_tc", 0),

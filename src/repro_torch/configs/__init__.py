@@ -1,5 +1,7 @@
 """Architecture registry: ``get_config(arch_id, smoke=False)`` and the
-architectures the port serves so far (``--arch`` values)."""
+architectures the port builds so far: the reference's four dense archs
+(which ``ServeEngine`` serves, the CLI's ``--arch`` values) and its MoE,
+encoder-decoder and VLM archs (through ``models.api.build_model``)."""
 from __future__ import annotations
 
 from importlib import import_module
@@ -7,10 +9,14 @@ from importlib import import_module
 from repro_torch.models.common import ModelConfig
 
 _MODULES = {
+    "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b",
+    "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_16b",
+    "whisper-large-v3": "repro_torch.configs.whisper_large_v3",
     "qwen2.5-3b": "repro_torch.configs.qwen25_3b",
     "phi3-mini-3.8b": "repro_torch.configs.phi3_mini",
     "internlm2-1.8b": "repro_torch.configs.internlm2_1p8b",
     "deepseek-coder-33b": "repro_torch.configs.deepseek_coder_33b",
+    "llama-3.2-vision-11b": "repro_torch.configs.llama32_vision_11b",
 }
 
 ARCHS = tuple(_MODULES)

@@ -34,7 +34,10 @@ PREFETCH_DEPTH = 2     # suspended requests whose records are prefetched
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2.5-3b", choices=list(ARCHS))
+    # the paged engine serves the dense family, as the reference's does;
+    # the other families run through ``models.api.build_model``
+    ap.add_argument("--arch", default="qwen2.5-3b", choices=[
+        a for a in ARCHS if get_config(a).family == "dense"])
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True, help="the SMOKE config (--no-smoke: FULL)")
     ap.add_argument("--requests", type=int, default=8)

@@ -1,8 +1,11 @@
 """Model configuration, as ``repro.models.common`` with torch dtypes.
 
-The fields the dense decoder family reads, under the reference's names;
-the other families' fields and the knobs that steer JAX's compiler come
-with the slices that need them.
+The reference's fields under its names and defaults, except: the knobs
+that steer JAX's compiler (``remat``, ``attn_impl``, ``scan_layers``) and
+the chunk of its XLA attention (``attn_chunk``), since the port runs
+eagerly on one card and attends through the flash kernel; the mesh
+context; and the recurrent families' ``block_pattern`` and ``lru_width``,
+which come with those families (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -38,8 +41,15 @@ class ModelConfig:
     rope_theta: float = 1e6
     pos: str = "rope"          # rope | sinusoidal | none
     tie_embeddings: bool = False
+    # family extras ----------------------------------------------------------
+    enc_layers: int = 0        # encdec: encoder depth
+    enc_seq: int = 1500        # whisper frame count (stub frontend output)
+    cross_every: int = 0       # vlm: a cross-attn layer every Nth layer
+    n_img_tokens: int = 1600   # vlm stub patch-embedding count
     attn_window: int = 0       # 0 = full causal; >0 = local sliding window
+    # numerics ----------------------------------------------------------------
     dtype: Any = torch.bfloat16
+    logits_f32: bool = True
 
     @property
     def hd(self) -> int:
@@ -47,3 +57,34 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return replace(self, **kw)
+
+    # --------------------------------------------------------- param counts
+    def param_count(self) -> int:
+        """Analytic parameter count, the reference's formula."""
+        D, hd = self.d_model, self.hd
+        qo = D * self.n_heads * hd * 2
+        kv = D * self.n_kv_heads * hd * 2
+        if self.moe:
+            mlp = self.moe.n_experts * 3 * D * self.moe.d_expert \
+                + D * self.moe.n_experts
+        else:
+            mlp = (3 if self.act == "swiglu" else 2) * D * self.d_ff
+        body = self.n_layers * (qo + kv + mlp)
+        if self.family == "encdec":
+            body += self.enc_layers * (qo + kv + 2 * D * self.d_ff)
+            body += self.n_layers * (qo + kv)          # decoder cross-attn
+        if self.family == "vlm" and self.cross_every:
+            body += self.n_layers // self.cross_every * (qo + kv)
+        embed = self.vocab * D * (1 if self.tie_embeddings else 2)
+        return body + embed
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE top-k)."""
+        if not self.moe:
+            return self.param_count()
+        D = self.d_model
+        dense_mlp = self.moe.top_k * 3 * D * self.moe.d_expert \
+            + D * self.moe.n_experts
+        full_mlp = self.moe.n_experts * 3 * D * self.moe.d_expert \
+            + D * self.moe.n_experts
+        return self.param_count() - self.n_layers * (full_mlp - dense_mlp)

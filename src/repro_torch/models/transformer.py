@@ -1,10 +1,27 @@
-"""Decoder LM parameters for the dense family: random init from a
-``torch.Generator`` (``repro.models.transformer.init_lm``'s distributions)
-and the converter from a JAX parameter pytree.
+"""Transformer families, as ``repro.models.transformer`` without a mesh:
+the decoder-only LM (dense and MoE), the encoder-decoder (whisper) and the
+VLM with interleaved cross-attention layers (llama-vision); random init
+from a ``torch.Generator`` and the converter from a JAX parameter pytree.
 
 Parameters are a plain dict: ``embed`` (V, D), ``head`` (D, V) unless tied,
-``final_norm``, and ``blocks``, a list with one dict per layer
-(``ln1``, ``attn``, ``ln2``, ``mlp``).
+``final_norm``, and the layers as lists with one dict per layer (the
+reference stacks them on a leading axis for its scan): ``blocks`` (dense,
+moe: ``ln1``, ``attn``, ``ln2``, and ``mlp`` or ``moe``); ``enc_blocks``,
+``enc_norm`` and ``dec_blocks`` (encdec; a decoder block also carries
+``lnx``, ``xattn`` and the scalar ``xgate``); ``groups`` (vlm), a list of
+``{"self": [cross_every - 1 blocks], "cross": block}``.
+
+Attention runs on the port's kernels: every self-attention over a prompt
+and every cross-attention over frames or patches on
+``kernels.ops.flash_attention`` (causal for decoder self-attention,
+non-causal for the encoder and cross-attention), every decode attention
+on ``kernels.ops.paged_attention`` over the contiguous cache viewed as
+pages (``layers.decode_attention``).  CPU tensors take each kernel's
+plain version.  The layer loop runs on the host in Python.  The decode
+step writes the new token's K/V into the cache IN PLACE and returns the
+cache it was given (the reference returns a new one).  Modality
+frontends are stubs, as in the reference: whisper takes frame embeddings
+(``frames``), the VLM patch embeddings (``image_embeds``).
 """
 from __future__ import annotations
 
@@ -13,23 +30,101 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.kernels.ops import flash_attention
 from .common import ModelConfig
-from .layers import attn_init, init_norm, mlp_init
+from .layers import (apply_norm, attn_init, decode_pages,
+                     decode_update_and_attend, decode_attention, init_norm,
+                     mlp_apply, mlp_init, moe_apply, moe_init, out_proj,
+                     qkv_proj, rope, sinusoidal_pos)
+
+RECURRENT = "the recurrent families (ssm, hybrid) are ROADMAP Queue 1 item 7"
+WINDOWED = "the windowed ring cache comes with recurrentgemma (Queue 1 item 7)"
 
 
-def init_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    d, dev = cfg.d_model, gen.device
-    return {"ln1": init_norm(d, cfg.norm, dev),
-            "attn": attn_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                              cfg.qkv_bias, cfg.dtype),
-            "ln2": init_norm(d, cfg.norm, dev),
-            "mlp": mlp_init(gen, d, cfg.d_ff, cfg.act, cfg.dtype)}
+# =========================================================== block def/init
+def init_block(gen: torch.Generator, cfg: ModelConfig, *,
+               cross: bool = False) -> dict:
+    d, hd, dev = cfg.d_model, cfg.hd, gen.device
+    p = {"ln1": init_norm(d, cfg.norm, dev),
+         "attn": attn_init(gen, d, cfg.n_heads, cfg.n_kv_heads, hd,
+                           cfg.qkv_bias, cfg.dtype)}
+    if cross:
+        p["lnx"] = init_norm(d, cfg.norm, dev)
+        p["xattn"] = attn_init(gen, d, cfg.n_heads, cfg.n_kv_heads, hd,
+                               False, cfg.dtype)
+        p["xgate"] = torch.zeros((), dtype=torch.float32, device=dev)
+    p["ln2"] = init_norm(d, cfg.norm, dev)
+    if cfg.moe is not None:
+        p["moe"] = moe_init(gen, d, cfg.moe, cfg.dtype)
+    else:
+        p["mlp"] = mlp_init(gen, d, cfg.d_ff, cfg.act, cfg.dtype)
+    return p
 
 
+def self_attention(x, p, cfg: ModelConfig, *, positions, causal=True,
+                   window=0, cache=None, slot=None, pages=None):
+    """Returns (attn_out, k, v), k and v being this call's new keys and
+    values.  With ``cache`` (one layer's ``{"k", "v", "pos"}``), x is the
+    single new token (B, 1, D): its K/V go into the cache at ``slot`` and
+    it attends over the cache through ``pages``."""
+    q, k, v = qkv_proj(x, p, cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+    if cfg.pos == "rope":
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    if cache is not None:
+        out = decode_update_and_attend(q, cache["k"], cache["v"],
+                                       cache["pos"], k, v, slot, pages)
+    else:
+        out = flash_attention(q, k, v, causal=causal, window=window)
+    return out_proj(out, p), k, v
+
+
+def cross_attention(x, p, cfg: ModelConfig, *, xk, xv, pages=None):
+    """Full attention of x over xk/xv: the flash kernel (non-causal, any
+    T against S), or the paged kernel through ``pages`` in decode."""
+    B, T, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, T, cfg.n_heads, cfg.hd)
+    out = (decode_attention(q, xk, xv, pages) if pages is not None
+           else flash_attention(q, xk, xv, causal=False))
+    return out_proj(out, p)
+
+
+def cross_kv(enc_out, p, cfg: ModelConfig):
+    B, S, _ = enc_out.shape
+    k = (enc_out @ p["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    v = (enc_out @ p["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    return k, v
+
+
+def block_apply(x, p, cfg: ModelConfig, *, positions, causal=True, window=0,
+                cache=None, slot=None, pages=None, xk=None, xv=None,
+                xpages=None):
+    """Returns (x, (k, v)) with the self-attention's new keys and values."""
+    a, k, v = self_attention(
+        apply_norm(x, p["ln1"], cfg.norm), p["attn"], cfg,
+        positions=positions, causal=causal, window=window, cache=cache,
+        slot=slot, pages=pages)
+    x = x + a
+    if xk is not None:
+        g = torch.tanh(p["xgate"]).to(x.dtype) if "xgate" in p else 1.0
+        c = cross_attention(apply_norm(x, p["lnx"], cfg.norm), p["xattn"],
+                            cfg, xk=xk, xv=xv, pages=xpages)
+        x = x + g * c
+    h = apply_norm(x, p["ln2"], cfg.norm)
+    if cfg.moe is not None:
+        x = x + moe_apply(h, p["moe"], cfg.moe)
+    else:
+        x = x + mlp_apply(h, p["mlp"], cfg.act)
+    return x, (k, v)
+
+
+# ============================================================= LM (decoder)
 def init_lm(cfg: ModelConfig, gen: torch.Generator) -> dict:
-    """Random dense-LM parameters on ``gen.device``, drawn in a fixed order
-    (embed, head, then each layer) so one seed gives one model."""
-    assert cfg.family == "dense", "the port initialises dense LMs only"
+    """Random parameters on ``gen.device``, drawn in a fixed order (embed,
+    head, then each layer in execution order, the encoder first) so one
+    seed gives one model."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(RECURRENT)
     d, V = cfg.d_model, cfg.vocab
     dev = gen.device
     params = {"embed": (torch.randn((V, d), generator=gen, device=dev)
@@ -38,10 +133,263 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator) -> dict:
     if not cfg.tie_embeddings:
         params["head"] = (torch.randn((d, V), generator=gen, device=dev)
                           / math.sqrt(d)).to(cfg.dtype)
-    params["blocks"] = [init_block(gen, cfg) for _ in range(cfg.n_layers)]
+    if cfg.family == "vlm":
+        inner = cfg.cross_every - 1
+        params["groups"] = [
+            {"self": [init_block(gen, cfg) for _ in range(inner)],
+             "cross": init_block(gen, cfg, cross=True)}
+            for _ in range(cfg.n_layers // cfg.cross_every)]
+    elif cfg.family == "encdec":
+        enc_cfg = cfg.with_(act="gelu")
+        params["enc_blocks"] = [init_block(gen, enc_cfg)
+                                for _ in range(cfg.enc_layers)]
+        params["enc_norm"] = init_norm(d, cfg.norm, dev)
+        params["dec_blocks"] = [init_block(gen, cfg, cross=True)
+                                for _ in range(cfg.n_layers)]
+    else:
+        params["blocks"] = [init_block(gen, cfg) for _ in range(cfg.n_layers)]
     return params
 
 
+def _device(params) -> torch.device:
+    return params["embed"].device
+
+
+def _embed_in(params, tokens, positions, cfg: ModelConfig):
+    x = params["embed"][tokens]
+    if cfg.pos == "sinusoidal":
+        x = x + sinusoidal_pos(positions, cfg.d_model, cfg.dtype)
+    return x
+
+
+def _unembed(params, x, cfg: ModelConfig):
+    w = params["embed"].T if cfg.tie_embeddings else params["head"]
+    logits = x @ w
+    return logits.float() if cfg.logits_f32 else logits
+
+
+def _prompt(params, tokens):
+    """Tokens (B, T) on the parameters' device, and positions 0..T-1."""
+    tokens = torch.as_tensor(tokens, device=_device(params)).long()
+    B, T = tokens.shape
+    return tokens, torch.arange(T, device=tokens.device)[None].expand(B, T)
+
+
+def _encoder_apply(params, frames, cfg: ModelConfig):
+    """Whisper encoder over stub conv-frontend frame embeddings (B,S,D)."""
+    B, S, _ = frames.shape
+    pos = torch.arange(S, device=frames.device)[None].expand(B, S)
+    x = frames.to(cfg.dtype) + sinusoidal_pos(pos, cfg.d_model, cfg.dtype)
+    enc_cfg = cfg.with_(act="gelu")
+    for blk in params["enc_blocks"]:
+        x, _ = block_apply(x, blk, enc_cfg, positions=pos, causal=False)
+    return apply_norm(x, params["enc_norm"], cfg.norm)
+
+
+def _cross_source(params, batch, cfg: ModelConfig):
+    """What the cross-attention layers attend over: the encoder's output
+    (encdec) or the patch embeddings (vlm); None for the other families."""
+    dev = _device(params)
+    if cfg.family == "encdec":
+        return _encoder_apply(params, torch.as_tensor(batch["frames"],
+                                                      device=dev), cfg)
+    if cfg.family == "vlm":
+        return torch.as_tensor(batch["image_embeds"],
+                               device=dev).to(cfg.dtype)
+    return None
+
+
+def _blocks(params, cfg: ModelConfig):
+    """(block, whether it has cross-attention), in execution order."""
+    if cfg.family == "vlm":
+        for g in params["groups"]:
+            for blk in g["self"]:
+                yield blk, False
+            yield g["cross"], True
+    elif cfg.family == "encdec":
+        for blk in params["dec_blocks"]:
+            yield blk, True
+    else:
+        for blk in params["blocks"]:
+            yield blk, False
+
+
+def _window(cfg: ModelConfig) -> int:
+    """The self-attention window: the reference passes ``attn_window`` to
+    the decoder-only families' layers only."""
+    return 0 if cfg.family in ("encdec", "vlm") else cfg.attn_window
+
+
+def lm_forward(params, batch, cfg: ModelConfig):
+    """Full-sequence forward -> logits (B, T, V). batch carries 'tokens' and
+    family extras ('frames' for encdec, 'image_embeds' for vlm)."""
+    tokens, positions = _prompt(params, batch["tokens"])
+    x = _embed_in(params, tokens, positions, cfg)
+    src = _cross_source(params, batch, cfg)
+    for blk, has_cross in _blocks(params, cfg):
+        xk, xv = (cross_kv(src, blk["xattn"], cfg) if has_cross
+                  else (None, None))
+        x, _ = block_apply(x, blk, cfg, positions=positions,
+                           window=_window(cfg), xk=xk, xv=xv)
+    x = apply_norm(x, params["final_norm"], cfg.norm)
+    return _unembed(params, x, cfg)
+
+
+# ------------------------------------------------------------- loss
+def lm_loss(params, batch, cfg: ModelConfig):
+    """Mean next-token NLL (the forward value; no train step here)."""
+    logits = lm_forward(params, batch, cfg)
+    targets = torch.as_tensor(batch["targets"], device=logits.device).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets[..., None])[..., 0]
+    nll = logz - gold
+    mask = batch.get("loss_mask")
+    if mask is None:
+        return nll.mean()
+    mask = torch.as_tensor(mask, device=logits.device).to(nll.dtype)
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+
+
+# ------------------------------------------------------- prefill / decode
+def make_cache(cfg: ModelConfig, B: int, S_max: int, device="cuda",
+               cross_len: int | None = None) -> dict:
+    """The reference's layout: stacked (L, B, S, Hkv, hd) ``k``/``v`` and
+    (L, B, S) ``pos`` (-1 = empty); encdec adds ``cross_k``/``cross_v`` of
+    ``cross_len`` (default ``enc_seq``) frames under ``self``; vlm keeps
+    ``self`` as (G, cross_every - 1, ...), ``cross_self`` as (G, ...) and
+    ``cross_k``/``cross_v`` of ``cross_len`` (default ``n_img_tokens``)
+    patches."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(RECURRENT)
+    dtype, hd, Hkv = cfg.dtype, cfg.hd, cfg.n_kv_heads
+    S = min(S_max, cfg.attn_window) if cfg.attn_window else S_max
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def kv(*lead):
+        return {"k": zeros(*lead, B, S, Hkv, hd),
+                "v": zeros(*lead, B, S, Hkv, hd),
+                "pos": torch.full((*lead, B, S), -1, dtype=torch.int32,
+                                  device=device)}
+
+    if cfg.family == "encdec":
+        n = cross_len or cfg.enc_seq
+        return {"self": kv(cfg.n_layers),
+                "cross_k": zeros(cfg.n_layers, B, n, Hkv, hd),
+                "cross_v": zeros(cfg.n_layers, B, n, Hkv, hd)}
+    if cfg.family == "vlm":
+        G = cfg.n_layers // cfg.cross_every
+        n = cross_len or cfg.n_img_tokens
+        return {"self": kv(G, cfg.cross_every - 1),
+                "cross_self": kv(G),
+                "cross_k": zeros(G, B, n, Hkv, hd),
+                "cross_v": zeros(G, B, n, Hkv, hd)}
+    return kv(cfg.n_layers)
+
+
+def _self_caches(cache, cfg: ModelConfig):
+    """One layer's ``{"k", "v", "pos"}`` views of the cache per decoder
+    layer, in execution order (``_blocks``'s)."""
+    names = ("k", "v", "pos")
+    if cfg.family == "vlm":
+        s, cs = cache["self"], cache["cross_self"]
+        for g in range(s["k"].shape[0]):
+            for i in range(s["k"].shape[1]):
+                yield {n: s[n][g, i] for n in names}
+            yield {n: cs[n][g] for n in names}
+        return
+    c = cache["self"] if cfg.family == "encdec" else cache
+    for li in range(c["k"].shape[0]):
+        yield {n: c[n][li] for n in names}
+
+
+def _cross_caches(cache):
+    for li in range(cache["cross_k"].shape[0]):
+        yield cache["cross_k"][li], cache["cross_v"][li]
+
+
+def _self_len(cache, cfg: ModelConfig) -> int:
+    return next(_self_caches(cache, cfg))["k"].shape[1]
+
+
+def lm_prefill(params, batch, cfg: ModelConfig, s_max: int | None = None):
+    """Full-context prefill: returns (last-token logits (B, V), populated
+    cache).  ``s_max`` pads the cache with empty (pos = -1) slots up to
+    ``s_max`` so decode steps can append new tokens."""
+    if cfg.attn_window:
+        raise NotImplementedError(WINDOWED)
+    tokens, positions = _prompt(params, batch["tokens"])
+    B, T = tokens.shape
+    x = _embed_in(params, tokens, positions, cfg)
+    src = _cross_source(params, batch, cfg)
+    cache = make_cache(cfg, B, max(T, s_max or 0), device=tokens.device,
+                       cross_len=None if src is None else src.shape[1])
+    crosses = _cross_caches(cache) if src is not None else None
+    for (blk, has_cross), kv in zip(_blocks(params, cfg),
+                                    _self_caches(cache, cfg)):
+        xk = xv = None
+        if has_cross:
+            xk, xv = next(crosses)
+            for dst, new in zip((xk, xv), cross_kv(src, blk["xattn"], cfg)):
+                dst.copy_(new)
+        x, (k, v) = block_apply(x, blk, cfg, positions=positions, xk=xk,
+                                xv=xv)
+        kv["k"][:, :T] = k
+        kv["v"][:, :T] = v
+        kv["pos"][:, :T] = positions
+    x = apply_norm(x[:, -1:], params["final_norm"], cfg.norm)
+    return _unembed(params, x, cfg)[:, 0], cache
+
+
+def lm_decode_step(params, cache, token, pos, cfg: ModelConfig):
+    """One serve step: new token (B,), absolute positions pos (B,) ->
+    (logits (B, V), the cache updated in place).  The valid slots of each
+    row are 0..pos-1 before the step (a prefill, then one step at each
+    position), as the reference's serving path leaves them; the paged
+    kernel reads slots 0..pos.  Raises on a position outside the cache
+    (IndexError: the reference writes nothing there and returns logits
+    without the token, ROADMAP Queue 3 item 6) and on one that is not its
+    row's count of valid slots (ValueError: past it, the kernel would
+    read never-written slots that the reference masks out)."""
+    if cfg.attn_window:
+        raise NotImplementedError(WINDOWED)
+    dev = _device(params)
+    pos = torch.as_tensor(pos, device=dev).long()
+    S = _self_len(cache, cfg)
+    filled = (next(_self_caches(cache, cfg))["pos"] >= 0).sum(dim=-1)
+    want, have = torch.stack([pos, filled]).tolist()     # one read a step
+    if min(want) < 0 or max(want) >= S:
+        raise IndexError(f"decode at positions {min(want)}..{max(want)} "
+                         f"of a cache of {S} slots")
+    if want != have:
+        raise ValueError(f"decode at positions {want} over rows holding "
+                         f"{have} tokens: each row's step goes in the slot "
+                         f"after its last")
+    token = torch.as_tensor(token, device=dev).long()
+    B = token.shape[0]
+    positions = pos[:, None]
+    x = _embed_in(params, token[:, None], positions, cfg)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    # the pages' tables and lengths once a step, on the device
+    slot = (torch.arange(B, device=dev), pos)
+    pages = decode_pages(pos + 1, S, n_rep)
+    crosses = xpages = None
+    if cfg.family in ("encdec", "vlm"):
+        crosses = _cross_caches(cache)
+        S_x = cache["cross_k"].shape[2]
+        xpages = decode_pages(torch.full((B,), S_x, device=dev), S_x, n_rep)
+    for (blk, has_cross), kv in zip(_blocks(params, cfg),
+                                    _self_caches(cache, cfg)):
+        xk, xv = next(crosses) if has_cross else (None, None)
+        x, _ = block_apply(x, blk, cfg, positions=positions, cache=kv,
+                           slot=slot, pages=pages, xk=xk, xv=xv,
+                           xpages=xpages if has_cross else None)
+    x = apply_norm(x, params["final_norm"], cfg.norm)
+    return _unembed(params, x, cfg)[:, 0], cache
+
+
+# ====================================================== JAX -> port params
 def _leaf(a, device) -> torch.Tensor:
     """One numpy leaf -> tensor.  bf16 (which numpy holds as ml_dtypes'
     type) goes through f32, which holds every bf16 value exactly."""
@@ -52,22 +400,31 @@ def _leaf(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def _tree(x, device):
+def _tree(x, device, index=()):
+    """A pytree of numpy leaves -> tensors, each leaf taken at ``index``
+    (the stacked layer axes)."""
     if isinstance(x, dict):
-        return {k: _tree(v, device) for k, v in x.items()}
-    return _leaf(x, device)
+        return {k: _tree(v, device, index) for k, v in x.items()}
+    return _leaf(np.asarray(x)[index], device)
 
 
 def params_from_jax(np_tree: dict, cfg: ModelConfig, device="cuda") -> dict:
-    """The JAX param pytree of a dense LM (leaves as numpy arrays,
-    ``blocks`` stacked on the layer axis) -> the port's parameters."""
-    out = {k: _tree(v, device) for k, v in np_tree.items() if k != "blocks"}
-    stacked = np_tree["blocks"]
-
-    def layer(x, i):
-        if isinstance(x, dict):
-            return {k: layer(v, i) for k, v in x.items()}
-        return _leaf(np.asarray(x)[i], device)
-
-    out["blocks"] = [layer(stacked, i) for i in range(cfg.n_layers)]
+    """The JAX param pytree (leaves as numpy arrays, layers stacked on
+    leading axes: ``blocks``, ``enc_blocks`` and ``dec_blocks`` on axis 0,
+    ``groups`` on (G, inner) for ``self`` and G for ``cross``) -> the
+    port's parameters, exactly."""
+    n_layers = {"blocks": cfg.n_layers, "dec_blocks": cfg.n_layers,
+                "enc_blocks": cfg.enc_layers}
+    out = {}
+    for key, sub in np_tree.items():
+        if key in n_layers:
+            out[key] = [_tree(sub, device, (i,))
+                        for i in range(n_layers[key])]
+        elif key == "groups":
+            out[key] = [{"self": [_tree(sub["self"], device, (g, i))
+                                  for i in range(cfg.cross_every - 1)],
+                         "cross": _tree(sub["cross"], device, (g,))}
+                        for g in range(cfg.n_layers // cfg.cross_every)]
+        else:
+            out[key] = _tree(sub, device)
     return out

@@ -32,7 +32,8 @@ import torch
 from repro_torch.core.metrics import Metrics
 from repro_torch.kernels.ops import flash_attention
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import apply_norm, mlp_apply, rope
+from repro_torch.models.layers import (apply_norm, mlp_apply, out_proj,
+                                       qkv_proj, rope)
 from .kvcache import PagedCacheConfig, PagedKVCache
 
 
@@ -63,24 +64,17 @@ class PagedLM:
 
     def _qkv(self, x, blk, positions):
         """x: (B, T, D) -> rotated q (B, T, H, hd), k, v (B, T, Hkv, hd)."""
-        cfg, a = self.cfg, blk["attn"]
-        B, T, _ = x.shape
-        xn = apply_norm(x, blk["ln1"], cfg.norm)
-        q = (xn @ a["wq"]).reshape(B, T, cfg.n_heads, cfg.hd)
-        k = (xn @ a["wk"]).reshape(B, T, cfg.n_kv_heads, cfg.hd)
-        v = (xn @ a["wv"]).reshape(B, T, cfg.n_kv_heads, cfg.hd)
-        if "bq" in a:
-            q = q + a["bq"].reshape(1, 1, cfg.n_heads, cfg.hd)
-            k = k + a["bk"].reshape(1, 1, cfg.n_kv_heads, cfg.hd)
-            v = v + a["bv"].reshape(1, 1, cfg.n_kv_heads, cfg.hd)
+        cfg = self.cfg
+        q, k, v = qkv_proj(apply_norm(x, blk["ln1"], cfg.norm), blk["attn"],
+                           cfg.n_heads, cfg.n_kv_heads, cfg.hd)
         if cfg.pos == "rope":
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
         return q, k, v
 
     def _finish_block(self, x, a, blk):
-        """Output projection of attention ``a`` (B, T, H*hd), then the MLP."""
-        x = x + a @ blk["attn"]["wo"]
+        """Output projection of attention ``a`` (B, T, H, hd), then the MLP."""
+        x = x + out_proj(a, blk["attn"])
         h = apply_norm(x, blk["ln2"], self.cfg.norm)
         return x + mlp_apply(h, blk["mlp"], self.cfg.act)
 
@@ -106,7 +100,7 @@ class PagedLM:
             # causal attention over the prompt (the flash kernel); pages
             # are written below for the decode phase
             a = flash_attention(q, k, v, causal=True, window=cfg.attn_window)
-            x = self._finish_block(x, a.reshape(1, T, -1), blk)
+            x = self._finish_block(x, a, blk)
             ks.append(k[0])                              # (T, Hkv, hd)
             vs.append(v[0])
         self.cache.append_tokens(sid, ks, vs)            # bulk write path
@@ -136,7 +130,7 @@ class PagedLM:
                 else:
                     self.cache.overwrite_token(sid, li, (k[bi, 0], v[bi, 0]))
             a = self.cache.attention(li, q[:, 0], sids)
-            x = self._finish_block(x, a.reshape(B, 1, -1), blk)
+            x = self._finish_block(x, a[:, None], blk)
         return self._logits(x)[:, 0]
 
 

@@ -646,3 +646,123 @@ def test_engine_over_a_pool_equal_on_cuda_and_cpu(card):
         assert len(eng.cache.host) == 0
     assert got["cuda"] == got["cpu"]
     assert got["cuda"][1]["suspends"] > 0 and got["cuda"][1]["pages_in"] > 0
+
+
+# --------------------------------------------------- the model API's shapes
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,H,Hkv,hd", [
+    (2, 64, 1500, 20, 20, 64),             # whisper cross-attention
+    (2, 128, 1600, 32, 8, 128),            # llama-3.2-vision cross-attention
+])
+def test_flash_attention_non_causal_t_ne_s(card, B, T, S, H, Hkv, hd, dtype):
+    """Cross-attention over frames or patches: non-causal, T != S."""
+    q, k, v = _qkv(card, B, T, S, H, Hkv, hd, dtype, seed=7)
+    got = flash_attention_cuda(q, k, v, causal=False)
+    exp = flash_attention_plain(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), exp.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert_rows_close(got, exp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,Hkv,hd,lens", [
+    (2, 1500, 20, 20, 64, [1500, 1499]),   # whisper cross: page 4
+    (4, 136, 64, 4, 64, [136, 133, 129, 1]),    # qwen3-moe: n_rep 16, page 8
+    (3, 144, 16, 16, 128, [144, 65, 2]),   # moonshot self: page 16
+])
+def test_decode_attention_over_a_contiguous_cache(card, B, S, H, Hkv, hd,
+                                                  lens, dtype):
+    """``layers.decode_attention`` launches the paged kernel once over the
+    cache viewed as pages (n_rep 16 as two rows of 8), and agrees with the
+    plain version at the full n_rep, poison past every length."""
+    from repro_torch.models.layers import (contiguous_page, decode_attention,
+                                           decode_pages)
+    g = torch.Generator(device=card).manual_seed(8)
+    q = torch.randn((B, 1, H, hd), generator=g, device=card).to(dtype)
+    k = torch.randn((B, S, Hkv, hd), generator=g, device=card)
+    v = torch.randn((B, S, Hkv, hd), generator=g, device=card)
+    for b, n in enumerate(lens):
+        k[b, n:], v[b, n:] = 99.0, -99.0
+    k, v = k.to(dtype), v.to(dtype)
+    n_lens = torch.tensor(lens, dtype=torch.int32, device=card)
+    pages = decode_pages(n_lens, S, H // Hkv)
+    assert pages.page == contiguous_page(S)
+    before = _build.launch_counts().get("paged_attention", 0)
+    got = decode_attention(q, k, v, pages)[:, 0]
+    assert _build.launch_counts()["paged_attention"] == before + 1
+    page = pages.page
+    table = torch.arange(B * S // page, dtype=torch.int32,
+                         device=card).view(B, -1)
+    exp = paged_attention_plain(q[:, 0], k.view(-1, page, Hkv, hd),
+                                v.view(-1, page, Hkv, hd), table, n_lens)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), exp.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert_rows_close(got, exp)
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b",
+                                  "qwen3-moe-235b-a22b", "whisper-large-v3",
+                                  "llama-3.2-vision-11b"])
+def test_model_api_equal_on_cuda_and_cpu(card, arch):
+    """SMOKE f32 (TF32 off), every xgate 0.5: prefill and 8 greedy decode
+    steps through ``build_model`` on the card and the CPU from the same
+    weights: tokens equal, logits and the cache within ROW_TOL, and on
+    the card one flash launch a prefill attention layer and one paged
+    launch a decode attention layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch, smoke=True, dtype=torch.float32)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    for blk in (params.get("dec_blocks", [])
+                + [g["cross"] for g in params.get("groups", [])]):
+        blk["xgate"].fill_(0.5)
+    rng = np.random.default_rng(3)
+    B, T, steps = 2, 10, 8
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (B, T)))}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.as_tensor(rng.standard_normal(
+            (B, cfg.enc_seq, cfg.d_model)), dtype=torch.float32)
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.as_tensor(rng.standard_normal(
+            (B, cfg.n_img_tokens, cfg.d_model)), dtype=torch.float32)
+    n_attn = cfg.n_layers + {"encdec": cfg.n_layers,
+                             "vlm": cfg.n_layers // max(cfg.cross_every, 1)
+                             }.get(cfg.family, 0)
+    n_flash = n_attn + (cfg.enc_layers if cfg.family == "encdec" else 0)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        p, b = _to(params, dev), _to(batch, dev)
+        _build.reset_launch_counts()
+        logits, cache = model.prefill(p, b, s_max=T + steps)
+        out = [logits]
+        for i in range(steps):
+            logits, cache = model.decode_step(p, cache, out[-1].argmax(-1),
+                                              np.full(B, T + i))
+            out.append(logits)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            n = _build.launch_counts()
+            assert n.get("flash_attention", 0) == n_flash
+            assert n.get("paged_attention", 0) == steps * n_attn
+        got[dev] = ([o.cpu() for o in out], _to(cache, "cpu"))
+    for a, c in zip(got["cuda"][0], got["cpu"][0]):
+        assert torch.equal(a.argmax(-1), c.argmax(-1))
+        d = (a - c).norm(dim=-1)
+        assert (d <= ROW_TOL[torch.float32] * c.norm(dim=-1)).all()
+
+    def leaves(t):
+        return [x for v in t.values() for x in leaves(v)] \
+            if isinstance(t, dict) else [t]
+    for a, c in zip(leaves(got["cuda"][1]), leaves(got["cpu"][1])):
+        if a.dtype == torch.int32:
+            assert torch.equal(a, c)
+        else:
+            d = (a - c).norm(dim=-1)
+            assert (d <= ROW_TOL[torch.float32] * c.norm(dim=-1)
+                    + 1e-30).all()

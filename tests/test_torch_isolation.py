@@ -41,6 +41,9 @@ def test_every_port_module_imports_without_jax_or_repro():
     assert "repro_torch.volume.evict_pool" in mods
     assert "repro_torch.volume.volume" in mods
     assert "repro_torch.serve.kvpager" in mods
+    for m in ("models.api", "configs.moonshot_16b", "configs.qwen3_moe_235b",
+              "configs.whisper_large_v3", "configs.llama32_vision_11b"):
+        assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -106,13 +109,27 @@ def test_no_import_of_jax_or_the_jax_package_at_any_depth(case):
 
 
 def test_entry_points_default_to_the_card():
+    import torch
+    from repro_torch.configs import get_config
     from repro_torch.launch.serve import build_parser
+    from repro_torch.models.api import build_model
     from repro_torch.models.layers import init_norm
-    from repro_torch.models.transformer import params_from_jax
+    from repro_torch.models.transformer import make_cache, params_from_jax
     from repro_torch.serve import PagedKVCache, ServeEngine
-    for fn in (PagedKVCache, ServeEngine, params_from_jax, init_norm):
+    for fn in (PagedKVCache, ServeEngine, params_from_jax, init_norm,
+               make_cache):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert build_parser().parse_args([]).device == "cuda"
+    model = build_model(get_config("moonshot-v1-16b-a3b", smoke=True))
+    assert inspect.signature(model.make_cache).parameters[
+        "device"].default == "cuda"
+    # init with no generator draws from seed 0 on the card: there, or a
+    # refusal where there is none
+    if torch.cuda.is_available():
+        assert model.init()["embed"].is_cuda
+    else:
+        with pytest.raises(RuntimeError):
+            model.init()
 
 
 def _sdpa_outside_timer(source: str) -> list[int]:
