@@ -27,16 +27,20 @@ Phases, each ending in ``torch.cuda.synchronize()``:
             the prefill shapes (and the model API's, ``model_shapes``
             from ``MODEL_RUNS``: each phase's prompt, non-causal with
             T != S, 128 x 1600 at 32:8 and 64 x 1500 at 20:20 hd 64, the
-            whisper encoder's T = S = 1500, n_rep 16), every bf16 case on
-            the tensor-core kernel and every f32 one on the SIMT kernel,
-            and its gradient equal to the plain one; the model API's
+            whisper encoder's T = S = 1500, n_rep 16, recurrentgemma's
+            2 x 2176 at 16:1 of hd 256 with a 2048-token window, in bf16
+            and f32), every bf16 case on the tensor-core kernel and every
+            f32 one on the SIMT kernel, and its gradient equal to the
+            plain one (hd 128, and hd 256 windowed); the model API's
             decode attention (``model_shapes``: one paged launch over a
             contiguous cache viewed as pages of 4, 8 or 16, n_rep 16 as
-            two rows of 8) against the plain version at the full n_rep;
-            then each path kernel timed beside its plain version, its bound
-            and, where one PyTorch call computes the same function, that
-            call (``library_ms``), the codec at ``CODEC_TIMED``'s unit
-            counts;
+            two rows of 8, recurrentgemma's 2048-slot ring part-filled and
+            full) against the plain version at the full n_rep; then each
+            path kernel timed beside its plain version, its bound and,
+            where one PyTorch call computes the same function, that call
+            (``library_ms``: fused attention for flash, and for decode
+            over a contiguous cache the same call with a length mask),
+            the codec at ``CODEC_TIMED``'s unit counts;
 3. serve  — qwen2.5-3b FULL (36 layers, d_model 2048, vocab 151936) in bf16
             with random weights from a seeded generator: 4 requests of 128
             prompt tokens and 16 new tokens, one of them suspended and
@@ -108,17 +112,30 @@ Phases, each ending in ``torch.cuda.synchronize()``:
 13. qwen3-moe — qwen3-moe-235b-a22b at full width cut to 4 of its 94
             layers (22.1 GB; printed as ``reduced``): 4 x (128 + 8), the
             attention kernels at n_rep 16;
-14. model parity — the model API at SMOKE in f32 (TF32 off) for
-            ``MODEL_PARITY`` (moonshot, qwen3-moe, whisper, llama-vision),
-            card against CPU: forward, prefill logits and cache, 8 greedy
-            decode steps within ``ROW_TOL["f32"]``, tokens equal.
+14. recurrentgemma — recurrentgemma-9b FULL (38 layers: 12 x (rec, rec,
+            attn) + 2 rec, d_model 4096, 16:1 heads of 256, d_ff 12288,
+            vocab 256000, window 2048; 10.4 B parameters, 20.9 GB): 2 x
+            (2176 + 16), prompts past the window, then 2 x (128 + 16), the
+            ring part-filled; 12 flash launches a prefill, 12 paged a step,
+            the ring's positions checked;
+15. xlstm  — xlstm-1.3b FULL (48 blocks: 6 x (7 mLSTM + 1 sLSTM), d_model
+            2048, 4 heads of 512, vocab 50304; 1.17 B parameters): 4 x
+            (256 + 16), the chunkwise mLSTM in 2 chunks of 128; no
+            attention kernel runs, and the step's bound counts the mLSTM
+            state read and written;
+16. model parity — the model API at SMOKE in f32 (TF32 off) for
+            ``MODEL_PARITY`` (moonshot, qwen3-moe, whisper, llama-vision,
+            xlstm, recurrentgemma at prompts of 40 and of 8 decoded past
+            its 32-slot ring), card against CPU: forward, prefill logits
+            and cache or state, the greedy decode steps within
+            ``ROW_TOL["f32"]``, tokens equal.
 
-In phases 10-14 every self-attention over a prompt and every
+In phases 10-16 every self-attention over a prompt and every
 cross-attention runs the flash kernel (one launch a layer), every decode
 attention the paged kernel (one launch a layer and step); the counts are
 checked.
 
-Launch counts are zeroed just before each of phases 3-9 drives the path
+Launch counts are zeroed just before each of phases 3-16 drives the path
 and read just after (with an eviction pool, after its work has drained);
 every bf16 prefill layer must run the tensor-core
 flash kernel, every f32 one the SIMT kernel; the spill kernel launches
@@ -164,16 +181,24 @@ QWEN, PHI3 = "qwen2.5-3b", "phi3-mini-3.8b"
 INTERNLM2, DEEPSEEK = "internlm2-1.8b", "deepseek-coder-33b"
 MOONSHOT, QWEN3_MOE = "moonshot-v1-16b-a3b", "qwen3-moe-235b-a22b"
 WHISPER, VISION = "whisper-large-v3", "llama-3.2-vision-11b"
-# The model API's full-width phases 10-13: (label, arch, B prompts of T
-# tokens, decode steps, config overrides, the cut printed as ``reduced``).
-# The kernel checks and timings at the model API's shapes are derived from
-# these (``model_shapes``), so they are the shapes the phases serve.
+RGEMMA, XLSTM = "recurrentgemma-9b", "xlstm-1.3b"
+# The model API's full-width phases 10-13 and 15-16: (label, arch, B
+# prompts of T tokens, decode steps, config overrides, the cut printed as
+# ``reduced``).  The kernel checks and timings at the model API's shapes
+# are derived from these (``model_shapes``), so they are the shapes the
+# phases serve.  recurrentgemma's first prompts pass its 2048-token window
+# (the flash window masks, the ring is full from the prefill), its second
+# leave the ring part-filled; xlstm's 256 tokens run the chunkwise mLSTM
+# as 2 chunks of 128.
 MODEL_RUNS = [
     ("moonshot", MOONSHOT, 4, 128, 16, {}, None),
     ("vlm", VISION, 2, 128, 16, {}, None),
     ("whisper", WHISPER, 2, 64, 16, {}, None),
     ("qwen3-moe", QWEN3_MOE, 4, 128, 8, {"n_layers": 4},
      "depth 94 -> 4 layers: 463 GB at full depth, 22.1 GB cut"),
+    ("recurrentgemma", RGEMMA, 2, 2176, 16, {}, None),
+    ("recurrentgemma-part", RGEMMA, 2, 128, 16, {}, None),
+    ("xlstm", XLSTM, 4, 256, 16, {}, None),
 ]
 
 # name -> (kernel source, TPU kernel it replaces).  Flash attention has two
@@ -366,6 +391,7 @@ def check_paged_attention(torch, rng, results) -> None:
         ("qwen-long", 2, 16, 2, 128, 16, 512, 256, [1004, 4004]),
         ("deepseek-full-nrep7", 2, 56, 8, 128, 16, 32, 9, [136, 129]),
         ("deepseek-smoke-hd8", 2, 7, 1, 8, 16, 16, 4, [64, 17]),
+        ("recurrentgemma-ring", 2, 8, 1, 256, 16, 260, 128, [2048, 700]),
     ]
     worst = worst_row = 0.0
     for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
@@ -399,29 +425,37 @@ def check_paged_attention(torch, rng, results) -> None:
 
 def model_shapes() -> tuple[list, list]:
     """The attention kernels' inputs in the ``MODEL_RUNS`` phases, from
-    their configs: flash (label, B, T, S, H, Hkv, hd, causal) for each
-    prompt's self-attention (causal), whisper's encoder and every
-    cross-attention (non-causal, T != S); paged (label, B, S, H, Hkv, hd,
-    lens) for decode self-attention in the ``s_max = T + steps`` cache,
-    the lengths spread over the steps' pos + 1 (T + 1 .. s_max), and
-    cross-attention over every frame or patch.  The page is the cache's
-    (``layers.contiguous_page``): 16 for 144 slots, 8 for 136, 4 for 1500
-    frames; n_rep 16 (qwen3-moe) runs as two rows of 8."""
+    their configs: flash (label, B, T, S, H, Hkv, hd, causal, window) for
+    each prompt's self-attention (causal; recurrentgemma's with its
+    2048-token window), whisper's encoder and every cross-attention
+    (non-causal, T != S); paged (label, B, S, H, Hkv, hd, lens) for decode
+    self-attention in the ``s_max = T + steps`` cache, the lengths spread
+    over the steps' pos + 1 (T + 1 .. s_max), and cross-attention over
+    every frame or patch; recurrentgemma's ring always has S = W slots,
+    with lengths min(pos + 1, W).  The page is the cache's
+    (``layers.contiguous_page``): 16 for 144 slots and the 2048-slot ring,
+    8 for 136, 4 for 1500 frames; n_rep 16 (qwen3-moe, recurrentgemma)
+    runs as two rows of 8.  xlstm has no attention."""
     from repro_torch.configs import get_config
     flash, paged = [], []
     for label, arch, B, T, steps, _, _ in MODEL_RUNS:
         cfg = get_config(arch)
+        if cfg.family == "ssm":
+            continue
         heads = (cfg.n_heads, cfg.n_kv_heads, cfg.hd)
-        S = T + steps
-        flash.append((f"{label}-self-T{T}", B, T, T, *heads, True))
+        W = cfg.attn_window if cfg.family == "hybrid" else 0
+        S = W or T + steps
+        flash.append((f"{label}-self-T{T}" + (f"-w{W}" if W else ""), B, T,
+                      T, *heads, True, W))
         paged.append((f"{label}-self-S{S}", B, S, *heads,
-                      [T + 1 + (steps - 1) * b // max(B - 1, 1)
+                      [min(T + 1 + (steps - 1) * b // max(B - 1, 1), S)
                        for b in range(B)]))
         n = {"encdec": cfg.enc_seq, "vlm": cfg.n_img_tokens}.get(cfg.family)
         if n is not None:
             if cfg.family == "encdec":
-                flash.append((f"{label}-enc-{n}", B, n, n, *heads, False))
-            flash.append((f"{label}-cross-{T}x{n}", B, T, n, *heads, False))
+                flash.append((f"{label}-enc-{n}", B, n, n, *heads, False, 0))
+            flash.append((f"{label}-cross-{T}x{n}", B, T, n, *heads, False,
+                          0))
             paged.append((f"{label}-cross-{n}", B, n, *heads, [n] * B))
     return flash, paged
 
@@ -603,11 +637,12 @@ FLASH_CASES = [  # (label, B, T, S, H, Hkv, hd, causal, window, dtypes)
 def flash_cases() -> list:
     """``FLASH_CASES`` and the model API's prefill shapes
     (``model_shapes``): bf16, the served type, and the cross-attention
-    (T != S) in f32 too."""
+    (T != S) and head width 256 (recurrentgemma, on the SIMT kernel) in
+    f32 too."""
     return FLASH_CASES + [
-        (label, B, T, S, H, Hkv, hd, causal, 0,
-         ("bf16",) if T == S else ("f32", "bf16"))
-        for label, B, T, S, H, Hkv, hd, causal in model_shapes()[0]]
+        (label, B, T, S, H, Hkv, hd, causal, window,
+         ("bf16",) if T == S and hd <= 128 else ("f32", "bf16"))
+        for label, B, T, S, H, Hkv, hd, causal, window in model_shapes()[0]]
 
 
 def flash_case(torch, rng, B, T, S, H, Hkv, hd, dtype):
@@ -652,43 +687,65 @@ def check_flash_attention(torch, rng, results) -> None:
                 f"{float(err.max()):.3g}, max row rel err {row:.3g}")
             del q, k, v, got, exp, err
     # the gradient: forward on the kernel, backward by recompute through
-    # the plain version, against autograd through the plain version alone
-    q, k, v = flash_case(torch, rng, 1, 128, 128, 16, 2, 128, torch.float32)
-    dout = torch.randn_like(q)
-    grads = []
-    for fn in (ops.flash_attention, flash_attention_plain):
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        fn(*leaves, causal=True, window=0).backward(dout)
-        grads.append([t.grad for t in leaves])
-    torch.cuda.synchronize()
-    for name, got, exp in zip("qkv", *grads):
-        err = (got - exp).abs()
-        check(bool(torch.isfinite(got).all())
-              and bool((err <= 2e-5 + 2e-5 * exp.abs()).all()),
-              f"flash_attention d{name}: max err {float(err.max()):.3g}")
-    log("flash_attention gradient (q, k, v) on the card equals the plain "
-        "version's, finite")
+    # the plain version, against autograd through the plain version alone;
+    # at hd 128 and at recurrentgemma's hd 256 with 16:1 heads and a window
+    for shape, window in (((1, 128, 128, 16, 2, 128), 0),
+                          ((1, 256, 256, 16, 1, 256), 128)):
+        q, k, v = flash_case(torch, rng, *shape, torch.float32)
+        dout = torch.randn_like(q)
+        grads = []
+        for fn in (ops.flash_attention, flash_attention_plain):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            fn(*leaves, causal=True, window=window).backward(dout)
+            grads.append([t.grad for t in leaves])
+        torch.cuda.synchronize()
+        for name, got, exp in zip("qkv", *grads):
+            err = (got - exp).abs()
+            check(bool(torch.isfinite(got).all())
+                  and bool((err <= 2e-5 + 2e-5 * exp.abs()).all()),
+                  f"flash_attention d{name} {shape}: max err "
+                  f"{float(err.max()):.3g}")
+        log(f"flash_attention gradient (q, k, v) at {shape}, window "
+            f"{window}, on the card equals the plain version's, finite")
     for name, err in worst.items():
         results[name] = {"max_abs_err": err,
                          "max_row_rel_err": worst_row[name]}
 
 
-def library_attention_ms(torch, q, k, v, iters: int,
-                         causal: bool = True) -> tuple[float, str]:
-    """``library_ms`` of flash attention: one call of PyTorch's fused
+def library_ms(torch, fn, iters: int) -> tuple[float, str]:
+    """Device time per call of a PyTorch call, or the CUDA-event time
+    where the profiler could not give it; and which of the two."""
+    dev = device_ms(fn, iters)
+    return (dev, "profiler") if dev is not None else (time_ms(fn, iters),
+                                                      "events")
+
+
+def library_attention_ms(torch, q, k, v, iters: int, causal: bool = True,
+                         window: int = 0, lens=None) -> tuple:
+    """``library_ms`` of an attention kernel: one call of PyTorch's fused
     attention on the same inputs (heads moved to dim 1 as it wants them,
-    causal or not, GQA), device time per call, or the CUDA-event time
-    where the profiler could not give it; and which of the two.  Timed
-    here only: the port never calls it."""
+    GQA): flash attention's, causal or not, a window as a boolean mask; or,
+    with ``lens`` (B,), decode attention's over a contiguous cache, q (B,
+    1, H, hd), row b's keys 0..lens[b]-1 as a mask.  Timed here only: the
+    port never calls it.  Returns (ms, where ms came from, the output of
+    one call)."""
     import torch.nn.functional as F
+    mask = None
+    if lens is not None:
+        mask = (torch.arange(k.shape[1], device=q.device)[None, :]
+                < lens[:, None])[:, None, None, :]        # (B, 1, 1, S)
+        causal = False
+    elif window:
+        qp = torch.arange(q.shape[1], device=q.device)[:, None]
+        kp = torch.arange(k.shape[1], device=q.device)[None, :]
+        mask = (kp <= qp) & (qp - kp < window)
 
     def fn():
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=causal, enable_gqa=True)
-    dev = device_ms(fn, iters)
-    return (dev, "profiler") if dev is not None else (time_ms(fn, iters),
-                                                      "events")
+            attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+    return (*library_ms(torch, fn, iters), fn().transpose(1, 2))
 
 
 def flash_pairs(T: int, S: int, causal: bool, window: int) -> int:
@@ -702,11 +759,11 @@ def flash_pairs(T: int, S: int, causal: bool, window: int) -> int:
 
 def time_flash(torch, rng, label, B, T, H, Hkv, hd, iters,
                dtype: str = "bf16", S: int | None = None,
-               causal: bool = True) -> tuple[str, dict]:
+               causal: bool = True, window: int = 0) -> tuple[str, dict]:
     """The flash kernel of the wrapper's route (bf16 here: tensor cores;
     f32: SIMT), its plain version and the library call at one prefill
-    shape (S = T unless given; causal unless not), beside the bound; with
-    the kernel's name."""
+    shape (S = T unless given; causal unless not; a window if given),
+    beside the bound; with the kernel's name."""
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain,
                                                      flash_route)
@@ -714,19 +771,20 @@ def time_flash(torch, rng, label, B, T, H, Hkv, hd, iters,
     tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
     q, k, v = flash_case(torch, rng, B, T, S, H, Hkv, hd, tdt)
     n_bytes = q.element_size() * (2 * B * T * H * hd + 2 * B * S * Hkv * hd)
-    n_ops = 4 * hd * H * B * flash_pairs(T, S, causal, 0)
+    n_ops = 4 * hd * H * B * flash_pairs(T, S, causal, window)
     b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S if dtype == "bf16"
                        else F32_OPS_PER_S)
-    lib_ms, lib_from = library_attention_ms(torch, q, k, v, iters, causal)
+    lib_ms, lib_from, _ = library_attention_ms(torch, q, k, v, iters, causal,
+                                               window)
     name = "flash_attention_tc" if flash_route(tdt, hd, S) == "tc" \
         else "flash_attention"
     r = dict(kernel_times(
-        lambda: flash_attention_cuda(q, k, v, causal=causal),
-        lambda: flash_attention_plain(q, k, v, causal=causal), iters,
-        f"{name}_kernel"),
+        lambda: flash_attention_cuda(q, k, v, causal=causal, window=window),
+        lambda: flash_attention_plain(q, k, v, causal=causal, window=window),
+        iters, f"{name}_kernel"),
              label=label, shape=[B, T, H, Hkv, hd], S=S, causal=causal,
-             dtype=dtype, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-             library_ms_from=lib_from)
+             window=window, dtype=dtype, bound_ms=b_ms, bound_by=b_by,
+             library_ms=lib_ms, library_ms_from=lib_from)
     log(f"time {name} {label}/{dtype}: kernel {r['ms']:.5f} ms "
         f"({r['ms_from']}), plain {r['plain_ms']:.5f} ms "
         f"({r['plain_ms_from']}), library {lib_ms:.5f} ms ({lib_from}); "
@@ -766,12 +824,22 @@ def time_paged_contiguous(torch, rng, label, B, S, H, Hkv, hd, lens,
     """The model API's decode attention at one bf16 shape: the kernel on
     the inputs ``layers.decode_attention`` gives it (a contiguous cache
     viewed as pages; n_rep above 8 as rows of 8) and the plain version at
-    the full n_rep, beside the bound of ``time_paged``."""
+    the full n_rep, beside the bound of ``time_paged``; and, as
+    ``library_ms``, PyTorch's fused attention over the contiguous cache
+    with each row's length as a mask and GQA, which computes the same
+    function (checked against the plain version)."""
     from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                      paged_attention_plain)
     from repro_torch.models.layers import paged_view
     q, k, v, pages, plain = contiguous_case(torch, rng, B, S, H, Hkv, hd,
                                             lens, torch.bfloat16)
+    lib_ms, lib_from, got = library_attention_ms(torch, q, k, v, iters,
+                                                 lens=plain[4])
+    exp = paged_attention_plain(*plain)
+    check(bool((got[:, 0].float() - exp.float()).abs().le(
+        TOL["bf16"] + TOL["bf16"] * exp.float().abs()).all()),
+        f"paged_attention {label}: the library call computes another "
+        f"function")
     # the kernel on the inputs decode_attention gives it (n_rep 16: two
     # rows of 8 a sequence)
     args = (*paged_view(q, k, v, pages), pages.table, pages.lens)
@@ -785,11 +853,12 @@ def time_paged_contiguous(torch, rng, label, B, S, H, Hkv, hd, lens,
                             "paged_attention"),
                label=label, shape=[B, H, Hkv, hd, pages.page, S, list(lens)],
                rows_per_sequence=pages.split, dtype="bf16", bound_ms=b_ms,
-               bound_by=b_by)
+               bound_by=b_by, library_ms=lib_ms, library_ms_from=lib_from)
     log(f"time paged_attention {label} (contiguous, page {pages.page}, "
         f"{pages.split} row(s) a sequence): kernel {out['ms']:.5f} ms "
-        f"({out['ms_from']}), plain {out['plain_ms']:.5f} ms; per call "
-        f"{out['call_ms']:.5f} ms; bound {b_ms:.6f} ms ({b_by})")
+        f"({out['ms_from']}), plain {out['plain_ms']:.5f} ms, library "
+        f"{lib_ms:.5f} ms ({lib_from}); per call {out['call_ms']:.5f} ms; "
+        f"bound {b_ms:.6f} ms ({b_by})")
     return out
 
 
@@ -883,11 +952,15 @@ def time_kernels(torch, rng, results) -> None:
                         200),
              time_flash(torch, rng, "deepseek-T128", 1, 128, 56, 8, 128, 200),
              time_flash(torch, rng, "qwen-T128", 1, 128, 16, 2, 128, 200,
-                        dtype="f32")]
+                        dtype="f32"),
+             time_flash(torch, rng, "recurrentgemma-T2176-w2048", 2, 2176,
+                        16, 1, 256, 8, dtype="f32", window=2048)]
     model_flash, model_paged = model_shapes()
     flash += [time_flash(torch, rng, label, B_, T, H_, Hkv_, hd_,
-                         50 if T >= 1000 else 100, S=S, causal=causal)
-              for label, B_, T, S, H_, Hkv_, hd_, causal in model_flash]
+                         50 if T >= 1000 else 100, S=S, causal=causal,
+                         window=window)
+              for label, B_, T, S, H_, Hkv_, hd_, causal, window
+              in model_flash]
     for name in ("flash_attention_tc", "flash_attention"):
         shapes = [r for n, r in flash if n == name]
         results[name].update({k: shapes[0][k] for k in (*keys, "library_ms")},
@@ -1801,14 +1874,18 @@ def serve_deepseek(torch, np) -> dict:
 # ------------------------------------------------------- phases 10-14
 def attention_layers(cfg) -> tuple[int, int, int]:
     """(decoder self-attention, cross-attention, encoder) layers of a
-    transformer config: a prefill launches flash attention once for each
-    of the three, a decode step paged attention once for each of the
-    first two."""
+    config: a prefill launches flash attention once for each of the three,
+    a decode step paged attention once for each of the first two.
+    recurrentgemma's attention layers are its ``attn`` kinds (12 of 38);
+    xlstm has none."""
     if cfg.family == "encdec":
         return cfg.n_layers, cfg.n_layers, cfg.enc_layers
     if cfg.family == "vlm":
         return cfg.n_layers, cfg.n_layers // cfg.cross_every, 0
-    return cfg.n_layers, 0, 0
+    if cfg.family == "ssm":
+        return 0, 0, 0
+    return sum(cfg._layer_kind(i) == "attn" for i in range(cfg.n_layers)), \
+        0, 0
 
 
 def set_xgate(params, value: float) -> int:
@@ -1816,7 +1893,7 @@ def set_xgate(params, value: float) -> int:
     reference initialises them to 0, and tanh(0) = 0 multiplies the
     cross-attention away."""
     blocks = params.get("dec_blocks", []) + [
-        g["cross"] for g in params.get("groups", [])]
+        g["cross"] for g in params.get("groups", []) if "cross" in g]
     for blk in blocks:
         blk["xgate"].fill_(value)
     return len(blocks)
@@ -1837,13 +1914,16 @@ def model_batch(torch, cfg, B: int, T: int, device, seed: int = 0) -> dict:
     return batch
 
 
-def decode_step_work(cfg, params, B: int, self_len: float,
-                     cross_len: int) -> tuple[float, float]:
+def decode_step_work(cfg, params, B: int, self_len: float, cross_len: int,
+                     state=None) -> tuple[float, float]:
     """(bytes, operations) one decode step needs at batch B: every weight
     it reads once (the embedding's B rows; not the encoder, nor the
     cross-attention's K/V projections, which run at prefill; each MoE
     expert's weights once, for the capacity's tokens), the cache's valid
-    K/V read once and the new token's written, the logits written."""
+    K/V read once and the new token's written, the logits written; and a
+    recurrent ``state`` (xlstm's, recurrentgemma's h and conv tails, not
+    its ring) read and written once, with 6 operations an element of the
+    mLSTM's C (its decay, outer product, add and the product with q)."""
     from repro_torch.models.layers import moe_capacity
     cap = (moe_capacity(B, cfg.moe.top_k, cfg.moe.n_experts,
                         cfg.moe.capacity_factor) if cfg.moe else B)
@@ -1874,7 +1954,18 @@ def decode_step_work(cfg, params, B: int, self_len: float,
     n_ops += 4 * B * cfg.n_heads * cfg.hd * (n_self * self_len
                                              + n_cross * cross_len)
     n_bytes += B * cfg.vocab * 4
+    for t in ([] if state is None else _leaves(state)):
+        n_bytes += 2 * t.numel() * t.element_size()
+    if state is not None and cfg.family == "ssm":
+        n_ops += 6 * state["m"]["C"].numel()
     return n_bytes, n_ops
+
+
+def ring_positions(torch, n: int, W: int):
+    """The positions a W-slot ring holds after positions 0..n-1, slot s
+    the last p with p % W == s, -1 where none has been written."""
+    s = torch.arange(W, device="cuda")
+    return torch.where(s < n, s + W * ((n - 1 - s) // W), -1)
 
 
 def serve_model(torch, np, arch: str, B: int, T: int, steps: int,
@@ -1882,13 +1973,14 @@ def serve_model(torch, np, arch: str, B: int, T: int, steps: int,
                 **overrides) -> dict:
     """``build_model(cfg)`` at full width in bf16 with random weights
     drawn on the card from seed 0 (every xgate set to 0.5): ``prefill`` of
-    B prompts of T tokens with ``s_max = T + steps``, then ``steps``
-    greedy ``decode_step``s, the last ``profiled`` of them under the
-    profiler.  Once under 1 GB is allocated (every other phase's weights
-    freed); the weights are freed at the end.  ``overrides`` cut the
-    config (``reduced`` says how, for the output)."""
+    B prompts of T tokens with ``s_max = T + steps`` (the recurrent
+    families ignore it), then ``steps`` greedy ``decode_step``s, the last
+    ``profiled`` of them under the profiler.  Once under 1 GB is allocated
+    (every other phase's weights freed); the weights are freed at the end.
+    ``overrides`` cut the config (``reduced`` says how, for the output)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_route
     from repro_torch.models.api import build_model
     before = torch.cuda.memory_allocated()
     check(before < 1e9, f"{before / 1e9:.2f} GB allocated before {arch}'s "
@@ -1924,11 +2016,12 @@ def serve_model(torch, np, arch: str, B: int, T: int, steps: int,
     prefill_s = time.perf_counter() - t0
     pre = dict(_build.launch_counts())
     n_flash = n_self + n_cross + n_enc
+    n_tc = n_flash if flash_route(cfg.dtype, cfg.hd, T) == "tc" else 0
     check(pre.get("flash_attention", 0) == n_flash
-          and pre.get("flash_attention_tc", 0) == n_flash
+          and pre.get("flash_attention_tc", 0) == n_tc
           and pre.get("paged_attention", 0) == 0,
-          f"{tag}: prefill launches {pre}, {n_flash} tensor-core flash "
-          f"launches expected")
+          f"{tag}: prefill launches {pre}, {n_flash} flash launches ({n_tc} "
+          f"tensor-core) expected")
     out_logits = [logits]
     tok = logits.argmax(-1)
     state = {"i": 0, "tok": tok, "cache": cache}
@@ -1962,15 +2055,32 @@ def serve_model(torch, np, arch: str, B: int, T: int, steps: int,
     check(all(0 <= t < cfg.vocab for row in tokens for t in row),
           f"{tag}: a token outside the vocabulary")
     # every slot of every row filled, 0..s_max-1, once prefill and decode
-    # have run
+    # have run; recurrentgemma's ring holds the last W positions, slot p %
+    # W for position p (slots past T + steps empty)
     c = state["cache"]
-    pos = (c if cfg.family not in ("encdec", "vlm") else c["self"])["pos"]
-    check(bool((pos == torch.arange(T + steps, device="cuda")).all()),
-          f"{tag}: cache positions not 0..{T + steps - 1} in every row")
-    # the profiled steps' mean count of valid slots (pos + 1)
-    mean_len = T + steps - profiled / 2.0 + 0.5
+    rec_state = None
+    if cfg.family == "hybrid":
+        pos = c["groups"]["attn"]["pos"]
+        check(bool((pos == ring_positions(torch, T + steps,
+                                          cfg.attn_window)).all()),
+              f"{tag}: ring positions are not the last {cfg.attn_window} "
+              f"of 0..{T + steps - 1}, slot p % {cfg.attn_window}")
+        rec_state = {k: v for k, v in c.items() if k != "groups"}
+        rec_state["groups"] = {k: c["groups"][k] for k in ("rec1", "rec2")}
+    elif cfg.family == "ssm":
+        rec_state = c
+    else:
+        pos = (c if cfg.family not in ("encdec", "vlm") else c["self"])["pos"]
+        check(bool((pos == torch.arange(T + steps, device="cuda")).all()),
+              f"{tag}: cache positions not 0..{T + steps - 1} in every row")
+    # the profiled steps' mean count of valid slots (pos + 1, at most W)
+    lens = [p + 1 for p in range(T + steps - profiled, T + steps)]
+    if cfg.family == "hybrid":
+        lens = [min(n, cfg.attn_window) for n in lens]
+    mean_len = sum(lens) / len(lens)
     cross_len = c["cross_k"].shape[2] if n_cross else 0
-    n_bytes, n_ops = decode_step_work(cfg, params, B, mean_len, cross_len)
+    n_bytes, n_ops = decode_step_work(cfg, params, B, mean_len, cross_len,
+                                      rec_state)
     b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
     out = {"arch": arch, "family": cfg.family, "reduced": reduced,
            "B": B, "prompt_tokens": T, "decode_steps": steps,
@@ -1983,7 +2093,9 @@ def serve_model(torch, np, arch: str, B: int, T: int, steps: int,
            "profile": prof, "decode_bound_ms": b_ms,
            "decode_bound_by": b_by, "decode_bytes": n_bytes,
            "flash_per_prefill": pre.get("flash_attention", 0),
+           "flash_tc_per_prefill": pre.get("flash_attention_tc", 0),
            "paged_per_step": dec.get("paged_attention", 0) / steps,
+           "attention_layers": n_self + n_cross + n_enc,
            "xgates_set": gates, "tokens": tokens,
            "launches": {k: pre.get(k, 0) + dec.get(k, 0)
                         for k in set(pre) | set(dec)}}
@@ -1996,32 +2108,39 @@ def serve_model(torch, np, arch: str, B: int, T: int, steps: int,
         f"{prof['device_idle_share']}, {prof['device_ops_per_step']:.0f} "
         f"device ops; bound {b_ms:.3f} ms ({b_by}: "
         f"{n_bytes / 1e9:.2f} GB); flash launches a prefill "
-        f"{out['flash_per_prefill']}, paged a step {out['paged_per_step']}")
-    del out_logits, lg, logits, cache, state, batch, weights, c, pos
+        f"{out['flash_per_prefill']}, paged a step {out['paged_per_step']}"
+        + ("" if n_self + n_cross + n_enc else
+           " (no attention layer: neither attention kernel runs here)"))
+    del out_logits, lg, logits, cache, state, batch, weights, c, rec_state
     release_weights(torch, params, arch)
     return out
 
 
-# the model API's SMOKE parity, card against CPU, one arch per family
-MODEL_PARITY = (MOONSHOT, QWEN3_MOE, WHISPER, VISION)
+# the model API's SMOKE parity, card against CPU, one arch per family:
+# (arch, prompt tokens, decode steps).  recurrentgemma SMOKE's window is
+# 32: a prompt of 40 fills its ring from the prefill, one of 8 decoded 30
+# steps wraps it on the card.
+MODEL_PARITY = ((MOONSHOT, 12, 8), (QWEN3_MOE, 12, 8), (WHISPER, 12, 8),
+                (VISION, 12, 8), (XLSTM, 12, 8), (RGEMMA, 40, 8),
+                (RGEMMA, 8, 30))
 
 
 def parity_models(torch, np) -> dict:
     """The model API at SMOKE in f32 (TF32 off), every xgate 0.5, on the
     card and on the CPU from the same weights: forward logits, prefill
-    logits and cache (``s_max``), and 8 greedy decode steps agree within
-    ``ROW_TOL["f32"]`` row by row, the cache positions and the tokens are
-    equal, and on the card the forward and the prefill each launch flash
-    attention once for each attention layer and each decode step the
-    paged kernel once for each decoder attention layer."""
+    logits and cache or state (``s_max``), and the greedy decode steps
+    agree within ``ROW_TOL["f32"]`` row by row, the cache positions and
+    the tokens are equal, and on the card the forward and the prefill each
+    launch flash attention once for each attention layer and each decode
+    step the paged kernel once for each decoder attention layer."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.models.api import build_model
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    B, T, steps = 2, 12, 8
+    B = 2
     launches = {}
-    for arch in MODEL_PARITY:
+    for arch, T, steps in MODEL_PARITY:
         cfg = get_config(arch, smoke=True, dtype=torch.float32)
         model = build_model(cfg)
         params = model.init(torch.Generator().manual_seed(0))
@@ -2041,10 +2160,10 @@ def parity_models(torch, np) -> dict:
                 steps_out.append(lg)
             torch.cuda.synchronize()
             if dev == "cuda":
-                launches[arch] = dict(_build.launch_counts())
+                launches[f"{arch} T{T}"] = dict(_build.launch_counts())
             got[dev] = {"forward": fwd.cpu(), "logits": [
                 lg.cpu() for lg in steps_out], "cache": _to(cache, "cpu")}
-        tag = f"model parity {arch}"
+        tag = f"model parity {arch} T{T}"
         a, c = got["cuda"], got["cpu"]
         errs = [row_rel_err(a["forward"], c["forward"])] + [
             row_rel_err(x, y) for x, y in zip(a["logits"], c["logits"])]
@@ -2060,11 +2179,16 @@ def parity_models(torch, np) -> dict:
         check(toks["cuda"] == toks["cpu"], f"{tag}: tokens cuda "
               f"{toks['cuda']} != cpu {toks['cpu']}")
         n_self, n_cross, n_enc = attention_layers(cfg)
-        n = launches[arch]
+        n = launches[f"{arch} T{T}"]
         check(n.get("flash_attention", 0) == 2 * (n_self + n_cross + n_enc)
               and n.get("flash_attention_tc", 0) == 0
               and n.get("paged_attention", 0) == steps * (n_self + n_cross),
               f"{tag}: launches {n}")
+        if cfg.family == "hybrid":
+            ring = a["cache"]["groups"]["attn"]["pos"]
+            check(bool((ring == ring_positions(torch, T + steps,
+                                               cfg.attn_window).cpu()).all()),
+                  f"{tag}: ring positions {ring.tolist()}")
         log(f"{tag}: SMOKE f32 (TF32 off), xgate 0.5: forward, prefill "
             f"(logits, cache), {steps} decode steps agree card against CPU "
             f"(max row rel err {max(errs):.3g}), tokens equal "

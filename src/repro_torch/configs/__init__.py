@@ -1,7 +1,7 @@
 """Architecture registry: ``get_config(arch_id, smoke=False)`` and the
-architectures the port builds so far: the reference's four dense archs
-(which ``ServeEngine`` serves, the CLI's ``--arch`` values) and its MoE,
-encoder-decoder and VLM archs (through ``models.api.build_model``)."""
+reference's ten architectures: the four dense archs (which ``ServeEngine``
+serves, the CLI's ``--arch`` values) and the MoE, encoder-decoder, VLM,
+xLSTM and RecurrentGemma archs (through ``models.api.build_model``)."""
 from __future__ import annotations
 
 from importlib import import_module
@@ -17,6 +17,8 @@ _MODULES = {
     "internlm2-1.8b": "repro_torch.configs.internlm2_1p8b",
     "deepseek-coder-33b": "repro_torch.configs.deepseek_coder_33b",
     "llama-3.2-vision-11b": "repro_torch.configs.llama32_vision_11b",
+    "xlstm-1.3b": "repro_torch.configs.xlstm_1p3b",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
 }
 
 ARCHS = tuple(_MODULES)

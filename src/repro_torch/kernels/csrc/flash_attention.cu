@@ -22,10 +22,12 @@
 // fall in 16 different banks; V unpadded, read along hd.  Thread (tr, tc)
 // = (tid / 16, tid % 16) holds the scores of rows tr + 16 i and keys
 // tc + 16 j (4 x 4), and the output of rows tr + 16 i and dims tc + 16 c
-// (4 x 8): the softmax of a row is reduced over the 16 lanes of one
+// (4 x DPT): the softmax of a row is reduced over the 16 lanes of one
 // half-warp with shuffles, and the running max, sum and correction stay
-// in registers.  Loads from device memory are 16 bytes a thread when hd
-// and the pointers allow it.
+// in registers.  DPT is 8 for hd <= 128 and 16 for hd <= 256 (an instance
+// each, so the narrower heads keep their registers); at hd 256 the tiles
+// take 209 KB of shared memory, one block an SM.  Loads from device
+// memory are 16 bytes a thread when hd and the pointers allow it.
 //
 // Bound: causal prefill at serving widths is bound by operations, 4 * hd
 // flops per valid (query head, q, k) pair; this kernel runs them on the
@@ -42,10 +44,9 @@ constexpr int FA_TILE = 64;            // tokens per Q and per K/V tile
 constexpr int FA_BQ = FA_TILE;
 constexpr int FA_BK = FA_TILE;
 constexpr int FA_THREADS = 256;
-constexpr int FA_MAX_HD = 128;       // MAX_HD in flash_attention.py
+constexpr int FA_MAX_HD = 16 * 16;   // 16 lanes x 16 dims; MAX_HD in .py
 constexpr int FA_RPT = FA_BQ / 16;      // query rows per thread
 constexpr int FA_KPT = FA_BK / 16;      // keys per thread
-constexpr int FA_DPT = FA_MAX_HD / 16;  // output dims per thread
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -102,7 +103,8 @@ __device__ __forceinline__ void stage(float* dst, int ld, const T* src,
   }
 }
 
-template <typename T>
+// DPT: output dims per thread, hd <= 16 * DPT.
+template <typename T, int DPT>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
@@ -126,13 +128,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* k_head = k + ((size_t)b * S * Hkv + g) * hd;
   const T* v_head = v + ((size_t)b * S * Hkv + g) * hd;
 
-  float m_run[FA_RPT], l_run[FA_RPT], acc[FA_RPT][FA_DPT];
+  float m_run[FA_RPT], l_run[FA_RPT], acc[FA_RPT][DPT];
 #pragma unroll
   for (int i = 0; i < FA_RPT; ++i) {
     m_run[i] = NEG_INF;
     l_run[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < FA_DPT; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < DPT; ++c) acc[i][c] = 0.f;
   }
 
   // Keys some row of this block can see: [lo, hi).
@@ -195,7 +197,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l_run[i] = l_run[i] * corr + psum;
       m_run[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < FA_DPT; ++c) acc[i][c] *= corr;
+      for (int c = 0; c < DPT; ++c) acc[i][c] *= corr;
     }
     __syncthreads();
 
@@ -206,7 +208,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = 0; i < FA_RPT; ++i)
         pv[i] = p_s[(tr + 16 * i) * (FA_BK + 1) + t];
 #pragma unroll
-      for (int c = 0; c < FA_DPT; ++c) {
+      for (int c = 0; c < DPT; ++c) {
         const int d = tc + 16 * c;
         if (d < hd) {
           const float vv = v_s[t * hd + d];
@@ -224,7 +226,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float l = fmaxf(l_run[i], 1e-30f);
       T* o = out + (((size_t)b * T_len + qp) * H + h) * hd;
 #pragma unroll
-      for (int c = 0; c < FA_DPT; ++c) {
+      for (int c = 0; c < DPT; ++c) {
         const int d = tc + 16 * c;
         if (d < hd) from_f32(acc[i][c] / l, o + d);
       }
@@ -237,14 +239,14 @@ size_t smem_bytes(int hd) {
          * sizeof(float);
 }
 
-template <typename T>
+template <typename T, int DPT>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int T_len, int S, int H, int Hkv, int hd, float scale, int causal,
            int window, cudaStream_t stream) {
   const size_t smem = smem_bytes(hd);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_kernel<T>,
+        flash_attention_kernel<T, DPT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
@@ -252,7 +254,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
       | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v);
   const bool vec = addr % 16 == 0 && hd % (16 / sizeof(T)) == 0;
   const dim3 grid((T_len + FA_BQ - 1) / FA_BQ, H, B);
-  flash_attention_kernel<T><<<grid, FA_THREADS, smem, stream>>>(
+  flash_attention_kernel<T, DPT><<<grid, FA_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), T_len, S, H, Hkv, hd,
       scale, causal, window, vec);
@@ -263,18 +265,25 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() (or the
-// error of raising the block's shared-memory limit).
+// dtype: 0 = float32, 1 = bfloat16; hd <= FA_MAX_HD.  Returns
+// cudaGetLastError() (or the error of raising the block's shared-memory
+// limit), cudaErrorInvalidValue for a wider head.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int B, int T_len, int S, int H, int Hkv,
                            int hd, float scale, int causal, int window,
                            int dtype, void* stream) {
+  if (hd > FA_MAX_HD) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(q, k, v, out, B, T_len, S, H, Hkv, hd, scale, causal,
-                         window, s);
-  return launch<__nv_bfloat16>(q, k, v, out, B, T_len, S, H, Hkv, hd, scale,
-                               causal, window, s);
+#define FA_LAUNCH(T, DPT)                                                   \
+  return launch<T, DPT>(q, k, v, out, B, T_len, S, H, Hkv, hd, scale,       \
+                        causal, window, s)
+  if (dtype == 0) {
+    if (hd <= 128) FA_LAUNCH(float, 8);
+    FA_LAUNCH(float, 16);
+  }
+  if (hd <= 128) FA_LAUNCH(__nv_bfloat16, 8);
+  FA_LAUNCH(__nv_bfloat16, 16);
+#undef FA_LAUNCH
 }
 
 }  // extern "C"

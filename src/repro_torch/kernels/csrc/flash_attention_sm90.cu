@@ -1,5 +1,5 @@
 // Flash attention on Hopper's tensor cores (sm_90a): the serving prefill's
-// attention for bf16 with a head width hd % 8 == 0 and hd <= 128.
+// attention for bf16 with a head width hd % 8 == 0 and hd <= 256.
 //
 // Replaces src/repro/kernels/flash_attention.py:flash_attention_pallas
 // (kernel body _attn_kernel) on that route; flash_attention.cu keeps the
@@ -13,28 +13,34 @@
 // gives 0.  T and S take any length.
 //
 // Grid (ceil(T / 128), H, B), 384 threads in 3 warpgroups; one block owns
-// 128 query rows of one (head, batch) and walks the 128-token key/value
+// 128 query rows of one (head, batch) and walks the BN-token key/value
 // tiles that some row of it can see (the causal and window skip; q tiles
-// in reverse, the longest first).
+// in reverse, the longest first).  HDP, the head width in shared memory,
+// is 64, 128 or 256; BN is 128, or 64 at HDP 256.
 //  - Warpgroup 2, the producer, gives its registers away (setmaxnreg.dec)
 //    and one thread issues TMA loads from 4-D tensor maps over q (B, T, H,
-//    hd) and k, v (B, S, Hkv, hd): boxes of 64 hd x 1 head x 128 tokens,
-//    128-byte swizzle, so a tile is HDP / 64 panels of 128 rows x 128
-//    bytes (HDP = 64 or 128).  TMA zero-fills past the tensor's edge: hd 96
-//    pads to 128, hd 16 to 64, tokens past T and S read as 0 (the mask
-//    still decides validity).  Q is loaded once; K and V go through a ring
-//    of 3 stages with full/empty mbarriers.  Shared memory at HDP 128: 32 KB
-//    of Q + 3 x (32 + 32) KB.
+//    hd) and k, v (B, S, Hkv, hd): boxes of 64 hd x 1 head x 128 (q) or
+//    BN (k, v) tokens, 128-byte swizzle, so a tile is HDP / 64 panels of
+//    128 or BN rows x 128 bytes.  TMA zero-fills past the tensor's edge:
+//    hd 96 pads to 128, hd 16 to 64, hd 160 to 256, tokens past T and S
+//    read as 0 (the mask still decides validity).  Q is loaded once; K and
+//    V go through a ring of STAGES stages with full/empty mbarriers.
+//    Shared memory at HDP 128: 32 KB of Q + 3 x (32 + 32) KB; at HDP 256:
+//    64 KB of Q + 2 x (32 + 32) KB (three stages, or 128-token tiles,
+//    would pass the 227 KB a block may hold).
 //  - Warpgroups 0 and 1, the consumers (setmaxnreg.inc), own 64 query rows
-//    each.  S = Q K^T is wgmma m64n128k16 with both operands in shared
+//    each.  S = Q K^T is wgmma m64nBNk16 with both operands in shared
 //    memory, K-major, HDP / 16 steps.  Online softmax on the f32
 //    accumulator in registers: a row lives in the 4 lanes of a quad (max by
 //    shfl_xor 1, 2; the sum stays per lane until the end); the mask comes
 //    from each register's (row, column), only on tiles that need it;
 //    exp2f with scale * log2(e) folded in.  P is rounded to bf16 in
 //    registers, where the accumulator's layout already is wgmma's register
-//    A fragment, and O += P V is wgmma m64nHDPk16 with V read from shared
-//    memory MN-major (the transpose bit), so V is never transposed.  The
+//    A fragment, and O += P V is wgmma m64nHDPk16 (at HDP 256, two of
+//    m64n128k16, one for each half of O) with V read from shared memory
+//    MN-major (the transpose bit), so V is never transposed.  A consumer
+//    thread holds BN / 2 scores and HDP / 2 output values: 32 + 128 at
+//    HDP 256, which the 64-token tiles keep within its 232 registers.  The
 //    next tile's Q K^T is issued right behind P V, and one wait covers both.
 //  - Epilogue: O / max(l, 1e-30) to bf16, stored from registers, rows < T
 //    and dims < hd only.
@@ -54,10 +60,7 @@
 namespace {
 
 constexpr int BM = 128;              // query rows per block
-constexpr int BN = 128;              // tokens per K/V tile
-constexpr int STAGES = 3;
 constexpr int THREADS = 384;
-constexpr int PANEL_BYTES = 128 * 128;   // 128 rows x 64 bf16, swizzled
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -153,6 +156,23 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 64, f32) += A (64 x 16, shared) * B (16 x 64, shared), both K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D (64 x 128, f32) += A (64 x 16, bf16 registers) * B (16 x 128, shared,
 // MN-major: the transpose bit).
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
@@ -212,28 +232,39 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// The tiles of one head width: panels of 64 dims (128 bytes a row,
+// swizzled), a Q tile of BM rows and K/V tiles of BN rows.
 template <int HDP>
 struct Tiles {
+  static constexpr int BN = HDP == 256 ? 64 : 128;  // tokens per K/V tile
+  static constexpr int STAGES = HDP == 256 ? 2 : 3;
   static constexpr int NP = HDP / 64;               // panels of 64 dims
-  static constexpr int TILE = NP * PANEL_BYTES;     // one Q, K or V tile
-  static constexpr int BYTES = (1 + 2 * STAGES) * TILE;   // then barriers
+  static constexpr int Q_PANEL = BM * 128;
+  static constexpr int KV_PANEL = BN * 128;
+  static constexpr int Q_TILE = NP * Q_PANEL;
+  static constexpr int KV_TILE = NP * KV_PANEL;
+  static constexpr int BYTES = Q_TILE + 2 * STAGES * KV_TILE;  // then bars
   static constexpr int SMEM = BYTES + 8 * (1 + 2 * STAGES) + 1024;
 };
 
-// Issue S = Q K^T (64 x 128) for one consumer warpgroup: HDP / 16 steps of
+// Issue S = Q K^T (64 x BN) for one consumer warpgroup: HDP / 16 steps of
 // 16 dims, both operands K-major in 128-byte-swizzled panels of 64 dims
 // (8 rows of 128 bytes every 1024 bytes: SBO); a step moves 32 bytes
-// along the row, a panel PANEL_BYTES on.
+// along the row, a panel Q_PANEL or KV_PANEL on.
 template <int HDP>
-__device__ __forceinline__ void issue_qk(float (&s)[64], uint32_t q_addr,
-                                         uint32_t k_addr) {
+__device__ __forceinline__ void issue_qk(float (&s)[Tiles<HDP>::BN / 2],
+                                         uint32_t q_addr, uint32_t k_addr) {
+  using L = Tiles<HDP>;
   fence_regs(s);
   wg_fence();
 #pragma unroll
   for (int kk = 0; kk < HDP / 16; ++kk) {
-    const uint32_t off = (kk / 4) * PANEL_BYTES + (kk % 4) * 32;
-    wgmma_ss_n128(s, smem_desc(q_addr + off, 16, 1024),
-                  smem_desc(k_addr + off, 16, 1024), kk > 0);
+    const uint64_t dq = smem_desc(
+        q_addr + (kk / 4) * L::Q_PANEL + (kk % 4) * 32, 16, 1024);
+    const uint64_t dk = smem_desc(
+        k_addr + (kk / 4) * L::KV_PANEL + (kk % 4) * 32, 16, 1024);
+    if constexpr (L::BN == 128) wgmma_ss_n128(s, dq, dk, kk > 0);
+    else wgmma_ss_n64(s, dq, dk, kk > 0);
   }
   wg_commit();
 }
@@ -251,12 +282,13 @@ struct Block {
     // TMA's 128-byte swizzle repeats every 1024 bytes: align the tiles
     uint8_t* smem = reinterpret_cast<uint8_t*>(
         (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+    using L = Tiles<HDP>;
     q_s = smem;
-    k_s = smem + Tiles<HDP>::TILE;
-    v_s = k_s + STAGES * Tiles<HDP>::TILE;
-    q_full = reinterpret_cast<uint64_t*>(smem + Tiles<HDP>::BYTES);
+    k_s = smem + L::Q_TILE;
+    v_s = k_s + L::STAGES * L::KV_TILE;
+    q_full = reinterpret_cast<uint64_t*>(smem + L::BYTES);
     full = q_full + 1;
-    empty = full + STAGES;
+    empty = full + L::STAGES;
     q0 = (gridDim.x - 1 - blockIdx.x) * BM;   // the longest rows first
     h = blockIdx.y;
     b = blockIdx.z;
@@ -264,8 +296,8 @@ struct Block {
     // keys some row of this block can see: tiles [kt_lo, kt_lo + n_tiles)
     const int hi = causal ? min(S, q0 + BM) : S;
     const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
-    kt_lo = lo / BN;
-    n_tiles = max(0, (hi + BN - 1) / BN - kt_lo);
+    kt_lo = lo / L::BN;
+    n_tiles = max(0, (hi + L::BN - 1) / L::BN - kt_lo);
   }
 };
 
@@ -280,7 +312,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   if (threadIdx.x == 0) {
     const Block<HDP> blk(T_len, S, H, Hkv, causal, window);
     mbar_init(blk.q_full, 1);
-    for (int st = 0; st < STAGES; ++st) {
+    for (int st = 0; st < Tiles<HDP>::STAGES; ++st) {
       mbar_init(&blk.full[st], 1);
       mbar_init(&blk.empty[st], 2 * 128);   // every consumer thread arrives
     }
@@ -296,19 +328,19 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
     const Block<HDP> blk(T_len, S, H, Hkv, causal, window);
     using L = Tiles<HDP>;
     if (threadIdx.x == 256) {
-      mbar_expect_tx(blk.q_full, L::TILE);
+      mbar_expect_tx(blk.q_full, L::Q_TILE);
 #pragma unroll
       for (int p = 0; p < L::NP; ++p)
-        tma_load(blk.q_s + p * PANEL_BYTES, &tq, blk.q_full, p * 64, blk.h,
+        tma_load(blk.q_s + p * L::Q_PANEL, &tq, blk.q_full, p * 64, blk.h,
                  blk.q0, blk.b);
       for (int it = 0; it < blk.n_tiles; ++it) {
-        const int st = it % STAGES, ph = (it / STAGES) & 1;
-        const int k0 = (blk.kt_lo + it) * BN;
+        const int st = it % L::STAGES, ph = (it / L::STAGES) & 1;
+        const int k0 = (blk.kt_lo + it) * L::BN;
         mbar_wait(&blk.empty[st], ph ^ 1);      // the first pass is free
-        mbar_expect_tx(&blk.full[st], 2 * L::TILE);
+        mbar_expect_tx(&blk.full[st], 2 * L::KV_TILE);
 #pragma unroll
         for (int p = 0; p < L::NP; ++p) {
-          const int off = st * L::TILE + p * PANEL_BYTES;
+          const int off = st * L::KV_TILE + p * L::KV_PANEL;
           tma_load(blk.k_s + off, &tk, &blk.full[st], p * 64, blk.g, k0,
                    blk.b);
           tma_load(blk.v_s + off, &tv, &blk.full[st], p * 64, blk.g, k0,
@@ -321,6 +353,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
     const Block<HDP> blk(T_len, S, H, Hkv, causal, window);
     using L = Tiles<HDP>;
+    constexpr int BN = L::BN, NS = BN / 2;       // scores a thread holds
     const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
     const int warp = tid / 32, lane = tid % 32;
     // this thread's rows (of the block) are r0 and r0 + 8, and its
@@ -336,7 +369,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
     float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;
     const uint32_t q_addr = smem_u32(blk.q_s) + wg * 64 * 128;
 
-    float s[64];
+    float s[NS];
     mbar_wait(blk.q_full, 0);
     if (blk.n_tiles > 0) {
       mbar_wait(&blk.full[0], 0);
@@ -345,7 +378,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs(s);
     }
     for (int it = 0; it < blk.n_tiles; ++it) {
-      const int st = it % STAGES;
+      const int st = it % L::STAGES;
       const int k0 = (blk.kt_lo + it) * BN;
 
       // online softmax; s[i] sits at row r0 + 8 * ((i / 2) % 2), column
@@ -362,7 +395,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
         const int ca_lo = window > 0 ? qa - window - base : -1;
         const int cb_lo = window > 0 ? qb - window - base : -1;
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
+        for (int i = 0; i < NS; ++i) {
           const int c = 8 * (i / 4) + i % 2;
           const bool row_b = (i / 2) % 2;
           const bool ok = c < c_s && c <= (row_b ? cb_hi : ca_hi)
@@ -371,10 +404,10 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
         }
       } else {
 #pragma unroll
-        for (int i = 0; i < 64; ++i) s[i] *= scale_log2;
+        for (int i = 0; i < NS; ++i) s[i] *= scale_log2;
       }
 #pragma unroll
-      for (int i = 0; i < 64; ++i) {
+      for (int i = 0; i < NS; ++i) {
         if ((i / 2) % 2) mx_b = fmaxf(mx_b, s[i]);
         else mx_a = fmaxf(mx_a, s[i]);
       }
@@ -390,9 +423,9 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
       float sum_a = 0.f, sum_b = 0.f;
       // P in bf16, packed in pairs: pa[4 kk .. 4 kk + 3] (keys 16 kk ..
       // 16 kk + 15) is wgmma's A fragment kk just as the accumulator lies
-      uint32_t pa[32];
+      uint32_t pa[NS / 2];
 #pragma unroll
-      for (int i = 0; i < 64; i += 2) {
+      for (int i = 0; i < NS; i += 2) {
         const float mn = (i / 2) % 2 ? mn_b : mn_a;
         const float p0 = s[i] == NEG_INF ? 0.f : ex2(s[i] - mn);
         const float p1 = s[i + 1] == NEG_INF ? 0.f : ex2(s[i + 1] - mn);
@@ -405,24 +438,32 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
       for (int i = 0; i < HDP / 2; ++i) o[i] *= (i / 2) % 2 ? c_b : c_a;
 
       // O += P V: V is (tokens x dims), dims contiguous = MN-major B;
-      // 16 tokens a step (2 KB), the second 64 dims one panel on (LBO).
-      // The next tile's Q K^T is issued behind it, so the tensor cores run
-      // both while this warpgroup waits once.
-      const uint32_t v_addr = smem_u32(blk.v_s + st * L::TILE);
+      // 16 tokens a step (2 KB), the next 64 dims one panel on (LBO); at
+      // HDP 256 the second half of O starts two panels on.  The next
+      // tile's Q K^T is issued behind it, so the tensor cores run both
+      // while this warpgroup waits once.
+      const uint32_t v_addr = smem_u32(blk.v_s + st * L::KV_TILE);
       fence_regs(o);
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        const uint64_t dv = smem_desc(v_addr + kk * 16 * 128, PANEL_BYTES,
-                                      1024);
-        if constexpr (HDP == 128) wgmma_rs_n128(o, pa + 4 * kk, dv);
-        else wgmma_rs_n64(o, pa + 4 * kk, dv);
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        const uint32_t vk = v_addr + kk * 16 * 128;
+        const uint64_t dv = smem_desc(vk, L::KV_PANEL, 1024);
+        if constexpr (HDP == 256) {
+          wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(o), pa + 4 * kk, dv);
+          wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(o + 64), pa + 4 * kk,
+                        smem_desc(vk + 2 * L::KV_PANEL, L::KV_PANEL, 1024));
+        } else if constexpr (HDP == 128) {
+          wgmma_rs_n128(o, pa + 4 * kk, dv);
+        } else {
+          wgmma_rs_n64(o, pa + 4 * kk, dv);
+        }
       }
       wg_commit();
       if (it + 1 < blk.n_tiles) {
-        mbar_wait(&blk.full[(it + 1) % STAGES], ((it + 1) / STAGES) & 1);
-        issue_qk<HDP>(s, q_addr,
-                      smem_u32(blk.k_s + ((it + 1) % STAGES) * L::TILE));
+        const int nx = (it + 1) % L::STAGES;
+        mbar_wait(&blk.full[nx], ((it + 1) / L::STAGES) & 1);
+        issue_qk<HDP>(s, q_addr, smem_u32(blk.k_s + nx * L::KV_TILE));
       }
       wg_wait();
       fence_regs(o);
@@ -481,9 +522,9 @@ EncodeTiled encode_fn() {
 }
 
 // A (B, n_tok, n_head, hd) bf16 tensor as a 4-D map, boxes of 64 dims x 1
-// head x 128 tokens, 128-byte swizzle, zeros past every edge.
+// head x box_tok tokens, 128-byte swizzle, zeros past every edge.
 int encode(CUtensorMap* map, const void* ptr, int B, int n_tok, int n_head,
-           int hd) {
+           int hd, int box_tok) {
   EncodeTiled fn = encode_fn();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)n_head,
@@ -491,7 +532,7 @@ int encode(CUtensorMap* map, const void* ptr, int B, int n_tok, int n_head,
   const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
                                  (cuuint64_t)n_head * hd * 2,
                                  (cuuint64_t)n_tok * n_head * hd * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)BN, 1};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_tok, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                         const_cast<void*>(ptr), dims, strides, box, estr,
@@ -503,10 +544,14 @@ int encode(CUtensorMap* map, const void* ptr, int B, int n_tok, int n_head,
 }
 
 template <int HDP>
-int launch(const CUtensorMap& tq, const CUtensorMap& tk,
-           const CUtensorMap& tv, void* out, int B, int T_len, int S, int H,
-           int Hkv, int hd, float scale, int causal, int window,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int T_len, int S, int H, int Hkv, int hd, float scale, int causal,
+           int window, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int rc = encode(&tq, q, B, T_len, H, hd, BM);
+  if (rc == 0) rc = encode(&tk, k, B, S, Hkv, hd, Tiles<HDP>::BN);
+  if (rc == 0) rc = encode(&tv, v, B, S, Hkv, hd, Tiles<HDP>::BN);
+  if (rc != 0) return rc;
   constexpr int smem = Tiles<HDP>::SMEM;
   const cudaError_t e = cudaFuncSetAttribute(
       flash_attention_tc_kernel<HDP>,
@@ -524,25 +569,24 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk,
 extern "C" {
 
 // bf16 only; hd % 8 == 0, S > 0, 16-byte aligned pointers (the wrapper
-// checks); hdp, the padded head width in shared memory, 64 (hd <= 64) or
-// 128 (hd <= 128).  Returns 0, a CUDA error, or cudaErrorInvalidValue for
-// another hdp or when a tensor map could not be encoded.
+// checks); hdp, the padded head width in shared memory, 64 (hd <= 64), 128
+// (hd <= 128) or 256 (hd <= 256).  Returns 0, a CUDA error, or
+// cudaErrorInvalidValue for another hdp or when a tensor map could not be
+// encoded.
 int flash_attention_tc_launch(const void* q, const void* k, const void* v,
                               void* out, int B, int T_len, int S, int H,
                               int Hkv, int hd, int hdp, float scale,
                               int causal, int window, void* stream) {
-  if ((hdp != 64 && hdp != 128) || hd > hdp) return (int)cudaErrorInvalidValue;
-  CUtensorMap tq, tk, tv;
-  int rc = encode(&tq, q, B, T_len, H, hd);
-  if (rc == 0) rc = encode(&tk, k, B, S, Hkv, hd);
-  if (rc == 0) rc = encode(&tv, v, B, S, Hkv, hd);
-  if (rc != 0) return rc;
+  if ((hdp != 64 && hdp != 128 && hdp != 256) || hd > hdp)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hdp == 64)
-    return launch<64>(tq, tk, tv, out, B, T_len, S, H, Hkv, hd, scale, causal,
-                      window, s);
-  return launch<128>(tq, tk, tv, out, B, T_len, S, H, Hkv, hd, scale, causal,
-                     window, s);
+#define TC_LAUNCH(HDP)                                                       \
+  return launch<HDP>(q, k, v, out, B, T_len, S, H, Hkv, hd, scale, causal,   \
+                     window, s)
+  if (hdp == 64) TC_LAUNCH(64);
+  if (hdp == 128) TC_LAUNCH(128);
+  TC_LAUNCH(256);
+#undef TC_LAUNCH
 }
 
 }  // extern "C"

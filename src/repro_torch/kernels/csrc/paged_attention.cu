@@ -14,10 +14,12 @@
 // threads: split s of row b covers table entries [s * pps, (s + 1) * pps),
 // clipped to ceil(len_b / page) and max_pages; the block reads and checks
 // its table entries once, into shared memory.  Lanes work in groups of G
-// (a power of two, G * 16 bytes >= hd): lane j of a group holds dims
-// [j * E, j * E + E) of one token's K and V row, E = 16 bytes of the
-// dtype, loaded with one 16-byte load each straight into registers, so no
-// K or V tile passes through shared memory.  A warp holds 32 / G tokens
+// (a power of two up to 32, G * NC * 16 bytes >= hd): lane j of a group
+// holds dims [(j + c G) E, (j + c G) E + E) for c < NC of one token's K
+// and V row, E = 16 bytes of the dtype, loaded with 16-byte loads
+// straight into registers, so no K or V tile passes through shared
+// memory.  NC is 1 for rows up to 512 bytes and 2 for f32 at hd 129..256
+// (a whole warp on one token, 32 bytes a lane); hd <= PA_MAX_HD.  A warp holds 32 / G tokens
 // at once and the block's 4 warps take the split's tokens in turn; the
 // next token's K and V are loaded before the current one is used.  Per
 // token, the dots of all n_rep query rows of the kv head are summed over
@@ -53,6 +55,7 @@ namespace {
 constexpr int PA_THREADS = 128;
 constexpr int PA_WARPS = PA_THREADS / 32;
 constexpr int PA_MAX_REP = 8;      // query rows per kv head
+constexpr int PA_MAX_HD = 256;     // MAX_HD in paged_attention.py
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -110,7 +113,7 @@ struct State {
   float m[NR], l[NR], acc[NR][E];
 };
 
-template <typename T, int NR>
+template <typename T, int NR, int NC>
 __global__ void __launch_bounds__(PA_THREADS)
 paged_attention_split_kernel(const T* __restrict__ q,
                              const T* __restrict__ k_pool,
@@ -123,6 +126,7 @@ paged_attention_split_kernel(const T* __restrict__ q,
                              int max_pages, int pps, int G, float qscale,
                              bool vec) {
   constexpr int E = Vec<T>::E;
+  constexpr int EL = E * NC;          // dims a lane holds
   // (PA_WARPS, NR, 2 + hd) f32 for the merge, then this split's pps
   // table entries
   extern __shared__ float smem[];
@@ -132,7 +136,13 @@ paged_attention_split_kernel(const T* __restrict__ q,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int j = lane & (G - 1);                 // lane within its group
   const int grp = lane / G, n_grp = 32 / G;     // groups of this warp
+  // dims of chunk c: [d0 + c * G * E, + E)
   const int d0 = j * E;
+  auto load_lane = [&](const T* p, float (&o)[EL]) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      load_row(p, d0 + c * G * E, hd, vec, o + c * E);
+  };
 
   const int seq_len = lens[b];
   const int n_pages = min((seq_len + page - 1) / page, max_pages);
@@ -147,25 +157,25 @@ paged_attention_split_kernel(const T* __restrict__ q,
     return;
   }
 
-  float qr[NR][E];
+  float qr[NR][EL];
 #pragma unroll
   for (int r = 0; r < NR; ++r) {
     if (r < n_rep) {
-      load_row(q + ((size_t)b * H + g * n_rep + r) * hd, d0, hd, vec, qr[r]);
+      load_lane(q + ((size_t)b * H + g * n_rep + r) * hd, qr[r]);
 #pragma unroll
-      for (int e = 0; e < E; ++e) qr[r][e] *= qscale;
+      for (int e = 0; e < EL; ++e) qr[r][e] *= qscale;
     } else {
 #pragma unroll
-      for (int e = 0; e < E; ++e) qr[r][e] = 0.f;
+      for (int e = 0; e < EL; ++e) qr[r][e] = 0.f;
     }
   }
-  State<NR, E> st;
+  State<NR, EL> st;
 #pragma unroll
   for (int r = 0; r < NR; ++r) {
     st.m[r] = NEG_INF;
     st.l[r] = 0.f;
 #pragma unroll
-    for (int e = 0; e < E; ++e) st.acc[r][e] = 0.f;
+    for (int e = 0; e < EL; ++e) st.acc[r][e] = 0.f;
   }
 
   // this split's table entries, checked once: a corrupt table is loud
@@ -182,20 +192,20 @@ paged_attention_split_kernel(const T* __restrict__ q,
   // every shuffle sees the whole warp.  The next step's rows are loaded
   // before this step's are used.
   const int stride = PA_WARPS * n_grp;
-  auto load = [&](int t, float (&k)[E], float (&v)[E]) {
+  auto load = [&](int t, float (&k)[EL], float (&v)[EL]) {
     if (t < t_hi) {
       const int pi = t / page;
       const size_t row = ((size_t)tbl[pi - p_lo] * page + (t - pi * page))
                          * tok_stride + (size_t)g * hd;
-      load_row(k_pool + row, d0, hd, vec, k);
-      load_row(v_pool + row, d0, hd, vec, v);
+      load_lane(k_pool + row, k);
+      load_lane(v_pool + row, v);
     }
   };
-  float kc[E] = {}, vc[E] = {};
+  float kc[EL] = {}, vc[EL] = {};
   int tw = t_lo + warp * n_grp;
   load(tw + grp, kc, vc);
   while (tw < t_hi) {
-    float kn[E] = {}, vn[E] = {};
+    float kn[EL] = {}, vn[EL] = {};
     load(tw + stride + grp, kn, vn);      // in flight during this step
     // the n_rep dots, their sums over the group, then the softmax updates,
     // each stage over all rows at once so the shuffles and exponentials of
@@ -205,7 +215,7 @@ paged_attention_split_kernel(const T* __restrict__ q,
     for (int r = 0; r < NR; ++r) {
       dot[r] = 0.f;
 #pragma unroll
-      for (int e = 0; e < E; ++e) dot[r] = fmaf(qr[r][e], kc[e], dot[r]);
+      for (int e = 0; e < EL; ++e) dot[r] = fmaf(qr[r][e], kc[e], dot[r]);
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
@@ -223,12 +233,12 @@ paged_attention_split_kernel(const T* __restrict__ q,
         st.m[r] = m;
         st.l[r] = st.l[r] * corr + p;
 #pragma unroll
-        for (int e = 0; e < E; ++e)
+        for (int e = 0; e < EL; ++e)
           st.acc[r][e] = fmaf(st.acc[r][e], corr, p * vc[e]);
       }
     }
 #pragma unroll
-    for (int e = 0; e < E; ++e) {
+    for (int e = 0; e < EL; ++e) {
       kc[e] = kn[e];
       vc[e] = vn[e];
     }
@@ -246,7 +256,7 @@ paged_attention_split_kernel(const T* __restrict__ q,
       st.m[r] = m;
       st.l[r] = st.l[r] * ca + ol * cb;
 #pragma unroll
-      for (int e = 0; e < E; ++e) {
+      for (int e = 0; e < EL; ++e) {
         const float oa = __shfl_xor_sync(0xffffffffu, st.acc[r][e], off);
         st.acc[r][e] = st.acc[r][e] * ca + oa * cb;
       }
@@ -263,8 +273,12 @@ paged_attention_split_kernel(const T* __restrict__ q,
         row[1] = st.l[r];
       }
 #pragma unroll
-      for (int e = 0; e < E; ++e)
-        if (d0 + e < hd) row[2 + d0 + e] = st.acc[r][e];
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const int d = d0 + c * G * E + e;
+          if (d < hd) row[2 + d] = st.acc[r][c * E + e];
+        }
     }
   }
   __syncthreads();
@@ -323,7 +337,7 @@ paged_attention_combine_kernel(const float* __restrict__ ml,
 #pragma unroll
   for (int w = 0; w < CB_WARPS; ++w) m = fmaxf(m, wmax[w]);
 
-  constexpr int J = 8;                     // hd <= 32 * J
+  constexpr int J = PA_MAX_HD / 32;        // dims a lane sums
   constexpr int K = 4;                     // splits a warp reads at once
   float num[J] = {}, den = 0.f;
   for (int s0 = warp; s0 < n_used; s0 += K * CB_WARPS) {
@@ -366,7 +380,7 @@ size_t paged_attention_smem_bytes(int rows, int hd, int pps) {
          + (size_t)pps * sizeof(int);
 }
 
-template <typename T, int NR>
+template <typename T, int NR, int NC>
 int launch_rows(const void* q, const void* k_pool, const void* v_pool,
                 const void* table, const void* lens, void* out, float* ml,
                 float* acc, int B, int H, int Hkv, int hd, int P, int page,
@@ -374,12 +388,12 @@ int launch_rows(const void* q, const void* k_pool, const void* v_pool,
                 cudaStream_t stream) {
   constexpr int E = Vec<T>::E;
   int G = 1;
-  while (G * E < hd) G <<= 1;
+  while (G * E * NC < hd) G <<= 1;
   const uintptr_t addr = reinterpret_cast<uintptr_t>(q)
       | reinterpret_cast<uintptr_t>(k_pool) | reinterpret_cast<uintptr_t>(v_pool);
   const bool vec = addr % 16 == 0 && hd % E == 0;
   const size_t smem = paged_attention_smem_bytes(NR, hd, pps);
-  paged_attention_split_kernel<T, NR>
+  paged_attention_split_kernel<T, NR, NC>
       <<<dim3(B, Hkv, n_split), PA_THREADS, smem, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k_pool),
           static_cast<const T*>(v_pool), static_cast<const int32_t*>(table),
@@ -402,10 +416,19 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
            int max_pages, int pps, int n_split, float scale,
            cudaStream_t stream) {
   const int n_rep = H / Hkv;
-#define PA_ROWS(NR)                                                        \
-  return launch_rows<T, NR>(q, k_pool, v_pool, table, lens, out, ml, acc,  \
-                            B, H, Hkv, hd, P, page, max_pages, pps,        \
-                            n_split, scale, stream)
+  // a row in one 16-byte chunk a lane (NC 1), or two: f32 past hd 128
+  constexpr int NC = sizeof(T) == 4 ? 2 : 1;
+  const bool wide = NC == 2 && hd * (int)sizeof(T) > 32 * 16;
+#define PA_ROWS(NR)                                                          \
+  return wide ? launch_rows<T, NR, NC>(q, k_pool, v_pool, table, lens, out, \
+                                       ml, acc, B, H, Hkv, hd, P, page,     \
+                                       max_pages, pps, n_split, scale,      \
+                                       stream)                              \
+              : launch_rows<T, NR, 1>(q, k_pool, v_pool, table, lens, out,  \
+                                      ml, acc, B, H, Hkv, hd, P, page,      \
+                                      max_pages, pps, n_split, scale,       \
+                                      stream)
+  if (hd > PA_MAX_HD) return (int)cudaErrorInvalidValue;
   if (n_rep <= 1) PA_ROWS(1);
   if (n_rep <= 2) PA_ROWS(2);
   if (n_rep <= 4) PA_ROWS(4);
@@ -419,10 +442,10 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  ml: (B, H, n_split, 2) and acc:
-// (B, H, n_split, hd) f32 scratch.  n_rep <= PA_MAX_REP and hd * sizeof
-// <= 32 x 16 bytes (the wrapper checks).  Returns cudaGetLastError() of
-// the first launch that failed, else of the second; cudaErrorInvalidValue
-// for n_rep > PA_MAX_REP.
+// (B, H, n_split, hd) f32 scratch.  n_rep <= PA_MAX_REP and hd <=
+// PA_MAX_HD (the wrapper checks).  Returns cudaGetLastError() of the first
+// launch that failed, else of the second; cudaErrorInvalidValue for
+// n_rep > PA_MAX_REP or hd > PA_MAX_HD.
 int paged_attention_launch(const void* q, const void* k_pool,
                            const void* v_pool, const void* table,
                            const void* lens, void* out, void* ml, void* acc,

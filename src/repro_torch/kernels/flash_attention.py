@@ -17,7 +17,7 @@ from . import _build
 from .ref import flash_attention_ref as flash_attention_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HD = 128                    # FA_MAX_HD in csrc/flash_attention.cu
+MAX_HD = 256                    # FA_MAX_HD in csrc/flash_attention.cu
 
 __all__ = ["flash_attention_cuda", "flash_attention_plain", "flash_route",
            "padded_hd"]
@@ -37,9 +37,10 @@ def flash_route(dtype, hd: int, S: int = 1) -> str:
 
 
 def padded_hd(hd: int) -> int:
-    """The head width the tensor-core kernel keeps in shared memory: 64 or
-    128 (TMA's 128-byte swizzled rows of 64 bf16; zero-filled past hd)."""
-    return 64 if hd <= 64 else 128
+    """The head width the tensor-core kernel keeps in shared memory: 64,
+    128 or 256 (TMA's 128-byte swizzled rows of 64 bf16; zero-filled past
+    hd)."""
+    return 64 if hd <= 64 else 128 if hd <= 128 else 256
 
 
 def _lib() -> ctypes.CDLL:
@@ -75,9 +76,10 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
     Bound on the H100 by operations at prefill lengths: 4 * hd flops per
     valid (query head, q, k) pair, at 989 TFLOP/s in bf16.  The
     tensor-core kernel: one block per (128-row q tile, q head, batch), a
-    TMA producer warpgroup feeding a 3-stage K/V ring to two consumer
-    warpgroups that run Q K^T and P V on ``wgmma``, online softmax in
-    registers.  The SIMT kernel runs the same algorithm on the f32 FMA
+    TMA producer warpgroup feeding a 3-stage ring of 128-token K/V tiles
+    (hd up to 128; at hd 256 a 2-stage ring of 64-token tiles) to two
+    consumer warpgroups that run Q K^T and P V on ``wgmma``, online
+    softmax in registers.  The SIMT kernel runs the same algorithm on the f32 FMA
     units from shared-memory tiles of 64.  Both skip the tiles that the
     causal or window mask hides entirely.  Launches count as
     ``flash_attention`` (every call) and ``flash_attention_tc`` (the

@@ -17,7 +17,7 @@ from .ref import paged_attention_ref as paged_attention_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_REP = 8                  # PA_MAX_REP in csrc/paged_attention.cu
-MAX_ROW_BYTES = 32 * 16      # hd * itemsize: 32 lanes of 16 bytes
+MAX_HD = 256                 # PA_MAX_HD in csrc/paged_attention.cu
 N_SM = 132                   # streaming multiprocessors of the H100 SXM
 MAX_PPS = 64                 # pages one split walks at most (plan's cap)
 _SMEM_LIMIT = 48 * 1024      # a block's shared memory without opt-in
@@ -64,8 +64,8 @@ def paged_attention_cuda(q, k_pool, v_pool, block_table, seq_lens, *,
     seq_lens: (B,) int32 -> (B, H, hd) in q's dtype.  Every entry of a
     table row below ``ceil(len / page)`` must name a page of the pool.
     ``pages_per_split`` overrides ``split_plan`` (tests force 1 and
-    max_pages).  Takes n_rep = H / Hkv <= 8 and hd * itemsize <= 512
-    bytes, and raises on anything else.
+    max_pages).  Takes n_rep = H / Hkv <= 8 and hd <= 256, and raises on
+    anything else.
 
     Replaces ``src/repro/kernels/paged_attention.py:paged_attention_pallas``.
     Bound on the H100 by the bytes it reads: each live K and V page once,
@@ -105,9 +105,9 @@ def paged_attention_cuda(q, k_pool, v_pool, block_table, seq_lens, *,
     if n_rep > MAX_REP:
         raise ValueError(f"paged_attention_cuda: n_rep {n_rep} exceeds "
                          f"{MAX_REP}")
-    if hd * q.element_size() > MAX_ROW_BYTES:
-        raise ValueError(f"paged_attention_cuda: a row of hd {hd} takes "
-                         f"more than {MAX_ROW_BYTES} bytes")
+    if not 0 < hd <= MAX_HD:
+        raise ValueError(f"paged_attention_cuda: hd {hd} outside "
+                         f"1..{MAX_HD}")
     out = torch.empty_like(q)
     max_pages = block_table.shape[1]
     if B == 0 or max_pages == 0 or H == 0:

@@ -3,9 +3,8 @@
 The reference's fields under its names and defaults, except: the knobs
 that steer JAX's compiler (``remat``, ``attn_impl``, ``scan_layers``) and
 the chunk of its XLA attention (``attn_chunk``), since the port runs
-eagerly on one card and attends through the flash kernel; the mesh
-context; and the recurrent families' ``block_pattern`` and ``lru_width``,
-which come with those families (ROADMAP Queue 1 item 7).
+eagerly on one card and attends through the flash kernel; and the mesh
+context.
 """
 from __future__ import annotations
 
@@ -47,6 +46,8 @@ class ModelConfig:
     cross_every: int = 0       # vlm: a cross-attn layer every Nth layer
     n_img_tokens: int = 1600   # vlm stub patch-embedding count
     attn_window: int = 0       # 0 = full causal; >0 = local sliding window
+    block_pattern: tuple[str, ...] = ()   # hybrid/ssm per-group layer kinds
+    lru_width: int = 0         # rglru: recurrence width (0 -> d_model)
     # numerics ----------------------------------------------------------------
     dtype: Any = torch.bfloat16
     logits_f32: bool = True
@@ -64,17 +65,28 @@ class ModelConfig:
         D, hd = self.d_model, self.hd
         qo = D * self.n_heads * hd * 2
         kv = D * self.n_kv_heads * hd * 2
-        if self.moe:
-            mlp = self.moe.n_experts * 3 * D * self.moe.d_expert \
-                + D * self.moe.n_experts
+        if self.family == "ssm":
+            body = self.n_layers * (5 * D * D + 2 * D)   # mLSTM-ish
+        elif self.family == "hybrid":
+            R = self.lru_width or D
+            rec = 2 * D * R + 2 * R * R + R * D + 4 * R
+            mlp = 3 * D * self.d_ff
+            n_attn = sum(1 for i in range(self.n_layers)
+                         if self._layer_kind(i) == "attn")
+            body = (self.n_layers - n_attn) * (rec + mlp) \
+                + n_attn * (qo + kv + mlp)
         else:
-            mlp = (3 if self.act == "swiglu" else 2) * D * self.d_ff
-        body = self.n_layers * (qo + kv + mlp)
-        if self.family == "encdec":
-            body += self.enc_layers * (qo + kv + 2 * D * self.d_ff)
-            body += self.n_layers * (qo + kv)          # decoder cross-attn
-        if self.family == "vlm" and self.cross_every:
-            body += self.n_layers // self.cross_every * (qo + kv)
+            if self.moe:
+                mlp = self.moe.n_experts * 3 * D * self.moe.d_expert \
+                    + D * self.moe.n_experts
+            else:
+                mlp = (3 if self.act == "swiglu" else 2) * D * self.d_ff
+            body = self.n_layers * (qo + kv + mlp)
+            if self.family == "encdec":
+                body += self.enc_layers * (qo + kv + 2 * D * self.d_ff)
+                body += self.n_layers * (qo + kv)      # decoder cross-attn
+            if self.family == "vlm" and self.cross_every:
+                body += self.n_layers // self.cross_every * (qo + kv)
         embed = self.vocab * D * (1 if self.tie_embeddings else 2)
         return body + embed
 
@@ -88,3 +100,8 @@ class ModelConfig:
         full_mlp = self.moe.n_experts * 3 * D * self.moe.d_expert \
             + D * self.moe.n_experts
         return self.param_count() - self.n_layers * (full_mlp - dense_mlp)
+
+    def _layer_kind(self, i: int) -> str:
+        if not self.block_pattern:
+            return "attn"
+        return self.block_pattern[i % len(self.block_pattern)]

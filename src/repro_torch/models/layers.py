@@ -77,6 +77,41 @@ def sinusoidal_pos(positions, d: int, dtype):
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
+# ------------------------------------------------------ prompts and the loss
+def prompt_positions(tokens, device):
+    """Tokens (B, T) as int64 on ``device``, and positions 0..T-1 (B, T)."""
+    tokens = torch.as_tensor(tokens, device=device).long()
+    B, T = tokens.shape
+    return tokens, torch.arange(T, device=device)[None].expand(B, T)
+
+
+def token_nll(logits, targets):
+    """The next-token NLL at every position: logits (B, T, V), targets
+    (B, T) -> (B, T)."""
+    targets = torch.as_tensor(targets, device=logits.device).long()
+    gold = logits.gather(-1, targets[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1) - gold
+
+
+def check_decode_positions(pos, filled, S: int, ring: bool) -> None:
+    """Before a decode step writes anything: ``pos`` (B,) the step's
+    positions, ``filled`` (B,) each row's count of valid slots, both on
+    the device and read in one transfer a step.  Raises IndexError on a
+    position below 0, or at or past S where the cache is no ring (the
+    reference drops such a write, ROADMAP Queue 3 item 2), and ValueError
+    where a row does not hold exactly its positions before pos, min(pos,
+    S) of them in a ring: past them the paged kernel would read
+    never-written slots that the reference masks out."""
+    want, have = torch.stack([pos, filled]).tolist()
+    if min(want) < 0 or (not ring and max(want) >= S):
+        raise IndexError(f"decode at positions {min(want)}..{max(want)} "
+                         f"of a cache of {S} slots")
+    if [min(p, S) for p in want] != have:
+        raise ValueError(f"decode at positions {want} over rows holding "
+                         f"{have} tokens: each row's step goes in the slot "
+                         f"after its last")
+
+
 # ------------------------------------------- decode over a contiguous cache
 def contiguous_page(S: int) -> int:
     """The page a contiguous cache of S slots is viewed in: the largest of
@@ -108,7 +143,8 @@ class DecodePages:
 def decode_pages(lens, S: int, n_rep: int) -> DecodePages:
     """lens: (B,) the valid slots of each row, which are slots 0..len-1:
     ``pos + 1`` for self-attention (prefill fills 0..T-1, each decode step
-    slot ``pos``), S for cross-attention."""
+    slot ``pos``), ``min(pos + 1, S)`` over a windowed ring of S slots, S
+    for cross-attention."""
     B, page = lens.shape[0], contiguous_page(S)
     split = n_rep // kernel_rep(n_rep)
     table = torch.arange(B * (S // page), dtype=torch.int32,
@@ -152,15 +188,20 @@ def decode_attention(q, k, v, pages: DecodePages):
 
 
 def decode_update_and_attend(q, cache_k, cache_v, cache_pos, new_k, new_v,
-                             slot, pages: DecodePages):
+                             slot, pages: DecodePages, pos=None):
     """Write the new token's K/V into one layer's cache at ``slot`` = (rows
-    (B,), pos (B,)), one batched indexed write each, IN PLACE (the
-    reference returns new arrays), then attend over the cache.
+    (B,), slot index (B,)), one batched indexed write each, IN PLACE (the
+    reference returns new arrays), and its position ``pos`` (B,) into
+    ``cache_pos`` (default: the slot index, which is the position in a
+    cache that is not a ring), then attend over the cache.  A windowed
+    ring of S slots writes slot pos % S and attends with lengths
+    min(pos + 1, S): its valid slots are always 0..min(pos, S - 1), and
+    the softmax does not depend on their order.
     q: (B, 1, H, hd); cache_k/v: (B, S, Hkv, hd); cache_pos: (B, S);
     new_k/v: (B, 1, Hkv, hd) -> attn_out (B, 1, H, hd)."""
     cache_k[slot] = new_k[:, 0].to(cache_k.dtype)
     cache_v[slot] = new_v[:, 0].to(cache_v.dtype)
-    cache_pos[slot] = slot[1].to(cache_pos.dtype)
+    cache_pos[slot] = (slot[1] if pos is None else pos).to(cache_pos.dtype)
     return decode_attention(q, cache_k, cache_v, pages)
 
 

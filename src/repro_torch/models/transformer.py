@@ -1,7 +1,9 @@
 """Transformer families, as ``repro.models.transformer`` without a mesh:
 the decoder-only LM (dense and MoE), the encoder-decoder (whisper) and the
 VLM with interleaved cross-attention layers (llama-vision); random init
-from a ``torch.Generator`` and the converter from a JAX parameter pytree.
+from a ``torch.Generator``; and the converters from a JAX parameter pytree
+and a JAX decode state or cache, for every family (the recurrent ones
+live in ``models/xlstm.py`` and ``models/rglru.py``).
 
 Parameters are a plain dict: ``embed`` (V, D), ``head`` (D, V) unless tied,
 ``final_norm``, and the layers as lists with one dict per layer (the
@@ -32,13 +34,11 @@ import torch
 
 from repro_torch.kernels.ops import flash_attention
 from .common import ModelConfig
-from .layers import (apply_norm, attn_init, decode_pages,
-                     decode_update_and_attend, decode_attention, init_norm,
-                     mlp_apply, mlp_init, moe_apply, moe_init, out_proj,
-                     qkv_proj, rope, sinusoidal_pos)
-
-RECURRENT = "the recurrent families (ssm, hybrid) are ROADMAP Queue 1 item 7"
-WINDOWED = "the windowed ring cache comes with recurrentgemma (Queue 1 item 7)"
+from .layers import (apply_norm, attn_init, check_decode_positions,
+                     decode_pages, decode_update_and_attend,
+                     decode_attention, init_norm, mlp_apply, mlp_init,
+                     moe_apply, moe_init, out_proj, prompt_positions,
+                     qkv_proj, rope, sinusoidal_pos, token_nll)
 
 
 # =========================================================== block def/init
@@ -62,18 +62,18 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, *,
 
 
 def self_attention(x, p, cfg: ModelConfig, *, positions, causal=True,
-                   window=0, cache=None, slot=None, pages=None):
+                   window=0, cache=None, slot=None, pos=None, pages=None):
     """Returns (attn_out, k, v), k and v being this call's new keys and
     values.  With ``cache`` (one layer's ``{"k", "v", "pos"}``), x is the
-    single new token (B, 1, D): its K/V go into the cache at ``slot`` and
-    it attends over the cache through ``pages``."""
+    single new token (B, 1, D) at positions ``pos``: its K/V go into the
+    cache at ``slot`` and it attends over the cache through ``pages``."""
     q, k, v = qkv_proj(x, p, cfg.n_heads, cfg.n_kv_heads, cfg.hd)
     if cfg.pos == "rope":
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     if cache is not None:
         out = decode_update_and_attend(q, cache["k"], cache["v"],
-                                       cache["pos"], k, v, slot, pages)
+                                       cache["pos"], k, v, slot, pages, pos)
     else:
         out = flash_attention(q, k, v, causal=causal, window=window)
     return out_proj(out, p), k, v
@@ -97,13 +97,13 @@ def cross_kv(enc_out, p, cfg: ModelConfig):
 
 
 def block_apply(x, p, cfg: ModelConfig, *, positions, causal=True, window=0,
-                cache=None, slot=None, pages=None, xk=None, xv=None,
-                xpages=None):
+                cache=None, slot=None, pos=None, pages=None, xk=None,
+                xv=None, xpages=None):
     """Returns (x, (k, v)) with the self-attention's new keys and values."""
     a, k, v = self_attention(
         apply_norm(x, p["ln1"], cfg.norm), p["attn"], cfg,
         positions=positions, causal=causal, window=window, cache=cache,
-        slot=slot, pages=pages)
+        slot=slot, pos=pos, pages=pages)
     x = x + a
     if xk is not None:
         g = torch.tanh(p["xgate"]).to(x.dtype) if "xgate" in p else 1.0
@@ -123,8 +123,6 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator) -> dict:
     """Random parameters on ``gen.device``, drawn in a fixed order (embed,
     head, then each layer in execution order, the encoder first) so one
     seed gives one model."""
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(RECURRENT)
     d, V = cfg.d_model, cfg.vocab
     dev = gen.device
     params = {"embed": (torch.randn((V, d), generator=gen, device=dev)
@@ -166,13 +164,6 @@ def _unembed(params, x, cfg: ModelConfig):
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
     logits = x @ w
     return logits.float() if cfg.logits_f32 else logits
-
-
-def _prompt(params, tokens):
-    """Tokens (B, T) on the parameters' device, and positions 0..T-1."""
-    tokens = torch.as_tensor(tokens, device=_device(params)).long()
-    B, T = tokens.shape
-    return tokens, torch.arange(T, device=tokens.device)[None].expand(B, T)
 
 
 def _encoder_apply(params, frames, cfg: ModelConfig):
@@ -223,7 +214,7 @@ def _window(cfg: ModelConfig) -> int:
 def lm_forward(params, batch, cfg: ModelConfig):
     """Full-sequence forward -> logits (B, T, V). batch carries 'tokens' and
     family extras ('frames' for encdec, 'image_embeds' for vlm)."""
-    tokens, positions = _prompt(params, batch["tokens"])
+    tokens, positions = prompt_positions(batch["tokens"], _device(params))
     x = _embed_in(params, tokens, positions, cfg)
     src = _cross_source(params, batch, cfg)
     for blk, has_cross in _blocks(params, cfg):
@@ -239,10 +230,7 @@ def lm_forward(params, batch, cfg: ModelConfig):
 def lm_loss(params, batch, cfg: ModelConfig):
     """Mean next-token NLL (the forward value; no train step here)."""
     logits = lm_forward(params, batch, cfg)
-    targets = torch.as_tensor(batch["targets"], device=logits.device).long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, targets[..., None])[..., 0]
-    nll = logz - gold
+    nll = token_nll(logits, batch["targets"])
     mask = batch.get("loss_mask")
     if mask is None:
         return nll.mean()
@@ -258,9 +246,8 @@ def make_cache(cfg: ModelConfig, B: int, S_max: int, device="cuda",
     ``cross_len`` (default ``enc_seq``) frames under ``self``; vlm keeps
     ``self`` as (G, cross_every - 1, ...), ``cross_self`` as (G, ...) and
     ``cross_k``/``cross_v`` of ``cross_len`` (default ``n_img_tokens``)
-    patches."""
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(RECURRENT)
+    patches.  A windowed cache is a ring of min(S_max, attn_window)
+    slots."""
     dtype, hd, Hkv = cfg.dtype, cfg.hd, cfg.n_kv_heads
     S = min(S_max, cfg.attn_window) if cfg.attn_window else S_max
 
@@ -316,15 +303,19 @@ def _self_len(cache, cfg: ModelConfig) -> int:
 def lm_prefill(params, batch, cfg: ModelConfig, s_max: int | None = None):
     """Full-context prefill: returns (last-token logits (B, V), populated
     cache).  ``s_max`` pads the cache with empty (pos = -1) slots up to
-    ``s_max`` so decode steps can append new tokens."""
-    if cfg.attn_window:
-        raise NotImplementedError(WINDOWED)
-    tokens, positions = _prompt(params, batch["tokens"])
+    ``s_max`` so decode steps can append new tokens.  A windowed cache
+    has min(max(T, s_max), W) slots and holds the prompt's last
+    min(T, W) tokens in the ring layout, position p in slot p % S (the
+    reference's, which pads to W when given ``s_max``)."""
+    tokens, positions = prompt_positions(batch["tokens"], _device(params))
     B, T = tokens.shape
     x = _embed_in(params, tokens, positions, cfg)
     src = _cross_source(params, batch, cfg)
     cache = make_cache(cfg, B, max(T, s_max or 0), device=tokens.device,
                        cross_len=None if src is None else src.shape[1])
+    S = _self_len(cache, cfg)
+    n = min(T, S)                      # T > S only in a full ring (S = W)
+    ring = torch.arange(T - n, T, device=tokens.device) % S
     crosses = _cross_caches(cache) if src is not None else None
     for (blk, has_cross), kv in zip(_blocks(params, cfg),
                                     _self_caches(cache, cfg)):
@@ -333,11 +324,11 @@ def lm_prefill(params, batch, cfg: ModelConfig, s_max: int | None = None):
             xk, xv = next(crosses)
             for dst, new in zip((xk, xv), cross_kv(src, blk["xattn"], cfg)):
                 dst.copy_(new)
-        x, (k, v) = block_apply(x, blk, cfg, positions=positions, xk=xk,
-                                xv=xv)
-        kv["k"][:, :T] = k
-        kv["v"][:, :T] = v
-        kv["pos"][:, :T] = positions
+        x, (k, v) = block_apply(x, blk, cfg, positions=positions,
+                                window=_window(cfg), xk=xk, xv=xv)
+        kv["k"][:, ring] = k[:, T - n:]
+        kv["v"][:, ring] = v[:, T - n:]
+        kv["pos"][:, ring] = positions[:, T - n:].to(kv["pos"].dtype)
     x = apply_norm(x[:, -1:], params["final_norm"], cfg.norm)
     return _unembed(params, x, cfg)[:, 0], cache
 
@@ -347,33 +338,30 @@ def lm_decode_step(params, cache, token, pos, cfg: ModelConfig):
     (logits (B, V), the cache updated in place).  The valid slots of each
     row are 0..pos-1 before the step (a prefill, then one step at each
     position), as the reference's serving path leaves them; the paged
-    kernel reads slots 0..pos.  Raises on a position outside the cache
-    (IndexError: the reference writes nothing there and returns logits
-    without the token, ROADMAP Queue 3 item 6) and on one that is not its
-    row's count of valid slots (ValueError: past it, the kernel would
-    read never-written slots that the reference masks out)."""
-    if cfg.attn_window:
-        raise NotImplementedError(WINDOWED)
+    kernel reads slots 0..pos.  A windowed cache of W slots is a ring:
+    position p goes in slot p % W, the valid slots are 0..min(pos, W - 1)
+    and the kernel reads min(pos + 1, W) of them.  Raises on a position
+    outside the cache (IndexError: the reference writes nothing there and
+    returns logits without the token, ROADMAP Queue 3 item 2; a windowed
+    cache of fewer than W slots is no ring, since wrapping would drop keys
+    still inside the window) and on one that is not its row's count of
+    valid slots, min(pos, W) in a ring (ValueError: past it, the kernel
+    would read never-written slots that the reference masks out)."""
     dev = _device(params)
     pos = torch.as_tensor(pos, device=dev).long()
     S = _self_len(cache, cfg)
-    filled = (next(_self_caches(cache, cfg))["pos"] >= 0).sum(dim=-1)
-    want, have = torch.stack([pos, filled]).tolist()     # one read a step
-    if min(want) < 0 or max(want) >= S:
-        raise IndexError(f"decode at positions {min(want)}..{max(want)} "
-                         f"of a cache of {S} slots")
-    if want != have:
-        raise ValueError(f"decode at positions {want} over rows holding "
-                         f"{have} tokens: each row's step goes in the slot "
-                         f"after its last")
+    ring = _window(cfg) > 0 and S == _window(cfg)
+    check_decode_positions(
+        pos, (next(_self_caches(cache, cfg))["pos"] >= 0).sum(dim=-1), S,
+        ring)
     token = torch.as_tensor(token, device=dev).long()
     B = token.shape[0]
     positions = pos[:, None]
     x = _embed_in(params, token[:, None], positions, cfg)
     n_rep = cfg.n_heads // cfg.n_kv_heads
     # the pages' tables and lengths once a step, on the device
-    slot = (torch.arange(B, device=dev), pos)
-    pages = decode_pages(pos + 1, S, n_rep)
+    slot = (torch.arange(B, device=dev), pos % S)
+    pages = decode_pages(torch.clamp(pos + 1, max=S), S, n_rep)
     crosses = xpages = None
     if cfg.family in ("encdec", "vlm"):
         crosses = _cross_caches(cache)
@@ -383,7 +371,7 @@ def lm_decode_step(params, cache, token, pos, cfg: ModelConfig):
                                     _self_caches(cache, cfg)):
         xk, xv = next(crosses) if has_cross else (None, None)
         x, _ = block_apply(x, blk, cfg, positions=positions, cache=kv,
-                           slot=slot, pages=pages, xk=xk, xv=xv,
+                           slot=slot, pos=pos, pages=pages, xk=xk, xv=xv,
                            xpages=xpages if has_cross else None)
     x = apply_norm(x, params["final_norm"], cfg.norm)
     return _unembed(params, x, cfg)[:, 0], cache
@@ -410,9 +398,10 @@ def _tree(x, device, index=()):
 
 def params_from_jax(np_tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     """The JAX param pytree (leaves as numpy arrays, layers stacked on
-    leading axes: ``blocks``, ``enc_blocks`` and ``dec_blocks`` on axis 0,
-    ``groups`` on (G, inner) for ``self`` and G for ``cross``) -> the
-    port's parameters, exactly."""
+    leading axes: ``blocks``, ``enc_blocks`` and ``dec_blocks`` on axis 0;
+    ``groups`` on (G, inner) for vlm's ``self`` and G for its ``cross``,
+    on (G, 7) for xlstm's ``m`` and G for its ``s``, on G for rglru's
+    ``rec1``, ``rec2`` and ``attn``) -> the port's parameters, exactly."""
     n_layers = {"blocks": cfg.n_layers, "dec_blocks": cfg.n_layers,
                 "enc_blocks": cfg.enc_layers}
     out = {}
@@ -421,10 +410,46 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig, device="cuda") -> dict:
             out[key] = [_tree(sub, device, (i,))
                         for i in range(n_layers[key])]
         elif key == "groups":
-            out[key] = [{"self": [_tree(sub["self"], device, (g, i))
-                                  for i in range(cfg.cross_every - 1)],
-                         "cross": _tree(sub["cross"], device, (g,))}
-                        for g in range(cfg.n_layers // cfg.cross_every)]
+            out[key] = _groups(sub, cfg, device)
         else:
             out[key] = _tree(sub, device)
+    return out
+
+
+def _groups(sub: dict, cfg: ModelConfig, device) -> list:
+    """The stacked ``groups`` of a vlm, xlstm or rglru tree -> a list of
+    one dict per group; vlm's ``self`` and xlstm's ``m`` -> a list per
+    group of its inner blocks."""
+    def n(tree, axis):                     # a subtree's stacked length
+        return np.asarray(next(_np_leaves(tree))).shape[axis]
+    inner = {"vlm": "self", "ssm": "m"}.get(cfg.family)
+    return [{k: ([_tree(v, device, (g, i)) for i in range(n(v, 1))]
+                 if k == inner else _tree(v, device, (g,)))
+             for k, v in sub.items()}
+            for g in range(n(sub, 0))]
+
+
+def _np_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _np_leaves(v)
+    else:
+        yield tree
+
+
+def state_from_jax(np_tree: dict, cfg: ModelConfig, device="cuda") -> dict:
+    """The reference's decode state or cache (numpy leaves) -> the port's,
+    which keeps its layout.  A RecurrentGemma ring that the reference's
+    prefill left at fewer than W slots (a prompt shorter than the window:
+    slots 0..T-1 hold positions 0..T-1) is padded with empty slots (pos
+    -1) to the W-slot ring the port decodes over."""
+    out = _tree(np_tree, device)
+    if cfg.family == "hybrid":
+        ring = out["groups"]["attn"]
+        pad = cfg.attn_window - ring["k"].shape[2]
+        if pad > 0:
+            ring["k"], ring["v"] = (torch.nn.functional.pad(
+                t, (0, 0, 0, 0, 0, pad)) for t in (ring["k"], ring["v"]))
+            ring["pos"] = torch.nn.functional.pad(ring["pos"], (0, pad),
+                                                  value=-1)
     return out

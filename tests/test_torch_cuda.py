@@ -49,7 +49,8 @@ def card():
     (4, 32, 32, 96, 16, 64, 16),   # phi3-mini-3.8b decode: hd 96, n_rep 1
     (2, 56, 8, 128, 16, 32, 9),    # deepseek-coder-33b decode: n_rep 7
     (2, 7, 1, 8, 16, 16, 4),       # deepseek SMOKE: n_rep 7, hd 8
-])
+    (2, 8, 1, 256, 16, 260, 128),  # recurrentgemma-9b ring: hd 256, 2048
+])                                 # slots, n_rep 16 as two rows of 8
 def test_paged_attention_kernel_matches_plain(card, B, H, Hkv, hd, page, P,
                                               maxp, dtype):
     g = torch.Generator(device=card).manual_seed(0)
@@ -200,6 +201,8 @@ def _qkv(card, B, T, S, H, Hkv, hd, dtype, seed=0):
     (1, 128, 128, 32, 32, 96, True, 0),    # phi3-mini-3.8b prefill, hd 96
     (1, 300, 257, 2, 1, 64, False, 32),    # rows past every key -> 0
     (1, 70, 70, 2, 1, 20, True, 0),        # hd 20: scalar loads in bf16
+    (1, 300, 300, 4, 1, 256, True, 128),   # recurrentgemma-9b: hd 256
+    (1, 100, 100, 2, 1, 160, True, 0),     # hd 160
 ])
 def test_flash_attention_kernel_matches_plain(card, B, T, S, H, Hkv, hd,
                                               causal, window, dtype):
@@ -227,6 +230,10 @@ def test_flash_attention_kernel_matches_plain(card, B, T, S, H, Hkv, hd,
     (1, 200, 200, 4, 2, 128, True, 0),
     (1, 128, 128, 56, 8, 128, True, 0),    # deepseek-coder-33b: n_rep 7
     (1, 128, 128, 7, 1, 8, True, 0),       # deepseek SMOKE: hd 8, n_rep 7
+    (1, 2176, 2176, 16, 1, 256, True, 2048),   # recurrentgemma-9b prefill
+    (1, 200, 200, 4, 2, 256, True, 0),     # hd 256 / 160
+    (1, 300, 257, 4, 2, 160, True, 0),
+    (2, 384, 128, 4, 4, 256, False, 0),
 ])
 def test_flash_attention_tensor_core_kernel_matches_plain(
         card, B, T, S, H, Hkv, hd, causal, window):
@@ -301,9 +308,9 @@ def test_paged_attention_refuses_what_the_kernel_does_not_take(card):
     pool = torch.zeros((2, 4, 1, 16), device=card)
     with pytest.raises(ValueError, match="n_rep 16"):
         paged_attention_cuda(q, pool, pool, table, lens)
-    q = torch.zeros((1, 2, 160), device=card)
-    pool = torch.zeros((2, 4, 2, 160), device=card)
-    with pytest.raises(ValueError, match="hd 160"):
+    q = torch.zeros((1, 2, 272), device=card)
+    pool = torch.zeros((2, 4, 2, 272), device=card)
+    with pytest.raises(ValueError, match="hd 272"):
         paged_attention_cuda(q, pool, pool, table, lens)
     q = torch.zeros((1, 2, 16), device=card)
     pool = torch.zeros((2, 4, 2, 16), device=card)
@@ -312,7 +319,7 @@ def test_paged_attention_refuses_what_the_kernel_does_not_take(card):
 
 
 def test_flash_attention_refuses_what_the_kernel_does_not_take(card):
-    q, k, v = _qkv(card, 1, 8, 8, 2, 2, 192, torch.float32)
+    q, k, v = _qkv(card, 1, 8, 8, 2, 2, 320, torch.float32)
     with pytest.raises(ValueError, match="head width"):
         flash_attention_cuda(q, k, v)
     q, k, v = _qkv(card, 1, 8, 8, 2, 2, 64, torch.float32)

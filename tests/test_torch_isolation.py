@@ -42,7 +42,9 @@ def test_every_port_module_imports_without_jax_or_repro():
     assert "repro_torch.volume.volume" in mods
     assert "repro_torch.serve.kvpager" in mods
     for m in ("models.api", "configs.moonshot_16b", "configs.qwen3_moe_235b",
-              "configs.whisper_large_v3", "configs.llama32_vision_11b"):
+              "configs.whisper_large_v3", "configs.llama32_vision_11b",
+              "models.xlstm", "models.rglru", "configs.xlstm_1p3b",
+              "configs.recurrentgemma_9b"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -120,9 +122,10 @@ def test_entry_points_default_to_the_card():
                make_cache):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert build_parser().parse_args([]).device == "cuda"
-    model = build_model(get_config("moonshot-v1-16b-a3b", smoke=True))
-    assert inspect.signature(model.make_cache).parameters[
-        "device"].default == "cuda"
+    for arch in ("xlstm-1.3b", "recurrentgemma-9b", "moonshot-v1-16b-a3b"):
+        model = build_model(get_config(arch, smoke=True))
+        assert inspect.signature(model.make_cache).parameters[
+            "device"].default == "cuda"
     # init with no generator draws from seed 0 on the card: there, or a
     # refusal where there is none
     if torch.cuda.is_available():

@@ -233,13 +233,15 @@ def test_row_tolerance_separates_a_dropped_key_tile(T, H, Hkv, hd):
     (torch.bfloat16, 128, 0, "simt"),      # no keys to map
     (torch.float32, 128, 128, "simt"),     # TF32 would miss 2e-5
     (torch.float32, 16, 12, "simt"),       # the SMOKE f32 parity
+    (torch.bfloat16, 256, 2176, "tc"),     # recurrentgemma-9b
+    (torch.float32, 256, 2176, "simt"),
 ])
 def test_flash_route(dtype, hd, S, route):
     assert flash_route(dtype, hd, S) == route
 
 
 @pytest.mark.parametrize("hd,hdp", [(16, 64), (64, 64), (96, 128),
-                                    (128, 128)])
+                                    (128, 128), (160, 256), (256, 256)])
 def test_flash_padded_head_width(hd, hdp):
     assert padded_hd(hd) == hdp
 

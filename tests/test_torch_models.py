@@ -30,7 +30,7 @@ from repro.models.common import MoECfg as JaxMoECfg
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.models import layers as tl
 from repro_torch.models.api import build_model
-from repro_torch.models.common import ModelConfig, MoECfg
+from repro_torch.models.common import MoECfg
 from repro_torch.models.transformer import params_from_jax
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -257,7 +257,7 @@ def test_configs_and_param_counts_are_the_references(arch, smoke):
               "n_kv_heads", "d_ff", "vocab", "head_dim", "qkv_bias", "norm",
               "act", "rope_theta", "pos", "tie_embeddings", "enc_layers",
               "enc_seq", "cross_every", "n_img_tokens", "attn_window",
-              "logits_f32"):
+              "block_pattern", "lru_width", "logits_f32"):
         assert getattr(ct, f) == getattr(cj, f), f
     assert (ct.moe is None) == (cj.moe is None)
     if ct.moe is not None:
@@ -289,17 +289,7 @@ def test_the_serving_cli_offers_the_dense_archs_only():
                    if a.dest == "arch")
     assert sorted(choices) == sorted(
         a for a in ARCHS if get_config(a).family == "dense")
-    assert len(choices) == 4 and len(ARCHS) == 8
-
-
-@pytest.mark.parametrize("arch", ["xlstm-1.3b", "recurrentgemma-9b"])
-def test_build_model_refuses_the_recurrent_families(arch):
-    cj = jax_config(arch, smoke=True)
-    fields = {f: getattr(cj, f) for f in ModelConfig.__dataclass_fields__
-              if f not in ("dtype", "moe")}
-    cfg = ModelConfig(**fields, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        build_model(cfg)
+    assert len(choices) == 4 and len(ARCHS) == 10
 
 
 # ------------------------------------------------- decode past the cache
@@ -334,7 +324,7 @@ def test_decode_that_leaves_a_gap_raises():
 
 
 def test_reference_drops_the_decode_write_past_the_cache():
-    """ROADMAP Queue 3 item 6: the reference's off-mesh decode writes the
+    """ROADMAP Queue 3 item 2: the reference's off-mesh decode writes the
     new token with ``.at[bidx, slot].set``, which JAX drops out of bounds:
     after a prefill without ``s_max``, a step at pos = T leaves the cache
     as it was and returns finite logits computed without the token."""
