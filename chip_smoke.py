@@ -130,12 +130,34 @@ Phases, each ending in ``torch.cuda.synchronize()``:
             and cache or state, the greedy decode steps within
             ``ROW_TOL["f32"]``, tokens equal.
 
+17. train  — phi3-mini-3.8b FULL in bf16 (3.82 B parameters: 7.6 GB of
+            weights, 7.6 GB of gradients, 30.6 GB of f32 AdamW moments)
+            trained with remat "dots" after every other phase's weights
+            are freed: the port's ``Trainer`` for 6 steps of 4 x 1024
+            tokens from ``SyntheticLM`` (the last one profiled), then 2
+            steps of ``make_train_step`` at accum 2 on the next batches;
+            every loss finite, every parameter moved by the first step,
+            64 tensor-core flash launches a step and microbatch (each of
+            the 32 layers' forward, and its recompute in the backward);
+            it prints the state's GB by part and the peak, step ms and
+            tokens/s, the profiled step's busy ms, idle share and ops
+            beside the step's bound (6 N tokens + causal attention at 989
+            TFLOP/s, then the update's 22 bytes a parameter at 3.35
+            TB/s), the flash forward and its plain backward alone at the
+            step's shape (device ms, the backward's memory), and the
+            optimizer's update;
+18. train parity — phi3-mini-3.8b SMOKE in f32 (TF32 off), 4 ``Trainer``
+            steps on the card and on the CPU from the same weights and
+            data: losses within rtol 1e-4, parameters within
+            ``ROW_TOL["f32"]`` row by row, the SIMT flash kernel twice a
+            layer and step.
+
 In phases 10-16 every self-attention over a prompt and every
 cross-attention runs the flash kernel (one launch a layer), every decode
 attention the paged kernel (one launch a layer and step); the counts are
 checked.
 
-Launch counts are zeroed just before each of phases 3-16 drives the path
+Launch counts are zeroed just before each of phases 3-18 drives the path
 and read just after (with an eviction pool, after its work has drained);
 every bf16 prefill layer must run the tensor-core
 flash kernel, every f32 one the SIMT kernel; the spill kernel launches
@@ -635,14 +657,19 @@ FLASH_CASES = [  # (label, B, T, S, H, Hkv, hd, causal, window, dtypes)
 
 
 def flash_cases() -> list:
-    """``FLASH_CASES`` and the model API's prefill shapes
-    (``model_shapes``): bf16, the served type, and the cross-attention
-    (T != S) and head width 256 (recurrentgemma, on the SIMT kernel) in
-    f32 too."""
+    """``FLASH_CASES``, the model API's prefill shapes (``model_shapes``):
+    bf16, the served type, and the cross-attention (T != S) and head width
+    256 (recurrentgemma, on the SIMT kernel) in f32 too; and the shape the
+    train phase (``TRAIN``) gives the kernel in every layer, in bf16."""
+    from repro_torch.configs import get_config
+    cfg = get_config(TRAIN["arch"])
+    B, T = TRAIN["B"], TRAIN["T"]
     return FLASH_CASES + [
         (label, B, T, S, H, Hkv, hd, causal, window,
          ("bf16",) if T == S and hd <= 128 else ("f32", "bf16"))
-        for label, B, T, S, H, Hkv, hd, causal, window in model_shapes()[0]]
+        for label, B, T, S, H, Hkv, hd, causal, window in model_shapes()[0]
+    ] + [(f"{cfg.name}-train", B, T, T, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+          True, cfg.attn_window, ("bf16",))]
 
 
 def flash_case(torch, rng, B, T, S, H, Hkv, hd, dtype):
@@ -2116,6 +2143,298 @@ def serve_model(torch, np, arch: str, B: int, T: int, steps: int,
     return out
 
 
+# ---------------------------------------------------- phases 17-18: train
+# phase 17: phi3-mini-3.8b FULL trained through the port's Trainer (6 steps
+# at accum 1) and make_train_step (2 steps at accum 2 on the next batches)
+TRAIN = dict(arch=PHI3, B=4, T=1024, steps=6, accum=2, accum_steps=2)
+
+
+def timed_ms(fn, iters: int) -> tuple:
+    """(device ms per call from the profiler, "profiler"), or where its
+    profile is empty or incomplete (it has been seen to drop events) the
+    CUDA-event time per call, which includes host time the device waits
+    on, and "events"."""
+    ms = device_ms(fn, iters)
+    if ms is not None:
+        return ms, "profiler"
+    return time_ms(fn, iters, warmup=1), "events"
+
+
+def flash_backward_times(torch, cfg, B: int, T: int) -> dict:
+    """The attention of one training layer at (B, T) alone: the flash
+    kernel's forward (``ops.flash_attention`` on the card) and its
+    backward, which recomputes through the plain version (device ms each,
+    from the profiler), and the memory the backward takes beyond its
+    inputs and the forward's output."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn((B, T, H, cfg.hd), generator=g, device="cuda")
+               .to(cfg.dtype).requires_grad_()
+               for H in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    dout = torch.randn((B, T, cfg.n_heads, cfg.hd), generator=g,
+                       device="cuda").to(cfg.dtype)
+    with torch.no_grad():
+        fwd = timed_ms(lambda: ops.flash_attention(q, k, v), 20)
+    out = ops.flash_attention(q, k, v)
+
+    def backward():
+        return torch.autograd.grad(out, (q, k, v), dout, retain_graph=True)
+    bwd = timed_ms(backward, 10)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads = backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    check(all(bool(torch.isfinite(t).all()) for t in grads),
+          "flash backward: a gradient is not finite")
+    n_bytes = q.element_size() * 2 * (q.numel() + k.numel())
+    n_ops = 4 * cfg.hd * cfg.n_heads * B * flash_pairs(T, T, True, 0)
+    fwd_bound, fwd_by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
+    return {"shape": [B, T, cfg.n_heads, cfg.n_kv_heads, cfg.hd],
+            "forward_bound_ms": fwd_bound, "forward_bound_by": fwd_by,
+            "forward_ms": fwd[0], "forward_ms_from": fwd[1],
+            "backward_ms": bwd[0], "backward_ms_from": bwd[1],
+            "backward_peak_gb": peak / 1e9}
+
+
+def train_step_bound(cfg, params, B: int, T: int) -> dict:
+    """The least time one training step could take on the card: the
+    model's products, 6 N operations a token (N every parameter but the
+    input embedding's, a gather; the head's counted, tied or not), plus
+    causal attention, 4 hd operations for
+    each (head, query, key) pair it sees in the forward and twice that in
+    the backward, at the bf16 tensor-core rate; then the optimizer's
+    update, which reads each parameter, its gradient and both moments and
+    writes the parameter and the moments (22 bytes a bf16 parameter), at
+    the memory rate.  The update needs the whole gradient, so the two
+    add."""
+    n = sum(t.numel() for t in _leaves(params))
+    if not cfg.tie_embeddings:
+        n -= params["embed"].numel()
+    n_self, n_cross, n_enc = attention_layers(cfg)
+    pairs = flash_pairs(T, T, True, cfg.attn_window)
+    model_ops = 6 * n * B * T
+    attn_ops = 12 * cfg.hd * cfg.n_heads * B * pairs * n_self
+    opt_bytes = sum(t.numel() * (3 * t.element_size() + 16)
+                    for t in _leaves(params))
+    compute_ms = (model_ops + attn_ops) / BF16_OPS_PER_S * 1e3
+    opt_ms = opt_bytes / HBM_BYTES_PER_S * 1e3
+    return {"model_tflop": model_ops / 1e12, "attention_tflop": attn_ops
+            / 1e12, "compute_bound_ms": compute_ms, "optimizer_bytes_gb":
+            opt_bytes / 1e9, "optimizer_bound_ms": opt_ms,
+            "step_bound_ms": compute_ms + opt_ms}
+
+
+def train_full(torch, np) -> dict:
+    """phi3-mini-3.8b FULL (32 layers, MHA 32:32 of 96) in bf16 with random
+    weights drawn on the card from seed 0, trained with remat "dots" once
+    every other phase's weights are freed: ``Trainer`` for 6 steps of 4 x
+    1024 tokens from ``SyntheticLM`` (AdamW at lr 3e-4, 2 warm-up steps
+    of 8), the last step under the profiler, then 2 steps of
+    ``make_train_step`` at accum 2 on the source's batches 6 and 7.
+    Every loss is finite, every parameter moved in the first step, and the
+    flash kernel ran on the tensor cores 64 times a step and microbatch
+    (the forward of each of the 32 layers, and its recompute in the
+    backward).  Prints the state's GB by part, the peak, step ms and
+    tokens/s of the unprofiled steps, the profiled step's busy ms, idle
+    share and ops beside the step's bound, the flash forward and plain
+    backward alone at the step's shape, and the optimizer's update."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import _build
+    from repro_torch.models.api import build_model
+    from repro_torch.models.transformer import decay_mask
+    from repro_torch.optim import AdamW, apply_updates, tree_map
+    from repro_torch.train import make_train_step
+    from repro_torch.train.loop import TrainConfig, Trainer
+    arch, B, T = TRAIN["arch"], TRAIN["B"], TRAIN["T"]
+    tag = f"train {arch}"
+    before = torch.cuda.memory_allocated()
+    check(before < 1e9, f"{before / 1e9:.2f} GB allocated before {tag}")
+    cfg = get_config(arch)
+    check(cfg.remat == "dots" and cfg.dtype == torch.bfloat16,
+          f"{tag}: remat {cfg.remat}, dtype {cfg.dtype}")
+    attn = flash_backward_times(torch, cfg, B, T)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    opt = AdamW(lr=3e-4, warmup_steps=2,
+                total_steps=TRAIN["steps"] + TRAIN["accum_steps"])
+    source = SyntheticLM(cfg.vocab, seq=T, global_batch=B)
+    tr = Trainer(model, opt, source, cfg=TrainConfig(
+        total_steps=TRAIN["steps"]))
+    step_fn = tr.step_fn
+    seen = {"moved": None, "profile": None}
+
+    def watched(params, opt_state, batch):
+        """The Trainer's step: the weights kept on the host before the
+        first, compared after it; the last one under the profiler."""
+        i = len(tr.history)
+        if i == 0:
+            seen["before"] = [t.detach().cpu() for t in _leaves(params)]
+        if i == TRAIN["steps"] - 1:
+            out = {}
+            seen["profile"] = profile_window(
+                torch, lambda: out.setdefault(
+                    "r", step_fn(params, opt_state, batch)), 1)
+            return out["r"]
+        r = step_fn(params, opt_state, batch)
+        if i == 0:
+            seen["moved"] = [float((t.detach() != h.to("cuda")).float()
+                                   .mean())
+                             for t, h in zip(_leaves(r[0]),
+                                             seen.pop("before"))]
+        return r
+
+    tr.step_fn = watched
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    out = tr.run(torch.Generator(device="cuda").manual_seed(0))
+    params, opt_state = out["params"], out["opt_state"]
+    step2 = make_train_step(model, opt, accum=TRAIN["accum"])
+    accum_s, losses2 = [], []
+    for s in range(TRAIN["steps"], TRAIN["steps"] + TRAIN["accum_steps"]):
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in source.batch_at(s).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step2(params, opt_state, batch)
+        losses2.append(float(m["loss"]))
+        accum_s.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts())
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"] + losses2
+    check(all(math.isfinite(x) for x in losses), f"{tag}: losses {losses}")
+    check(seen["moved"] is not None and min(seen["moved"]) > 0,
+          f"{tag}: a parameter leaf did not move in the first step "
+          f"({seen['moved']})")
+    n_layers = attention_layers(cfg)[0]
+    micro = TRAIN["steps"] + TRAIN["accum"] * TRAIN["accum_steps"]
+    check(launches.get("flash_attention_tc", 0)
+          == launches.get("flash_attention", 0) == 2 * n_layers * micro
+          and launches.get("paged_attention", 0) == 0,
+          f"{tag}: launches {launches}, {2 * n_layers * micro} tensor-core "
+          f"flash launches expected (forward and recompute, {n_layers} "
+          f"layers, {micro} microbatches)")
+    # the optimizer's update alone, on gradients the size of the weights
+    grads = tree_map(lambda t: t.detach().clone(), params)
+    mask = decay_mask(params, cfg)
+
+    def update():
+        upd, _, _ = opt.update(grads, opt_state, params, decay=mask)
+        apply_updates(params, upd)
+    opt_ms = time_ms(update, 3, warmup=1)
+    opt_prof = profile_window(torch, update, 1)
+    del grads
+    leaves = list(_leaves(params))
+    n_params = sum(t.numel() for t in leaves)
+    state_gb = {
+        "weights": sum(t.numel() * t.element_size() for t in leaves) / 1e9,
+        "gradients": sum(t.numel() * t.element_size() for t in leaves)
+        / 1e9,
+        "adam_m_v": sum(t.numel() * t.element_size()
+                        for t in _leaves({"m": opt_state.m,
+                                          "v": opt_state.v})) / 1e9}
+    b = train_step_bound(cfg, params, B, T)
+    steady = [s.dt_s for s in tr.history[1:TRAIN["steps"] - 1]]
+    step_ms = sum(steady) / len(steady) * 1e3
+    prof = seen["profile"]
+    res = {"arch": arch, "B": B, "T": T, "params": n_params,
+           "remat": cfg.remat, "state_gb": state_gb,
+           "state_total_gb": sum(state_gb.values()), "peak_gb": peak / 1e9,
+           "losses": losses, "first_step_s": tr.history[0].dt_s,
+           "step_ms": step_ms, "steps_timed": len(steady),
+           "tokens_per_s": B * T / (step_ms / 1e3),
+           "accum2_step_ms": [x * 1e3 for x in accum_s],
+           "min_moved_share": min(seen["moved"]),
+           "profile": prof, "optimizer_call_ms": opt_ms,
+           "optimizer_profile": opt_prof, **b,
+           "attention": attn, "stragglers": out["stragglers"],
+           "flash_tc_per_step": launches.get("flash_attention_tc", 0)
+           / micro, "launches": launches}
+    log(f"{tag}: {n_params / 1e9:.3f} B params, state GB {state_gb} "
+        f"({res['state_total_gb']:.2f} GB), peak {peak / 1e9:.2f} GB; "
+        f"losses {[round(x, 4) for x in losses]}; step {step_ms:.1f} ms "
+        f"({res['tokens_per_s']:.0f} tokens/s over {len(steady)} steps; "
+        f"first {tr.history[0].dt_s:.2f} s; accum 2: "
+        f"{[round(x * 1e3, 1) for x in accum_s]} ms); profiled step "
+        f"{prof['step_ms']:.1f} ms, busy {prof['device_busy_ms_per_step']:.1f}"
+        f" ms, idle share {prof['device_idle_share']}, "
+        f"{prof['device_ops_per_step']:.0f} device ops; bound "
+        f"{b['step_bound_ms']:.1f} ms ({b['compute_bound_ms']:.1f} ms of "
+        f"{b['model_tflop'] + b['attention_tflop']:.1f} TFLOP + "
+        f"{b['optimizer_bound_ms']:.1f} ms of {b['optimizer_bytes_gb']:.1f} "
+        f"GB); optimizer update {opt_ms:.2f} ms a call (events), device busy "
+        f"{opt_prof['device_busy_ms_per_step']:.2f} ms in "
+        f"{opt_prof['device_ops_per_step']:.0f} device ops, idle share "
+        f"{opt_prof['device_idle_share']}, top ops "
+        f"{opt_prof['top_device_us_per_step'][:4]}; flash forward "
+        f"{attn['forward_ms']:.4f} ms ({attn['forward_ms_from']}; bound "
+        f"{attn['forward_bound_ms']:.4f} ms, {attn['forward_bound_by']}), "
+        f"plain backward {attn['backward_ms']:.3f} ms "
+        f"({attn['backward_ms_from']}) and {attn['backward_peak_gb']:.2f} GB "
+        f"at {attn['shape']}; every leaf "
+        f"moved (least share {res['min_moved_share']:.3f}); flash launches "
+        f"{launches}")
+    del out, params, opt_state, leaves, prof
+    seen.clear()
+    release_weights(torch, {}, arch)
+    return res
+
+
+def parity_train(torch, np) -> dict:
+    """phase 18: phi3-mini-3.8b SMOKE in f32 (TF32 off), 4 ``Trainer``
+    steps on the card and on the CPU from the same weights and data:
+    losses within rtol 1e-4 and every parameter within ``ROW_TOL["f32"]``
+    row by row; on the card the SIMT flash kernel twice a layer and step.
+    Returns the card's launches."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import _build
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.train.loop import TrainConfig, Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tag = f"train parity {PHI3}"
+    cfg = get_config(PHI3, smoke=True, dtype=torch.float32)
+    model = build_model(cfg)
+    init = model.init(torch.Generator().manual_seed(0))
+    out, launches = {}, {}
+    for dev in ("cuda", "cpu"):
+        m = dataclasses.replace(model, init=lambda gen: _to(init, gen.device))
+        tr = Trainer(m, AdamW(lr=1e-3, total_steps=100),
+                     SyntheticLM(cfg.vocab, seq=32, global_batch=4),
+                     cfg=TrainConfig(total_steps=4), device=dev)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        out[dev] = tr.run()
+        torch.cuda.synchronize()
+        if dev == "cuda":
+            launches = dict(_build.launch_counts())
+    a, c = out["cuda"], out["cpu"]
+    loss_err = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                       c["losses"]))
+    check(loss_err <= 1e-4, f"{tag}: losses cuda {a['losses']} cpu "
+          f"{c['losses']}")
+    errs = [row_rel_err(x.detach().cpu().reshape(-1, x.shape[-1]),
+                        y.detach().reshape(-1, y.shape[-1]))
+            for x, y in zip(_leaves(a["params"]), _leaves(c["params"]))]
+    check(max(errs) <= ROW_TOL["f32"], f"{tag}: parameter row error "
+          f"{max(errs):.3g} > {ROW_TOL['f32']}")
+    n = 4 * 2 * cfg.n_layers
+    check(launches.get("flash_attention", 0) == n
+          and launches.get("flash_attention_tc", 0) == 0,
+          f"{tag}: launches {launches}, {n} SIMT flash launches expected")
+    log(f"{tag}: SMOKE f32 (TF32 off), 4 Trainer steps: losses agree card "
+        f"against CPU (max rel err {loss_err:.3g}: {a['losses']}), "
+        f"parameters within ROW_TOL (max row rel err {max(errs):.3g}); "
+        f"cuda launches {launches}")
+    return launches
+
+
 # the model API's SMOKE parity, card against CPU, one arch per family:
 # (arch, prompt tokens, decode steps).  recurrentgemma SMOKE's window is
 # 32: a prompt of 40 fills its ring from the prefill, one of 8 decoded 30
@@ -2420,8 +2739,11 @@ def main() -> int:
     for label, arch, B, T, steps, overrides, reduced in MODEL_RUNS:
         paths[f"model_{label.replace('-', '_')}"] = serve_model(
             torch, np, arch, B, T, steps, reduced=reduced, **overrides)
+    # training at full width, once every other phase's weights are freed
+    paths["train"] = train_full(torch, np)
     parity = parity_smoke(torch, np)
     model_parity = parity_models(torch, np)
+    train_parity = parity_train(torch, np)
     torch.cuda.synchronize()
 
     # launches of each kernel on the paths of phases 3-7, each counted
@@ -2431,6 +2753,7 @@ def main() -> int:
                     for k, c in parity.items()})
     by_path.update({f"model parity {k}": kernel_launches(c)
                     for k, c in model_parity.items()})
+    by_path["train parity"] = kernel_launches(train_parity)
     launches = {name: sum(c.get(name, 0) for c in by_path.values())
                 for name in (*KERNELS, "gather_quantize", "scatter_dequantize")}
     for name in KERNELS:
@@ -2463,7 +2786,8 @@ def main() -> int:
         print(json.dumps({key: {k: v for k, v in p.items()
                                 if k != "launches"}}))
     print(json.dumps({"parity_launches": parity,
-                      "model_parity_launches": model_parity}))
+                      "model_parity_launches": model_parity,
+                      "train_parity_launches": train_parity}))
     print(json.dumps({"flash_launches_by_path": {
         k: {"calls": c.get("flash_attention", 0)
             + c.get("flash_attention_tc", 0),

@@ -1,10 +1,10 @@
-"""Model configuration, as ``repro.models.common`` with torch dtypes.
+"""Model configuration, as ``repro.models.common`` with torch dtypes, and
+the activation checkpointing that its ``remat`` field selects.
 
 The reference's fields under its names and defaults, except: the knobs
-that steer JAX's compiler (``remat``, ``attn_impl``, ``scan_layers``) and
-the chunk of its XLA attention (``attn_chunk``), since the port runs
-eagerly on one card and attends through the flash kernel; and the mesh
-context.
+that steer JAX's compiler (``attn_impl``, ``scan_layers``) and the chunk
+of its XLA attention (``attn_chunk``), since the port runs eagerly on one
+card and attends through the flash kernel; and the mesh context.
 """
 from __future__ import annotations
 
@@ -12,6 +12,8 @@ from dataclasses import dataclass, replace
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 
 @dataclass(frozen=True)
@@ -50,6 +52,7 @@ class ModelConfig:
     lru_width: int = 0         # rglru: recurrence width (0 -> d_model)
     # numerics ----------------------------------------------------------------
     dtype: Any = torch.bfloat16
+    remat: str = "dots"        # none | dots | full
     logits_f32: bool = True
 
     @property
@@ -105,3 +108,34 @@ class ModelConfig:
         if not self.block_pattern:
             return "attn"
         return self.block_pattern[i % len(self.block_pattern)]
+
+
+# the products that "dots" keeps: matrix products with no batch dimension
+# (a (B, T, D) @ (D, F) projection reaches the dispatcher as ``aten.mm``)
+_SAVED_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_SAVED_DOTS)
+
+
+def remat(fn, mode: str):
+    """``fn`` under the reference's ``_remat`` for the training forward:
+    ``"none"`` keeps every activation; ``"full"`` keeps only ``fn``'s
+    inputs and recomputes the rest in the backward; ``"dots"`` (the
+    counterpart of ``dots_with_no_batch_dims_saveable``) also keeps the
+    outputs of ``aten.mm`` and ``aten.addmm`` and recomputes everything
+    else.  The flash kernel is launched through ctypes, not as an aten op,
+    so under either it runs again in the backward.  With grad disabled
+    ``fn`` runs as it is."""
+    if mode not in ("none", "dots", "full"):
+        raise ValueError(f"remat {mode!r}: none, dots or full")
+    if mode == "none":
+        return fn
+    kw = {"context_fn": _dots_context} if mode == "dots" else {}
+
+    def checkpointed(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return checkpointed

@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ops import flash_attention
-from .common import ModelConfig
+from .common import ModelConfig, remat
 from .layers import (_normal, attn_init, check_decode_positions,
                      decode_pages, decode_update_and_attend, init_norm,
                      mlp_apply, mlp_init, out_proj, prompt_positions,
@@ -232,8 +232,10 @@ def _head(params, x):
     return (x @ params["head"]).float()
 
 
-def rg_backbone(params, tokens, cfg: ModelConfig, collect: bool):
-    """-> (final hidden states (B,T,D), the decode state or None)."""
+def rg_backbone(params, tokens, cfg: ModelConfig, collect: bool,
+                mode: str = "none"):
+    """-> (final hidden states (B,T,D), the decode state or None).  Each
+    group runs under ``remat(mode)``; the trailing layers as they are."""
     tokens, positions = prompt_positions(tokens, params["embed"].device)
     B, T = tokens.shape
     x = _embed(params, tokens, cfg)
@@ -241,11 +243,8 @@ def rg_backbone(params, tokens, cfg: ModelConfig, collect: bool):
     W = cfg.attn_window
     n = min(T, W)
     ring = torch.arange(T - n, T, device=tokens.device) % W
-    for kind, layer, key, g in _layers(params, cfg):
-        x, new = rg_layer_apply(x, layer, kind, cfg, positions)
-        if not collect:
-            continue
-        st = states[key] if g is None else states["groups"][key]
+
+    def keep(kind, st, g, new):
         if kind == "attn":
             # the last min(T, W) keys, position p in slot p % W
             st["k"][g][:, ring] = new[0][:, T - n:].to(cfg.dtype)
@@ -254,11 +253,33 @@ def rg_backbone(params, tokens, cfg: ModelConfig, collect: bool):
         else:
             for k in ("h", "tail"):
                 (st[k] if g is None else st[k][g]).copy_(new[k])
+
+    def group(h, grp):
+        news = []
+        for key, kind in zip(GROUP_KEYS, PATTERN):
+            h, new = rg_layer_apply(h, grp[key], kind, cfg, positions)
+            news.append(new)
+        return h, news
+
+    group = remat(group, mode)
+    for g, grp in enumerate(params["groups"]):
+        x, news = group(x, grp)
+        if collect:
+            for key, kind, new in zip(GROUP_KEYS, PATTERN, news):
+                keep(kind, states["groups"][key], g, new)
+    for t in range(n_groups(cfg)[1]):
+        x, new = rg_layer_apply(x, params[f"tail{t}"], "rec", cfg, positions)
+        if collect:
+            keep("rec", states[f"tail{t}"], None, new)
     return x, states
 
 
 def rg_forward(params, batch, cfg: ModelConfig):
-    x, _ = rg_backbone(params, batch["tokens"], cfg, False)
+    """Logits (B, T, V).  Each group runs under ``remat``, as the
+    reference's scan body does: its ``_remat`` recomputes the whole group
+    for "dots" as for "full"."""
+    x, _ = rg_backbone(params, batch["tokens"], cfg, False,
+                       "none" if cfg.remat == "none" else "full")
     return _head(params, x)
 
 

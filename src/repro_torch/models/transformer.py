@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.ops import flash_attention
-from .common import ModelConfig
+from .common import ModelConfig, remat
 from .layers import (apply_norm, attn_init, check_decode_positions,
                      decode_pages, decode_update_and_attend,
                      decode_attention, init_norm, mlp_apply, mlp_init,
@@ -166,24 +166,28 @@ def _unembed(params, x, cfg: ModelConfig):
     return logits.float() if cfg.logits_f32 else logits
 
 
-def _encoder_apply(params, frames, cfg: ModelConfig):
-    """Whisper encoder over stub conv-frontend frame embeddings (B,S,D)."""
+def _encoder_apply(params, frames, cfg: ModelConfig, mode: str = "none"):
+    """Whisper encoder over stub conv-frontend frame embeddings (B,S,D),
+    each block under ``remat(mode)``."""
     B, S, _ = frames.shape
     pos = torch.arange(S, device=frames.device)[None].expand(B, S)
     x = frames.to(cfg.dtype) + sinusoidal_pos(pos, cfg.d_model, cfg.dtype)
     enc_cfg = cfg.with_(act="gelu")
+    layer = remat(lambda h, blk: block_apply(h, blk, enc_cfg, positions=pos,
+                                             causal=False)[0], mode)
     for blk in params["enc_blocks"]:
-        x, _ = block_apply(x, blk, enc_cfg, positions=pos, causal=False)
+        x = layer(x, blk)
     return apply_norm(x, params["enc_norm"], cfg.norm)
 
 
-def _cross_source(params, batch, cfg: ModelConfig):
+def _cross_source(params, batch, cfg: ModelConfig, mode: str = "none"):
     """What the cross-attention layers attend over: the encoder's output
-    (encdec) or the patch embeddings (vlm); None for the other families."""
+    (encdec, its blocks under ``remat(mode)``) or the patch embeddings
+    (vlm); None for the other families."""
     dev = _device(params)
     if cfg.family == "encdec":
         return _encoder_apply(params, torch.as_tensor(batch["frames"],
-                                                      device=dev), cfg)
+                                                      device=dev), cfg, mode)
     if cfg.family == "vlm":
         return torch.as_tensor(batch["image_embeds"],
                                device=dev).to(cfg.dtype)
@@ -211,17 +215,38 @@ def _window(cfg: ModelConfig) -> int:
     return 0 if cfg.family in ("encdec", "vlm") else cfg.attn_window
 
 
+def _scan_steps(params, cfg: ModelConfig):
+    """The decoder's blocks as the steps of the reference's layer scan,
+    each a list of (block, whether it has cross-attention): a vlm group
+    (its self-attention blocks, then its cross block), else one block."""
+    if cfg.family == "vlm":
+        for g in params["groups"]:
+            yield [(blk, False) for blk in g["self"]] + [(g["cross"], True)]
+    else:
+        for unit in _blocks(params, cfg):
+            yield [unit]
+
+
 def lm_forward(params, batch, cfg: ModelConfig):
     """Full-sequence forward -> logits (B, T, V). batch carries 'tokens' and
-    family extras ('frames' for encdec, 'image_embeds' for vlm)."""
+    family extras ('frames' for encdec, 'image_embeds' for vlm).  Each
+    step of the reference's layer scan (a block; a vlm group) runs under
+    ``remat(cfg.remat)``, as the reference's does."""
     tokens, positions = prompt_positions(batch["tokens"], _device(params))
     x = _embed_in(params, tokens, positions, cfg)
-    src = _cross_source(params, batch, cfg)
-    for blk, has_cross in _blocks(params, cfg):
-        xk, xv = (cross_kv(src, blk["xattn"], cfg) if has_cross
-                  else (None, None))
-        x, _ = block_apply(x, blk, cfg, positions=positions,
-                           window=_window(cfg), xk=xk, xv=xv)
+    src = _cross_source(params, batch, cfg, cfg.remat)
+
+    def scan_step(h, blocks):
+        for blk, has_cross in blocks:
+            xk, xv = (cross_kv(src, blk["xattn"], cfg) if has_cross
+                      else (None, None))
+            h, _ = block_apply(h, blk, cfg, positions=positions,
+                               window=_window(cfg), xk=xk, xv=xv)
+        return h
+
+    scan_step = remat(scan_step, cfg.remat)
+    for blocks in _scan_steps(params, cfg):
+        x = scan_step(x, blocks)
     x = apply_norm(x, params["final_norm"], cfg.norm)
     return _unembed(params, x, cfg)
 
@@ -413,6 +438,36 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig, device="cuda") -> dict:
             out[key] = _groups(sub, cfg, device)
         else:
             out[key] = _tree(sub, device)
+    return out
+
+
+def decay_mask(params: dict, cfg: ModelConfig) -> dict:
+    """AdamW's weight-decay mask over the port's parameters (any family):
+    True where the leaf's counterpart in the reference's tree has ndim >=
+    2, the reference's rule (``p.ndim >= 2``), counting the stack axes
+    that ``params_from_jax`` turns into lists: 1 for ``blocks``,
+    ``enc_blocks``, ``dec_blocks`` and the ``groups`` of vlm's ``cross``,
+    xlstm's ``s`` and rglru; 2 for vlm's ``self`` and xlstm's ``m``.  So
+    every per-layer norm scale and bias is decayed, as in the reference
+    (a fault recorded in ROADMAP Queue 3), and ``final_norm`` is not."""
+    inner = {"vlm": "self", "ssm": "m"}.get(cfg.family)
+
+    def walk(tree, axes):
+        if isinstance(tree, dict):
+            return {k: walk(v, axes) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, axes) for v in tree]
+        return tree.dim() + axes >= 2
+
+    out = {}
+    for key, sub in params.items():
+        if key in ("blocks", "enc_blocks", "dec_blocks"):
+            out[key] = walk(sub, 1)
+        elif key == "groups":
+            out[key] = [{k: walk(v, 2 if k == inner else 1)
+                         for k, v in g.items()} for g in sub]
+        else:
+            out[key] = walk(sub, 0)
     return out
 
 

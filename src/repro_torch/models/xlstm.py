@@ -24,7 +24,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig
+from .common import ModelConfig, remat
 from .layers import _normal, init_norm, prompt_positions, rms_norm, token_nll
 
 GROUP = 8          # 7 mLSTM + 1 sLSTM per group
@@ -241,30 +241,40 @@ def xlstm_states(cfg: ModelConfig, B: int, device="cuda") -> dict:
             "s": slstm_state(cfg, B, device, (G,))}
 
 
-def _backbone(params, x, cfg: ModelConfig, state=None, collect=False):
-    """The blocks over x (B,T,D).  ``state``: continue from it and write
-    the new state into it; ``collect``: return the final states, stacked
-    in the reference's layout."""
+def _backbone(params, x, cfg: ModelConfig, state=None, collect=False,
+              mode: str = "none"):
+    """The blocks over x (B,T,D), each group under ``remat(mode)``.
+    ``state``: continue from it and write the new state into it;
+    ``collect``: return the final states, stacked in the reference's
+    layout."""
+
+    def group(h, grp, st):
+        ms = []
+        for i, blk in enumerate(grp["m"]):
+            out, ns = mlstm_apply(h, blk, cfg, state=None if st is None
+                                  else {k: v[i] for k, v in st["m"].items()})
+            h = h + out
+            ms.append(ns)
+        out, ns = slstm_apply(h, grp["s"], cfg, state=None if st is None
+                              else st["s"])
+        return h + out, ms, ns
+
+    group = remat(group, mode)
     ms, ss = [], []
     for g, grp in enumerate(params["groups"]):
-        for i, blk in enumerate(grp["m"]):
-            st = None if state is None else {
-                k: v[g, i] for k, v in state["m"].items()}
-            out, ns = mlstm_apply(x, blk, cfg, state=st)
-            x = x + out
-            if st is not None:
-                for k in st:
-                    st[k].copy_(ns[k])
-            if collect:
-                ms.append(ns)
-        st = None if state is None else {k: v[g] for k, v in state["s"].items()}
-        out, ns = slstm_apply(x, grp["s"], cfg, state=st)
-        x = x + out
+        st = None if state is None else {
+            part: {k: v[g] for k, v in state[part].items()}
+            for part in ("m", "s")}
+        x, gm, gs = group(x, grp, st)
         if st is not None:
-            for k in st:
-                st[k].copy_(ns[k])
+            for i, ns in enumerate(gm):
+                for k in ns:
+                    st["m"][k][i].copy_(ns[k])
+            for k in gs:
+                st["s"][k].copy_(gs[k])
         if collect:
-            ss.append(ns)
+            ms += gm
+            ss.append(gs)
     if not collect:
         return x, None
     G = len(params["groups"])
@@ -284,8 +294,11 @@ def _embed(params, tokens):
 
 
 def xlstm_forward(params, batch, cfg: ModelConfig):
-    x = _embed(params, batch["tokens"])
-    x, _ = _backbone(params, x, cfg)
+    """Logits (B, T, V).  Each group runs under ``remat``, as the
+    reference's scan body does: its ``_remat`` recomputes the whole group
+    for "dots" as for "full"."""
+    x, _ = _backbone(params, _embed(params, batch["tokens"]), cfg,
+                     mode="none" if cfg.remat == "none" else "full")
     return _head(params, x)
 
 

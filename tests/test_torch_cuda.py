@@ -773,3 +773,120 @@ def test_model_api_equal_on_cuda_and_cpu(card, arch):
             d = (a - c).norm(dim=-1)
             assert (d <= ROW_TOL[torch.float32] * c.norm(dim=-1)
                     + 1e-30).all()
+
+
+# --------------------------------------------------------------- training
+def _train_batch(cfg, B=4, T=32, seed=0):
+    r = np.random.default_rng(seed)
+    return {"tokens": r.integers(0, cfg.vocab, (B, T)).astype(np.int32),
+            "targets": r.integers(0, cfg.vocab, (B, T)).astype(np.int32)}
+
+
+def test_trainer_equal_on_cuda_and_cpu(card):
+    """phi3 SMOKE in f32 (TF32 off), 4 ``Trainer`` steps from the same
+    weights and data on the card and the CPU: losses within rtol 1e-4,
+    parameters within ROW_TOL row by row, and on the card the SIMT flash
+    kernel launched twice a layer and step (the forward, and its
+    recompute under remat "dots")."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import AdamW, tree_leaves
+    from repro_torch.train.loop import TrainConfig, Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("phi3-mini-3.8b", smoke=True, dtype=torch.float32)
+    model = build_model(cfg)
+    init = model.init(torch.Generator().manual_seed(0))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = dataclasses.replace(model, init=lambda gen: _to(init, gen.device))
+        tr = Trainer(m, AdamW(lr=1e-3, total_steps=100),
+                     SyntheticLM(cfg.vocab, seq=32, global_batch=4),
+                     cfg=TrainConfig(total_steps=4), device=dev)
+        _build.reset_launch_counts()
+        out[dev] = tr.run()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            n = _build.launch_counts()
+            assert n.get("flash_attention", 0) == 4 * 2 * cfg.n_layers
+            assert n.get("flash_attention_tc", 0) == 0
+    np.testing.assert_allclose(out["cuda"]["losses"], out["cpu"]["losses"],
+                               rtol=1e-4)
+    for a, c in zip(tree_leaves(out["cuda"]["params"]),
+                    tree_leaves(out["cpu"]["params"])):
+        a = a.detach().cpu().float().reshape(-1, a.shape[-1] if a.dim()
+                                             else 1)
+        c = c.detach().float().reshape(a.shape)
+        d = (a - c).norm(dim=-1)
+        assert (d <= ROW_TOL[torch.float32] * c.norm(dim=-1)).all()
+
+
+def _phi3_bf16_grads(card, remat="dots"):
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import tree_leaves
+    cfg = get_config("phi3-mini-3.8b", smoke=True, remat=remat)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=card).manual_seed(0))
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    _build.reset_launch_counts()
+    loss = model.loss(params, _train_batch(cfg))
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    return cfg, grads, dict(_build.launch_counts())
+
+
+def test_bf16_training_gradient_on_the_tensor_core_route(card, monkeypatch):
+    """phi3 SMOKE in bf16 (hd 16): the loss's gradient runs the
+    tensor-core flash kernel twice a layer (the forward and its recompute
+    under remat "dots") and is finite; and at each layer's own q, k and v
+    the flash op's output and gradient (the kernel's forward, the plain
+    version's recompute in the backward) equal the plain version's within
+    the bf16 element and row tolerances."""
+    from repro_torch.models import transformer
+    inputs = []
+    flash = transformer.flash_attention
+
+    def recorded(q, k, v, causal=True, window=0):
+        inputs.append(tuple(t.detach().clone() for t in (q, k, v)))
+        return flash(q, k, v, causal=causal, window=window)
+    monkeypatch.setattr(transformer, "flash_attention", recorded)
+    cfg, grads, n = _phi3_bf16_grads(card)
+    assert n.get("flash_attention_tc", 0) == n.get("flash_attention", 0) \
+        == 2 * cfg.n_layers
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert len(inputs) == 2 * cfg.n_layers     # the recompute's inputs too
+    g = torch.Generator(device=card).manual_seed(1)
+    for q, k, v in inputs[:cfg.n_layers]:
+        assert q.dtype == torch.bfloat16 and q.shape[-1] == 16
+        dout = torch.randn(q.shape, generator=g, device=card).to(q.dtype)
+        got, exp = [], []
+        for fn, res in ((ops.flash_attention, got),
+                        (flash_attention_plain, exp)):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = fn(*leaves, causal=True, window=0)
+            out.backward(dout)
+            res += [out.detach()] + [t.grad for t in leaves]
+        torch.cuda.synchronize()
+        for a, e in zip(got, exp):
+            torch.testing.assert_close(a.float(), e.float(),
+                                       atol=TOL[torch.bfloat16],
+                                       rtol=TOL[torch.bfloat16])
+            assert_rows_close(a, e)
+
+
+def test_remat_gradients_equal_with_the_kernel(card):
+    """remat "none", "dots" and "full" give the same bf16 gradient on the
+    card, bit for bit, with the tensor-core flash kernel in the loop; the
+    recomputing modes launch it twice a layer, "none" once."""
+    grads = {}
+    for mode in ("none", "dots", "full"):
+        cfg, grads[mode], n = _phi3_bf16_grads(card, remat=mode)
+        assert n.get("flash_attention_tc", 0) == cfg.n_layers * (
+            1 if mode == "none" else 2)
+    for mode in ("dots", "full"):
+        for a, b in zip(grads["none"], grads[mode]):
+            assert torch.equal(a, b)

@@ -44,7 +44,8 @@ def test_every_port_module_imports_without_jax_or_repro():
     for m in ("models.api", "configs.moonshot_16b", "configs.qwen3_moe_235b",
               "configs.whisper_large_v3", "configs.llama32_vision_11b",
               "models.xlstm", "models.rglru", "configs.xlstm_1p3b",
-              "configs.recurrentgemma_9b"):
+              "configs.recurrentgemma_9b", "optim.adamw", "train.step",
+              "train.loop", "data.pipeline", "launch.train"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"

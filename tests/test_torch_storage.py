@@ -1,8 +1,8 @@
 """The port's copies of the storage stack against the reference.
 
 The port may not import ``repro``, so it carries whole copies of the
-jax-free storage modules its spill tier needs (``core/``, ``volume/``) and
-of ``serve/kvpager.py``.  A copy is the reference's text with the package
+jax-free storage modules its spill tier needs (``core/``, ``volume/``), of
+``serve/kvpager.py`` and of the training data pipeline (``data/``).  A copy is the reference's text with the package
 name changed and nothing else; and one seeded workload through the
 reference's ``make_volume`` and through the copy's reads back the same
 bytes and moves the same counters."""
@@ -21,7 +21,7 @@ COPIES = ([f"core/{m}.py" for m in ("__init__", "bio", "btt", "cache",
           + [f"volume/{m}.py" for m in ("__init__", "admission", "aio",
                                          "autotune", "evict_pool", "journal",
                                          "qos", "read_tier", "volume")]
-          + ["serve/kvpager.py"])
+          + ["serve/kvpager.py", "data/__init__.py", "data/pipeline.py"])
 
 # counters of the workload below that do not depend on thread timing: the
 # journal's transactions and commit batches, the async frontend's tickets,
