@@ -150,14 +150,29 @@ Phases, each ending in ``torch.cuda.synchronize()``:
             steps on the card and on the CPU from the same weights and
             data: losses within rtol 1e-4, parameters within
             ``ROW_TOL["f32"]`` row by row, the SIMT flash kernel twice a
-            layer and step.
+            layer and step;
+19. train ckpt — right after phase 17: phi3-mini-3.8b at its full width
+            cut to 1 layer (3.10 GB of bf16 weights and f32 moments;
+            printed as ``reduced``), 4 x 1024 tokens a step, through the
+            ``Trainer`` with Caiti-backed checkpoints to a ``caiti`` file
+            store in a temporary directory: run A saves once, async,
+            after step 3, runs steps 4-6 with the save in flight and
+            crashes at step 7; the store is reopened from the file and
+            run B resumes steps 4-7 from it, the restored state equal bit
+            for bit (per-leaf digests) to the state saved; run C trains
+            steps 0-7 without checkpoints, and both runs' losses must
+            equal its own within rtol 1e-4; it prints the checkpoint's GB,
+            the snapshot's ms (the loop's stall), the background write's
+            s and MB/s, ``cache_flush`` and commit s, the staged and
+            bypassed chunks, the steps beside the save against run C's,
+            the reopen and restore s and the store file's size.
 
 In phases 10-16 every self-attention over a prompt and every
 cross-attention runs the flash kernel (one launch a layer), every decode
 attention the paged kernel (one launch a layer and step); the counts are
 checked.
 
-Launch counts are zeroed just before each of phases 3-18 drives the path
+Launch counts are zeroed just before each of phases 3-19 drives the path
 and read just after (with an eviction pool, after its work has drained);
 every bf16 prefill layer must run the tensor-core
 flash kernel, every f32 one the SIMT kernel; the spill kernel launches
@@ -2383,6 +2398,293 @@ def train_full(torch, np) -> dict:
     return res
 
 
+# phase 19: Caiti-backed checkpoints of phi3-mini-3.8b at full width with
+# its depth cut to one layer (3.10 GB of state: one save has to fit the
+# script's time), through the Trainer: run A saves once asynchronously
+# after step 3 and crashes at step 7; run B reopens the file store and
+# resumes at step 4; run C trains steps 0-7 without a checkpoint
+CKPT = dict(arch=PHI3, B=4, T=1024, n_layers=1, steps=12, every=4, crash=7,
+            resume_steps=8, store_bytes=8 << 30)
+BITS = {1: "uint8", 2: "int16", 4: "int32", 8: "int64"}
+
+
+class SimulatedCrash(RuntimeError):
+    """Raised by run A's step 7: the training process dies there."""
+
+
+def _paths(tree, prefix=""):
+    """(path, leaf) of a tree of dicts, lists and NamedTuples."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, tuple):
+        items = zip(tree._fields, tree)
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return [(prefix, tree)]
+    return [p for k, v in items for p in _paths(v, f"{prefix}/{k}")]
+
+
+def state_digests(torch, state) -> dict:
+    """{path: (sum of the bits, sum of the bits weighted by position, mod
+    2^64)} of every leaf, computed on its device: two states with equal
+    digests hold the same bits, short of a collision."""
+    out = {}
+    for path, t in _paths(state):
+        bits = t.detach().contiguous().view(
+            getattr(torch, BITS[t.element_size()])).reshape(-1).long()
+        w = torch.arange(bits.numel(), device=bits.device) * 2654435761 + 1
+        out[path] = (int(bits.sum()), int((bits * w).sum()))
+    return out
+
+
+def train_ckpt(torch, np) -> dict:
+    """phi3-mini-3.8b at its published widths (d 3072, 32:32 heads of 96,
+    d_ff 8192, vocab 32064) in bf16 with remat "dots", depth cut to one
+    layer, trained on 4 x 1024 tokens a step with Caiti-backed
+    checkpoints to a file store (``make_blockstore(policy="caiti")``, a
+    sparse file in a temporary directory, removed at the end):
+
+    * run A, ``TrainConfig(total_steps=12, ckpt_every=4,
+      async_ckpt=True)``: one ``save_async`` after step 3 (its snapshot is
+      the loop's stall), steps 4-6 while the save is in flight, and step
+      7 raises a simulated crash; the Trainer's ``finally`` waits for the
+      save's commit;
+    * the crash drops the Trainer, the engine and the store; a new store
+      reopens the file, and ``latest_step()`` is 3;
+    * run B, a new Trainer (8 steps), restores and resumes at step 4 (its
+      restore is timed up to the tensors on the card, and the restored
+      state's per-leaf digests must equal those taken of the Trainer's
+      state when it saved), and runs steps 4-7 without a second save;
+    * run C trains steps 0-7 without a checkpoint engine: run A's losses
+      and run B's equal its own within rtol 1e-4.
+
+    Every run launches the tensor-core flash kernel twice a layer and
+    step."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.ckpt import CheckpointEngine, make_blockstore
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import _build
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.train.loop import TrainConfig, Trainer
+    c = CKPT
+    arch, B, T = c["arch"], c["B"], c["T"]
+    tag = f"train_ckpt {arch}"
+    before = torch.cuda.memory_allocated()
+    check(before < 1e9, f"{before / 1e9:.2f} GB allocated before {tag}")
+    full_layers = get_config(arch).n_layers
+    cfg = get_config(arch, n_layers=c["n_layers"])
+    check(cfg.remat == "dots" and cfg.dtype == torch.bfloat16,
+          f"{tag}: remat {cfg.remat}, dtype {cfg.dtype}")
+    model = build_model(cfg)
+    source = SyntheticLM(cfg.vocab, seq=T, global_batch=B)
+    opt = AdamW(lr=3e-4, warmup_steps=2, total_steps=c["steps"])
+
+    def trainer(ckpt, steps):
+        return Trainer(model, opt, source, ckpt=ckpt, cfg=TrainConfig(
+            total_steps=steps, ckpt_every=c["every"], async_ckpt=True))
+
+    def run(tr, n_steps: int) -> tuple:
+        """Runs ``tr``; -> (its output or None after a simulated crash,
+        its flash launches, checked: the tensor-core kernel twice a layer
+        in each of ``n_steps`` steps)."""
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        try:
+            out = tr.run(torch.Generator(device="cuda").manual_seed(0))
+        except SimulatedCrash:
+            out = None
+        torch.cuda.synchronize()
+        n = dict(_build.launch_counts())
+        want = 2 * c["n_layers"] * n_steps
+        check(n.get("flash_attention_tc", 0) == n.get("flash_attention", 0)
+              == want and n.get("paged_attention", 0) == 0,
+              f"{tag}: launches {n}, {want} tensor-core flash launches "
+              f"expected")
+        return out, n
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    pool = os.path.join(tmp, "pool")
+    try:
+        # ---- run A: one async save after step 3, a crash at step 7
+        store = make_blockstore(pool, policy="caiti",
+                                capacity_bytes=c["store_bytes"])
+        commit_s = []
+        commit = store.commit
+
+        def timed_commit():
+            t0 = time.perf_counter()
+            gen = commit()
+            commit_s.append(time.perf_counter() - t0)
+            return gen
+        store.commit = timed_commit
+        eng = CheckpointEngine(store)
+        saves = []
+        save_async = eng.save_async
+
+        def watched_save(step, state):
+            """The Trainer's save: the state's digests first (on the
+            card), then the save's own call, timed: the snapshot."""
+            digests = state_digests(torch, state)
+            gb = {part: sum(t.numel() * t.element_size()
+                            for _, t in _paths(tree)) / 1e9
+                  for part, tree in (("params", state["params"]),
+                                     ("adam_m", state["opt"].m),
+                                     ("adam_v", state["opt"].v))}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_async(step, state)
+            saves.append({"step": step, "digests": digests, "gb": gb,
+                          "snapshot_ms": (time.perf_counter() - t0) * 1e3})
+        eng.save_async = watched_save
+        tr = trainer(eng, c["steps"])
+        step_fn = tr.step_fn
+        in_flight, crashed_at = {}, []
+
+        def crashing(params, opt_state, batch):
+            i = len(tr.history)
+            if i == c["crash"]:
+                crashed_at.append(time.perf_counter())
+                raise SimulatedCrash(f"step {i}")
+            r = step_fn(params, opt_state, batch)
+            in_flight[i] = bool(saves) and "ckpt_save" not in \
+                eng.metrics.count
+            return r
+        tr.step_fn = crashing
+        out_a, n_a = run(tr, c["crash"])
+        check(out_a is None and len(crashed_at) == 1
+              and len(tr.history) == c["crash"],
+              f"{tag}: run A ran {len(tr.history)} steps, no crash")
+        wait_s = time.perf_counter() - crashed_at[0]
+        check([s["step"] for s in saves] == [c["every"] - 1]
+              and eng.metrics.count.get("ckpt_save") == 1,
+              f"{tag}: saves {[s['step'] for s in saves]}, one after step "
+              f"{c['every'] - 1} expected")
+        overlap = list(range(c["every"], c["crash"]))
+        check(all(in_flight[i] for i in overlap),
+              f"{tag}: the save was not in flight through steps {overlap}: "
+              f"{in_flight}")
+        losses_a = [s.loss for s in tr.history]
+        dt_a = [s.dt_s for s in tr.history]
+        m = eng.metrics
+        manifest = json.loads(store.get(
+            f"step{c['every'] - 1:010d}/MANIFEST").decode())
+        n_chunks = sum(v["chunks"] for v in manifest.values())
+        save = saves[0]
+        save_bytes = sum(save["gb"].values()) * 1e9
+        write_s = m.ns["ckpt_save"] / 1e9
+        crash = {"write_s": write_s, "cache_flush_s": m.ns["cache_flush"]
+                 / 1e9, "commit_s": commit_s, "chunks": n_chunks,
+                 "bypass_writes": m.count.get("bypass_writes", 0),
+                 "conditional_bypass": m.count.get("conditional_bypass", 0),
+                 "wait_after_crash_s": wait_s}
+        crash["staged"] = n_chunks - crash["bypass_writes"]
+        # ---- the crash: drop the Trainer, the engine and the store
+        dropped = (eng, store)
+        del tr, eng, store, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(torch.cuda.memory_allocated() < 1e9,
+              f"{tag}: {torch.cuda.memory_allocated() / 1e9:.2f} GB still "
+              f"allocated after the crash")
+        # ---- run B: reopen the file, restore, resume at step 4
+        t0 = time.perf_counter()
+        store = make_blockstore(pool, policy="caiti",
+                                capacity_bytes=c["store_bytes"])
+        eng = CheckpointEngine(store)
+        reopen_s = time.perf_counter() - t0
+        check(eng.latest_step() == c["every"] - 1,
+              f"{tag}: latest step {eng.latest_step()} after the reopen")
+        tr = trainer(eng, c["resume_steps"])
+        restore = tr.restore_or_init
+        restored = {}
+
+        def restoring(gen):
+            t0 = time.perf_counter()
+            params, opt_state, start = restore(gen)
+            torch.cuda.synchronize()
+            restored.update(
+                restore_s=time.perf_counter() - t0, start=start,
+                digests=state_digests(torch, {"params": params,
+                                              "opt": opt_state}))
+            tr.ckpt = None     # run B saves nothing: one save a phase
+            return params, opt_state, start
+        tr.restore_or_init = restoring
+        out_b, n_b = run(tr, c["resume_steps"] - c["every"])
+        eng.close()
+        check(restored["start"] == c["every"],
+              f"{tag}: run B resumed at step {restored['start']}")
+        differ = [k for k, d in save["digests"].items()
+                  if restored["digests"].get(k) != d]
+        check(restored["digests"].keys() == save["digests"].keys()
+              and not differ, f"{tag}: the restored state differs from "
+              f"the saved one at {differ[:5]}")
+        store_bytes = os.stat(pool)
+        del out_b["params"], out_b["opt_state"]
+        # ---- run C: steps 0-7 without a checkpoint engine
+        tr_c = trainer(None, c["resume_steps"])
+        out_c, n_c = run(tr_c, c["resume_steps"])
+        del out_c["params"], out_c["opt_state"]
+        dropped[0].transit.close()
+        dropped[1].close()
+    finally:
+        shutil.rmtree(tmp)
+    losses_c = out_c["losses"]
+    err_a = max(abs(x - y) / abs(y) for x, y in zip(losses_a, losses_c))
+    err_b = max(abs(x - y) / abs(y)
+                for x, y in zip(out_b["losses"], losses_c[c["every"]:]))
+    check(out_b["last_step"] == c["resume_steps"] - 1 and err_b <= 1e-4,
+          f"{tag}: run B's losses {out_b['losses']} against run C's "
+          f"{losses_c[c['every']:]}")
+    check(err_a <= 1e-4, f"{tag}: run A's losses {losses_a} against run "
+          f"C's {losses_c}")
+    check(all(math.isfinite(x) for x in losses_c), f"{tag}: {losses_c}")
+    dt_c = [s.dt_s for s in tr_c.history]
+    launches = {k: n_a.get(k, 0) + n_b.get(k, 0) + n_c.get(k, 0)
+                for k in set(n_a) | set(n_b) | set(n_c)}
+    res = {"arch": arch, "B": B, "T": T,
+           "reduced": {"n_layers": f"{full_layers} -> {c['n_layers']}"},
+           "ckpt_gb": save["gb"], "ckpt_total_gb": save_bytes / 1e9,
+           "snapshot_ms": save["snapshot_ms"], **crash,
+           "save_mb_s": save_bytes / 1e6 / write_s,
+           "overlap_steps": overlap,
+           "overlap_step_ms": [dt_a[i] * 1e3 for i in overlap],
+           "same_steps_run_c_ms": [dt_c[i] * 1e3 for i in overlap],
+           "reopen_s": reopen_s, "restore_s": restored["restore_s"],
+           "run_b_first_step_ms": tr.history[0].dt_s * 1e3,
+           "store_file_gb": store_bytes.st_size / 1e9,
+           "store_file_allocated_gb": store_bytes.st_blocks * 512 / 1e9,
+           "losses_a": losses_a, "losses_b": out_b["losses"],
+           "losses_c": losses_c, "max_rel_loss_diff_a": err_a,
+           "max_rel_loss_diff_b": err_b, "leaves": len(save["digests"]),
+           "launches": launches}
+    log(f"{tag}: reduced {res['reduced']}; checkpoint {res['ckpt_gb']} GB "
+        f"({res['ckpt_total_gb']:.3f} GB); snapshot (the loop's stall) "
+        f"{res['snapshot_ms']:.1f} ms; background write {write_s:.2f} s "
+        f"({res['save_mb_s']:.1f} MB/s), cache_flush "
+        f"{crash['cache_flush_s']:.2f} s, commit "
+        f"{[round(x, 3) for x in commit_s]} s; chunks {n_chunks}: staged "
+        f"{crash['staged']}, bypassed {crash['bypass_writes']} "
+        f"(conditional_bypass {crash['conditional_bypass']}); steps "
+        f"{overlap} with the save in flight "
+        f"{[round(x, 1) for x in res['overlap_step_ms']]} ms, run C's "
+        f"{[round(x, 1) for x in res['same_steps_run_c_ms']]} ms; crash at "
+        f"step {c['crash']}, then {wait_s:.2f} s to the commit and the "
+        f"run's end; reopen "
+        f"{reopen_s:.2f} s + restore to the card {res['restore_s']:.2f} s, "
+        f"{res['leaves']} leaves bit for bit (digests); run B's first step "
+        f"{res['run_b_first_step_ms']:.1f} ms; store file "
+        f"{res['store_file_gb']:.2f} GB ({res['store_file_allocated_gb']:.2f}"
+        f" GB allocated); losses max rel diff: run B {err_b:.3g}, run A "
+        f"{err_a:.3g}; flash launches A {n_a}, B {n_b}, C {n_c}")
+    release_weights(torch, {}, arch)
+    return res
+
+
 def parity_train(torch, np) -> dict:
     """phase 18: phi3-mini-3.8b SMOKE in f32 (TF32 off), 4 ``Trainer``
     steps on the card and on the CPU from the same weights and data:
@@ -2741,6 +3043,7 @@ def main() -> int:
             torch, np, arch, B, T, steps, reduced=reduced, **overrides)
     # training at full width, once every other phase's weights are freed
     paths["train"] = train_full(torch, np)
+    paths["train_ckpt"] = train_ckpt(torch, np)
     parity = parity_smoke(torch, np)
     model_parity = parity_models(torch, np)
     train_parity = parity_train(torch, np)

@@ -2,8 +2,9 @@
 the decoder-only LM (dense and MoE), the encoder-decoder (whisper) and the
 VLM with interleaved cross-attention layers (llama-vision); random init
 from a ``torch.Generator``; and the converters from a JAX parameter pytree
-and a JAX decode state or cache, for every family (the recurrent ones
-live in ``models/xlstm.py`` and ``models/rglru.py``).
+(and back, ``params_to_jax``) and a JAX decode state or cache, for every
+family (the recurrent ones live in ``models/xlstm.py`` and
+``models/rglru.py``).
 
 Parameters are a plain dict: ``embed`` (V, D), ``head`` (D, V) unless tied,
 ``final_norm``, and the layers as lists with one dict per layer (the
@@ -439,6 +440,67 @@ def params_from_jax(np_tree: dict, cfg: ModelConfig, device="cuda") -> dict:
         else:
             out[key] = _tree(sub, device)
     return out
+
+
+def params_to_jax(tree):
+    """The inverse of ``params_from_jax`` (and, on an ``AdamWState``, of
+    ``optim.opt_state_from_jax``): the port's parameters, or any tree of
+    its, -> the reference's stacked layout.  Every list of layers (a list
+    of lists for vlm's ``self`` and xlstm's ``m``) becomes leading axes
+    of each leaf below it; dicts and NamedTuples keep their structure.
+    Each leaf is a host tensor over a fresh numpy buffer, bf16 over an
+    int16 one (numpy has no bf16 without ml_dtypes), into whose slices
+    the layers are copied one by one from their device: nothing is
+    stacked on the card, and nothing of the result shares memory with
+    ``tree``, which the optimizer updates in place."""
+    if isinstance(tree, dict):
+        return {k: params_to_jax(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(params_to_jax(v) for v in tree))
+    stacks: dict[tuple, list] = {}
+    for path, index, leaf in _layer_leaves(tree):
+        stacks.setdefault(path, []).append((index, torch.as_tensor(leaf)))
+    if list(stacks) == [()]:
+        return _host_stack(stacks[()])
+    out: dict = {}
+    for path, parts in stacks.items():
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = _host_stack(parts)
+    return out
+
+
+def _layer_leaves(x, path=(), index=()):
+    """(dict keys, list positions, leaf) of each leaf below ``x``."""
+    if isinstance(x, dict):
+        for k, v in x.items():
+            yield from _layer_leaves(v, path + (k,), index)
+    elif isinstance(x, list):
+        for i, v in enumerate(x):
+            yield from _layer_leaves(v, path, index + (i,))
+    else:
+        yield path, index, x
+
+
+def _host_stack(parts: list) -> torch.Tensor:
+    """[(layer index, tensor)] -> one host tensor over a new numpy buffer,
+    each tensor copied into its slice (a copy from the card waits for
+    it)."""
+    first = parts[0][1]
+    lead = tuple(max(ix[a] for ix, _ in parts) + 1
+                 for a in range(len(parts[0][0])))
+    if len(parts) != math.prod(lead):
+        raise ValueError(f"layers of unequal structure: {len(parts)} "
+                         f"leaves for a stack of {lead}")
+    bf16 = first.dtype == torch.bfloat16
+    np_dtype = (np.int16 if bf16
+                else torch.empty((), dtype=first.dtype).numpy().dtype)
+    host = torch.from_numpy(np.empty(lead + tuple(first.shape), np_dtype))
+    host = host.view(torch.bfloat16) if bf16 else host
+    for ix, t in parts:
+        host[ix].copy_(t.detach())
+    return host
 
 
 def decay_mask(params: dict, cfg: ModelConfig) -> dict:

@@ -890,3 +890,96 @@ def test_remat_gradients_equal_with_the_kernel(card):
     for mode in ("dots", "full"):
         for a, b in zip(grads["none"], grads[mode]):
             assert torch.equal(a, b)
+
+
+# ------------------------------------------------------------- checkpoints
+def _bits(t):
+    t = t.detach().cpu()
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+@pytest.mark.parametrize("src,dst", [("cuda", "cpu"), ("cpu", "cuda")])
+def test_bf16_checkpoint_crosses_card_and_cpu(card, src, dst):
+    """internlm2 SMOKE in its default dtype (bf16 weights, f32 norms and
+    moments) saved from one device restores on the other bit for bit,
+    through ``restore(like=..., device=)``, the Trainer's path."""
+    from repro_torch.ckpt import CheckpointEngine, make_blockstore
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import AdamW, tree_leaves
+    cfg = get_config("internlm2-1.8b", smoke=True)
+    params = build_model(cfg).init(torch.Generator(device=src).manual_seed(0))
+    opt_state = AdamW().init(params)
+    g = torch.Generator(device=src).manual_seed(1)
+    for t in tree_leaves(opt_state)[1:]:
+        t.copy_(torch.randn(t.shape, generator=g, device=src))
+    state = {"params": params, "opt": opt_state}
+    eng = CheckpointEngine(make_blockstore(capacity_bytes=64 << 20))
+    eng.save(2, state)
+    got, step = eng.restore(like=state, device=dst)
+    eng.close()
+    assert step == 2
+    want = {k: _bits(t) for k, t in _paths(state)}
+    have = dict(_paths(got))
+    assert have.keys() == want.keys()
+    for k, t in have.items():
+        assert t.device.type == dst
+        assert torch.equal(_bits(t), want[k]), k
+    assert any(t.dtype == torch.bfloat16 for t in tree_leaves(got))
+
+
+def _paths(tree, prefix=""):
+    """(path, leaf) of a tree of dicts, lists and NamedTuples."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, tuple):
+        items = zip(tree._fields, tree)
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return [(prefix, tree)]
+    return [p for k, v in items for p in _paths(v, f"{prefix}/{k}")]
+
+
+def test_trainer_crash_restart_on_the_card(card):
+    """internlm2 SMOKE (bf16) on the card with a checkpoint every 2 steps:
+    step 5 raises (a crash) after the step-3 save; a new Trainer resumes
+    at step 4 and its losses at steps 4-7 equal an uninterrupted run's
+    within rtol 1e-4."""
+    from repro_torch.ckpt import CheckpointEngine, make_blockstore
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import AdamW, tree_leaves
+    from repro_torch.train.loop import TrainConfig, Trainer
+    cfg = get_config("internlm2-1.8b", smoke=True)
+    model = build_model(cfg)
+    src = SyntheticLM(cfg.vocab, seq=32, global_batch=4)
+
+    def trainer(ckpt, steps, every):
+        return Trainer(model, AdamW(lr=1e-3, total_steps=100), src,
+                       ckpt=ckpt, cfg=TrainConfig(total_steps=steps,
+                                                  ckpt_every=every))
+
+    class Crash(RuntimeError):
+        pass
+
+    eng = CheckpointEngine(make_blockstore(capacity_bytes=64 << 20))
+    tr = trainer(eng, 8, 2)
+    step_fn = tr.step_fn
+
+    def crashing(*a):
+        if len(tr.history) == 5:
+            raise Crash("step 5")
+        return step_fn(*a)
+
+    tr.step_fn = crashing
+    with pytest.raises(Crash):
+        tr.run()
+    assert eng.latest_step() == 3
+    out = trainer(eng, 8, 100).run()
+    ref = trainer(None, 8, 100).run()
+    eng.close()
+    assert out["last_step"] == 7 and len(out["losses"]) == 4
+    assert all(t.is_cuda for t in tree_leaves(out["params"]))
+    np.testing.assert_allclose(out["losses"], ref["losses"][4:], rtol=1e-4)

@@ -1,8 +1,9 @@
 """The port stands alone: importing every ``repro_torch`` module pulls in
-neither JAX nor any module of the JAX package, no import statement of the
-port or of ``chip_smoke.py`` names either (not even one inside a function,
-which importing the module does not run), and neither calls PyTorch's
-fused attention or its compiler in place of a kernel of its own.
+neither JAX nor any module of the JAX package nor ``ml_dtypes``, no import
+statement of the port or of ``chip_smoke.py`` names any of them (not even
+one inside a function, which importing the module does not run), and
+neither calls PyTorch's fused attention or its compiler in place of a
+kernel of its own.
 ``chip_smoke.py`` names the fused attention in one function only, the one
 that times it as flash attention's ``library_ms``.  The entry points run
 on the card unless the caller asks for another device."""
@@ -45,13 +46,15 @@ def test_every_port_module_imports_without_jax_or_repro():
               "configs.whisper_large_v3", "configs.llama32_vision_11b",
               "models.xlstm", "models.rglru", "configs.xlstm_1p3b",
               "configs.recurrentgemma_9b", "optim.adamw", "train.step",
-              "train.loop", "data.pipeline", "launch.train"):
+              "train.loop", "data.pipeline", "launch.train", "ckpt.engine",
+              "ckpt.blockstore", "cluster.cluster"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.') "
+        "or m == 'ml_dtypes' or m.startswith('ml_dtypes.'))\n"
         "print(json.dumps(bad))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
@@ -77,8 +80,8 @@ def test_no_library_attention_or_compiler_in_the_port():
 
 
 def _forbidden_imports(source: str) -> list[str]:
-    """Every import statement of ``source``, at any depth, that names JAX
-    or the JAX package (``repro``), as ``module`` strings."""
+    """Every import statement of ``source``, at any depth, that names JAX,
+    the JAX package (``repro``) or ``ml_dtypes``, as ``module`` strings."""
     bad = []
     for node in ast.walk(ast.parse(source)):
         if isinstance(node, ast.Import):
@@ -87,7 +90,8 @@ def _forbidden_imports(source: str) -> list[str]:
             names = [node.module or ""]
         else:
             continue
-        bad += [n for n in names if n.split(".")[0] in ("jax", "repro")]
+        bad += [n for n in names
+                if n.split(".")[0] in ("jax", "repro", "ml_dtypes")]
     return bad
 
 
@@ -104,11 +108,12 @@ def test_no_import_of_jax_or_the_jax_package_at_any_depth(case):
         # the import forms the text search above does not see, inside a
         # function, which importing the module does not run
         source = "def f():\n    from repro import serve\n" \
-                 "    import repro.kernels.ref\n    from jax import numpy\n"
+                 "    import repro.kernels.ref\n    from jax import numpy\n" \
+                 "    import ml_dtypes\n"
         for word in ("import jax", "from repro.", "import repro\n"):
             assert word not in source
         assert _forbidden_imports(source) == ["repro", "repro.kernels.ref",
-                                              "jax"]
+                                              "jax", "ml_dtypes"]
 
 
 def test_entry_points_default_to_the_card():
@@ -119,8 +124,9 @@ def test_entry_points_default_to_the_card():
     from repro_torch.models.layers import init_norm
     from repro_torch.models.transformer import make_cache, params_from_jax
     from repro_torch.serve import PagedKVCache, ServeEngine
+    from repro_torch.ckpt import CheckpointEngine
     for fn in (PagedKVCache, ServeEngine, params_from_jax, init_norm,
-               make_cache):
+               make_cache, CheckpointEngine.restore):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert build_parser().parse_args([]).device == "cuda"
     for arch in ("xlstm-1.3b", "recurrentgemma-9b", "moonshot-v1-16b-a3b"):

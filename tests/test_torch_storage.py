@@ -2,10 +2,13 @@
 
 The port may not import ``repro``, so it carries whole copies of the
 jax-free storage modules its spill tier needs (``core/``, ``volume/``), of
-``serve/kvpager.py`` and of the training data pipeline (``data/``).  A copy is the reference's text with the package
-name changed and nothing else; and one seeded workload through the
+``serve/kvpager.py``, of the training data pipeline (``data/``), of the
+checkpoints' block store (``ckpt/blockstore.py``) and of the cluster
+volume under it (``cluster/``).  A copy is the reference's text with the
+package name changed and nothing else; one seeded workload through the
 reference's ``make_volume`` and through the copy's reads back the same
-bytes and moves the same counters."""
+bytes and moves the same counters; and the block store over the copy's
+cluster survives a node's loss."""
 from pathlib import Path
 
 import numpy as np
@@ -21,7 +24,10 @@ COPIES = ([f"core/{m}.py" for m in ("__init__", "bio", "btt", "cache",
           + [f"volume/{m}.py" for m in ("__init__", "admission", "aio",
                                          "autotune", "evict_pool", "journal",
                                          "qos", "read_tier", "volume")]
-          + ["serve/kvpager.py", "data/__init__.py", "data/pipeline.py"])
+          + ["serve/kvpager.py", "data/__init__.py", "data/pipeline.py",
+             "ckpt/blockstore.py"]
+          + [f"cluster/{m}.py" for m in ("__init__", "cluster", "node",
+                                          "placement")])
 
 # counters of the workload below that do not depend on thread timing: the
 # journal's transactions and commit batches, the async frontend's tickets,
@@ -93,3 +99,21 @@ def test_volume_copy_matches_the_reference_on_a_seeded_workload():
     assert port_counts == ref_counts
     assert ref_counts["reads"] == len(written) + 1      # and the async one
     assert ref_counts["chain_txs"] > 0 and ref_counts["group_commits"] > 0
+
+
+def test_blockstore_over_cluster_survives_node_loss():
+    """``tests/test_cluster.py``'s case on the copies."""
+    from repro_torch.ckpt.blockstore import make_blockstore
+
+    bs = make_blockstore(capacity_bytes=4 << 20, cache_bytes=1 << 20,
+                         cluster=3, replication_k=2)
+    try:
+        payload = np.arange(50_000, dtype=np.float32).tobytes()
+        bs.put("step1", payload)
+        data_lba = bs.directory["step1"][0]
+        primary = bs.dev._chain_for(data_lba // bs.dev.cfg.chunk_blocks)[0]
+        bs.dev.kill_node(primary)        # lose the data chunk's primary
+        assert bs.get("step1") == payload
+        assert bs.dev.metrics_snapshot()["read_failovers"] > 0
+    finally:
+        bs.close()

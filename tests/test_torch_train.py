@@ -7,13 +7,16 @@ steps of ``make_train_step``, as the reference's
 ``tests/test_models_smoke.py::test_train_step_improves_loss`` does; the
 ``Trainer``'s losses over 6 steps of internlm2 SMOKE in f32 equal the
 reference ``Trainer``'s within rtol 1e-4 from the same parameters and
-data; then the cases of ``tests/test_train_serve.py`` that need no
-checkpoint (runs and finite, a preemption stop), the straggler log, the
-refusal of a checkpoint engine (ROADMAP Queue 1 item 1b) and the
-pipeline's determinism, prefetch and host sharding on the copy.
+data; then the cases of ``tests/test_train_serve.py`` (runs and finite,
+a crash-restart that resumes the exact schedule, a preemption stop that
+saves), the straggler log, ``launch/train.py --ckpt`` and
+``examples/train_e2e_torch.py`` run twice (the second run resumes), and
+the pipeline's determinism, prefetch and host sharding on the copy.
 """
 import dataclasses
+import importlib.util
 import time
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +30,7 @@ from repro.models import build_model as jax_build_model
 from repro.optim import AdamW as JaxAdamW
 from repro.train.loop import TrainConfig as JaxTrainConfig
 from repro.train.loop import Trainer as JaxTrainer
+from repro_torch.ckpt import CheckpointEngine, make_blockstore
 from repro_torch.configs import ARCHS, get_config
 import repro_torch.data as port_data
 from repro_torch.data import MemmapCorpus, Prefetcher, SyntheticLM
@@ -84,14 +88,16 @@ def test_train_step_improves_loss(arch):
                if t.dim() >= 2 and t.dtype != torch.float32)
 
 
-def _setup(steps=6, device="cpu", **cfg_kw):
+def _setup(steps=6, device="cpu", ckpt=None, ckpt_every=3, **cfg_kw):
     """The reference test's setup (``tests/test_train_serve.py``), on the
     port."""
     cfg = get_config("internlm2-1.8b", smoke=True, **cfg_kw)
     model = build_model(cfg)
     opt = AdamW(lr=1e-3, total_steps=100)
     src = SyntheticLM(cfg.vocab, seq=32, global_batch=4)
-    tr = Trainer(model, opt, src, cfg=TrainConfig(total_steps=steps),
+    tr = Trainer(model, opt, src, ckpt=ckpt,
+                 cfg=TrainConfig(total_steps=steps, ckpt_every=ckpt_every,
+                                 async_ckpt=True),
                  device=device)
     return cfg, model, opt, src, tr
 
@@ -125,9 +131,36 @@ def test_trainer_runs_and_losses_finite():
     assert all(t.grad is None for t in tree_leaves(out["params"]))
 
 
+def test_trainer_crash_restart_resumes_exact_schedule():
+    """Run 0..5 with checkpoints; 'crash'; resume must continue from the
+    next step and see the same data batches (deterministic pipeline)."""
+    eng = CheckpointEngine(make_blockstore(capacity_bytes=256 << 20))
+    cfg, model, opt, src, tr = _setup(steps=6, ckpt=eng, ckpt_every=2)
+    out1 = tr.run(torch.Generator().manual_seed(0))
+    assert out1["last_step"] == 5 and eng.latest_step() == 5
+
+    # full run without interruption, same seeds
+    *_, tr_ref = _setup(steps=9)
+    ref = tr_ref.run(torch.Generator().manual_seed(0))
+
+    # resume the checkpointed trainer for 3 more steps
+    tr2 = Trainer(model, opt, src, ckpt=eng,
+                  cfg=TrainConfig(total_steps=9, ckpt_every=100),
+                  device="cpu")
+    out2 = tr2.run(torch.Generator().manual_seed(0))
+    assert out2["last_step"] == 8
+    # the resumed losses must match the uninterrupted run's steps 6..8
+    np.testing.assert_allclose(out2["losses"], ref["losses"][6:9],
+                               rtol=1e-4)
+    assert int(out2["opt_state"].step) == 9
+    eng.close()
+
+
 def test_trainer_preemption_stop():
-    """request_stop() during a step: that step finishes, the loop exits."""
-    *_, tr = _setup(steps=50)
+    """request_stop() during a step: that step finishes, the loop saves
+    synchronously and exits."""
+    eng = CheckpointEngine(make_blockstore(capacity_bytes=128 << 20))
+    *_, tr = _setup(steps=50, ckpt=eng, ckpt_every=100)
     orig_fn = tr.step_fn
     calls = {"n": 0}
 
@@ -140,6 +173,8 @@ def test_trainer_preemption_stop():
     tr.step_fn = wrapped
     out = tr.run(torch.Generator().manual_seed(0))
     assert out["last_step"] == 2 and len(out["losses"]) == 3
+    assert eng.latest_step() == 2      # final sync save happened
+    eng.close()
 
 
 def test_straggler_log_records_an_injected_slow_step():
@@ -165,13 +200,6 @@ def test_straggler_log_records_an_injected_slow_step():
     assert tr.history[slow].straggler and not tr.history[0].straggler
 
 
-def test_trainer_refuses_a_checkpoint_engine():
-    cfg = get_config("internlm2-1.8b", smoke=True)
-    with pytest.raises(NotImplementedError, match="1b"):
-        Trainer(build_model(cfg), AdamW(), SyntheticLM(cfg.vocab, 8, 2),
-                ckpt=object(), device="cpu")
-
-
 def test_training_entry_points_default_to_the_card():
     import inspect
     assert inspect.signature(Trainer).parameters["device"].default == "cuda"
@@ -180,6 +208,38 @@ def test_training_entry_points_default_to_the_card():
     assert args.smoke is False
     assert launch_train.build_parser().parse_args(["--no-smoke"]).smoke \
         is False
+
+
+def test_launch_train_with_ckpt_resumes_on_a_second_run(tmp_path, capsys):
+    pool = str(tmp_path / "ckpt.pool")
+    args = ["--device", "cpu", "--smoke", "--ckpt", pool, "--ckpt-every",
+            "2", "--ckpt-policy", "caiti"]
+    first = launch_train.main(args + ["--steps", "3"])
+    assert first["last_step"] == 2
+    second = launch_train.main(args + ["--steps", "5"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert second["last_step"] == 4 and len(second["losses"]) == 2
+    assert lines[-1].startswith("[train] arch=internlm2-1.8b steps->4 ")
+    assert int(second["opt_state"].step) == 5
+    eng = CheckpointEngine(make_blockstore(pool, capacity_bytes=2 << 30))
+    assert eng.list_steps() == [2, 3, 4]       # keep 3: step 1 went
+    eng.close()
+
+
+def test_train_e2e_example_resumes(tmp_path, capsys):
+    spec = importlib.util.spec_from_file_location(
+        "train_e2e_torch", Path(__file__).resolve().parents[1] / "examples"
+        / "train_e2e_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    pool = ["--ckpt", str(tmp_path / "e2e.pool"), "--device", "cpu"]
+    first = example.main(pool + ["--steps", "4"])
+    second = example.main(pool + ["--steps", "6", "--resume"])
+    out = capsys.readouterr().out
+    assert first["last_step"] == 3 and second["last_step"] == 5
+    assert len(second["losses"]) == 2
+    assert "[e2e] found checkpoint @ step 3 -> resuming" in out
+    assert out.strip().splitlines()[-1].endswith("ckpt @ 5")
 
 
 def test_launch_train_prints_the_train_line(capsys):
