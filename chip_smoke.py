@@ -41,6 +41,13 @@ Phases, each ending in ``torch.cuda.synchronize()``:
             (``library_ms``: fused attention for flash, and for decode
             over a contiguous cache the same call with a length mask),
             the codec at ``CODEC_TIMED``'s unit counts;
+            and the arguments the mesh added: the paged kernel's per-row
+            log-sum-exp against the plain version's at the serving and
+            model API shapes, each with a row of length 0 (lse -inf,
+            output 0), and flash attention's ``q_offset`` at a
+            deepseek-coder-33b shape (56:8, hd 128, T 512) split 2 and 4
+            ways, causal and windowed, bf16 on the tensor-core kernel and
+            f32 on the SIMT one, within the same tolerances;
 3. serve  — qwen2.5-3b FULL (36 layers, d_model 2048, vocab 151936) in bf16
             with random weights from a seeded generator: 4 requests of 128
             prompt tokens and 16 new tokens, one of them suspended and
@@ -166,6 +173,25 @@ Phases, each ending in ``torch.cuda.synchronize()``:
             s and MB/s, ``cache_flush`` and commit s, the staged and
             bypassed chunks, the steps beside the save against run C's,
             the reopen and restore s and the store file's size.
+20. mesh   — the port's mesh (``parallel/``, ``launch/mesh.py``, the
+            models' ``ctx``) on an NCCL process group of one rank (a file
+            rendezvous in a temporary directory), ``make_local_mesh(1)``
+            -> (data 1, model 1), in two legs: moonshot-v1-16b-a3b FULL
+            right after phase 10's off-mesh run, while its weights are on
+            the card (wrapped as DTensors with no copy: the same storage,
+            no byte more allocated): the same 4 x (128 + 16) through
+            ``prefill`` / ``decode_step(..., ctx)``, the greedy tokens
+            equal to phase 10's, 48 flash launches a prefill, 48 paged a
+            step (the S-sharded branch: the paged kernel's log-sum-exp,
+            shards merged by an NCCL all-reduce), 48 calls of the MoE's
+            ``local_map`` branch a step, peak memory, tok/s and the
+            profiled step's busy ms, idle share and ops beside phase
+            10's; and after phase 19, phi3-mini-3.8b at full width cut
+            to 1 layer (printed as ``reduced``): two ``make_train_step(...,
+            ctx, grad_compression="int8")`` steps of 4 x 1024 tokens
+            against two off-mesh steps from the same state, losses within
+            rtol 1e-4, parameters within ``ROW_TOL["bf16"]`` row by row,
+            2 flash launches a step.
 
 In phases 10-16 every self-attention over a prompt and every
 cross-attention runs the flash kernel (one launch a layer), every decode
@@ -752,6 +778,94 @@ def check_flash_attention(torch, rng, results) -> None:
     for name, err in worst.items():
         results[name] = {"max_abs_err": err,
                          "max_row_rel_err": worst_row[name]}
+
+
+def check_paged_lse(torch, rng, results) -> None:
+    """The paged kernel's per-row log-sum-exp (the mesh's S-sharded decode
+    merges its shards by it) against the plain version's, at the serving
+    shape and the model API's (moonshot's 144-slot cache viewed as 9
+    pages, recurrentgemma's ring), each with a row of length 0: lse -inf
+    and output 0; the output equals the launch without lse."""
+    from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                     paged_attention_plain)
+    cases = [  # (label, B, H, Hkv, hd, page, P, maxp, lens)
+        ("serve-qwen", 4, 16, 2, 128, 16, 64, 16, [144, 0, 129, 1]),
+        ("model-moonshot", 4, 16, 16, 128, 16, 36, 9, [144, 0, 73, 1]),
+        ("model-ring", 2, 8, 1, 256, 16, 260, 128, [2048, 0]),
+    ]
+    worst = 0.0
+    for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for label, B, H, Hkv, hd, page, P, maxp, lens in cases:
+            args = paged_case(torch, rng, B, H, Hkv, hd, page, P, maxp, lens,
+                              dtype)
+            out, lse = paged_attention_cuda(*args, return_lse=True)
+            exp, exp_lse = paged_attention_plain(*args, return_lse=True)
+            plain_out = paged_attention_cuda(*args)
+            torch.cuda.synchronize()
+            tag = f"paged_attention lse {label}/{dt}"
+            empty = args[4] == 0
+            check(bool(torch.equal(out, plain_out)), f"{tag}: the output "
+                  f"with lse differs from the launch without")
+            check(bool(torch.isneginf(lse[empty]).all())
+                  and bool((out[empty] == 0).all()),
+                  f"{tag}: a row of length 0 must give lse -inf, output 0")
+            err = float((lse[~empty] - exp_lse[~empty]).abs().max())
+            check(err <= 1e-4 + 1e-5 * float(exp_lse[~empty].abs().max()),
+                  f"{tag}: lse max err {err:.3g}")
+            row = row_rel_err(out, exp)
+            check(row <= ROW_TOL[dt], f"{tag}: row error {row:.3g}")
+            worst = max(worst, err)
+            log(f"{tag} ok, lse max abs err {err:.3g}, output row rel err "
+                f"{row:.3g}")
+    results["paged_attention"]["max_lse_abs_err"] = worst
+
+
+def check_flash_offset(torch, rng, results) -> None:
+    """flash attention with ``q_offset`` (the mesh's query-sharded
+    attention: a rank's rows start at rank * T / tp) at a
+    deepseek-coder-33b shape (56:8 heads of 128, T = S = 512), the rows
+    split 2 and 4 ways, causal and windowed: each part against the plain
+    version at its offset, bf16 on the tensor-core kernel, f32 on the
+    SIMT one."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    B, T, H, Hkv, hd = 1, 512, 56, 8, 128
+    for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        q, k, v = flash_case(torch, rng, B, T, T, H, Hkv, hd, dtype)
+        name = "flash_attention_tc" if dt == "bf16" else "flash_attention"
+        for causal, window in ((True, 0), (True, 100)):
+            for parts in (2, 4):
+                n = T // parts
+                for i in range(parts):
+                    qi = q[:, i * n:(i + 1) * n].contiguous()
+                    before = _build.launch_counts().get(
+                        "flash_attention_tc", 0)
+                    got = flash_attention_cuda(qi, k, v, causal=causal,
+                                               window=window, q_offset=i * n)
+                    tc = _build.launch_counts().get(
+                        "flash_attention_tc", 0) - before
+                    exp = flash_attention_plain(qi, k, v, causal=causal,
+                                                window=window,
+                                                q_offset=i * n)
+                    torch.cuda.synchronize()
+                    tag = (f"flash_attention q_offset {i * n} of {T} "
+                           f"(window {window})/{dt}")
+                    check(tc == (dt == "bf16"), f"{tag}: {tc} tensor-core "
+                          f"launches")
+                    err = (got.float() - exp.float()).abs()
+                    ok = bool((err <= TOL[dt] + TOL[dt]
+                               * exp.float().abs()).all())
+                    row = row_rel_err(got, exp)
+                    check(ok and row <= ROW_TOL[dt], f"{tag}: max err "
+                          f"{float(err.max()):.3g}, row {row:.3g}")
+                    r = results[name]
+                    r["max_abs_err"] = max(r["max_abs_err"],
+                                           float(err.max()))
+                    r["max_row_rel_err"] = max(r["max_row_rel_err"], row)
+                log(f"flash_attention q_offset {dt} on {name}: "
+                    f"{parts} parts of {n} rows, window {window}, ok")
+        del q, k, v
 
 
 def library_ms(torch, fn, iters: int) -> tuple[float, str]:
@@ -2153,7 +2267,13 @@ def serve_model(torch, np, arch: str, B: int, T: int, steps: int,
         f"{out['flash_per_prefill']}, paged a step {out['paged_per_step']}"
         + ("" if n_self + n_cross + n_enc else
            " (no attention layer: neither attention kernel runs here)"))
-    del out_logits, lg, logits, cache, state, batch, weights, c, rec_state
+    if arch == MESH_ARCH:
+        del out_logits, lg, logits, cache, state, c
+        out["mesh_leg"] = mesh_serve(torch, np, model, params, batch, B, T,
+                                     steps, profiled, out)
+    else:
+        del out_logits, lg, logits, cache, state, c
+    del batch, weights, rec_state
     release_weights(torch, params, arch)
     return out
 
@@ -2984,6 +3104,246 @@ def _to(tree, dev):
         return [_to(v, dev) for v in tree]
     return tree.to(dev)
 
+# ------------------------------------------------------ phase 20: the mesh
+# The mesh's two legs run on a world-size-1 NCCL process group (a file
+# rendezvous in a temporary directory) folded into (data 1, model 1) by
+# ``launch.mesh.make_local_mesh``: moonshot's (``MESH_ARCH``) beside phase
+# 10, while its weights are on the card; phi3's train steps after phase 19.
+MESH_ARCH = MOONSHOT
+MESH = {}
+
+
+def open_mesh(torch) -> None:
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    MESH["dir"] = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    dist.init_process_group("nccl", init_method=f"file://{MESH['dir']}/pg",
+                            rank=0, world_size=1)
+    MESH["mesh"] = make_local_mesh(1)
+    log(f"mesh: NCCL process group of 1 rank, mesh "
+        f"{dict(zip(MESH['mesh'].mesh_dim_names, MESH['mesh'].shape))}")
+
+
+def close_mesh() -> None:
+    import shutil
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    shutil.rmtree(MESH.pop("dir", ""), ignore_errors=True)
+    MESH.pop("mesh", None)
+
+
+def mesh_params(torch, params):
+    """The parameters as DTensors of ``parallel.param_spec_tree``'s
+    placements on the mesh, wrapping each tensor with no copy (checked:
+    the same storage, no byte more allocated)."""
+    from repro_torch.parallel import distribute_tree, param_spec_tree
+    mesh = MESH["mesh"]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    pd = distribute_tree(params, param_spec_tree(params, mesh), mesh)
+    same = all(d.to_local().data_ptr() == t.data_ptr()
+               for d, t in zip(_leaves(pd), _leaves(params)))
+    grown = torch.cuda.memory_allocated() - before
+    check(same and grown == 0, f"mesh: the weights were copied ({grown} "
+          f"bytes more, same storage {same})")
+    return pd
+
+
+def mesh_serve(torch, np, model, params, batch, B: int, T: int, steps: int,
+               profiled: int, off: dict) -> dict:
+    """Phase 10's run again through the mesh (``ctx``): the weights
+    wrapped as DTensors with no copy, ``prefill`` and ``decode_step``
+    with the cache a tree of DTensors (its S over ``model``), the same
+    prompts and greedy steps.  Tokens must equal the off-mesh run's; a
+    prefill launches the flash kernel once a layer, a step the paged
+    kernel once a layer (the S-sharded branch) and the MoE's ``local_map``
+    branch once a layer."""
+    from repro_torch.kernels import _build
+    from repro_torch.models import layers
+    from repro_torch.parallel import make_ctx
+    t_leg = time.perf_counter()
+    cfg = model.cfg
+    tag = f"mesh {cfg.name}"
+    ctx = make_ctx(MESH["mesh"], B)
+    torch.cuda.reset_peak_memory_stats()
+    pd = mesh_params(torch, params)
+    n_self = attention_layers(cfg)[0]
+    _build.reset_launch_counts()
+    moe0 = layers.MOE_MESH_CALLS[0]
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(pd, batch, ctx=ctx, s_max=T + steps)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pre = dict(_build.launch_counts())
+    moe_pre = layers.MOE_MESH_CALLS[0] - moe0
+    check(pre.get("flash_attention", 0) == n_self
+          and pre.get("flash_attention_tc", 0) == n_self
+          and pre.get("paged_attention", 0) == 0 and moe_pre == cfg.n_layers,
+          f"{tag}: prefill launches {pre}, MoE mesh calls {moe_pre}")
+    out_logits = [logits.full_tensor()]
+    state = {"i": 0, "cache": cache, "tok": out_logits[0].argmax(-1)}
+
+    def step():
+        i = state["i"]
+        lg, state["cache"] = model.decode_step(
+            pd, state["cache"], state["tok"], np.full(B, T + i), ctx=ctx)
+        lg = lg.full_tensor()
+        state["tok"] = lg.argmax(-1)
+        state["i"] = i + 1
+        out_logits.append(lg)
+
+    _build.reset_launch_counts()
+    moe0 = layers.MOE_MESH_CALLS[0]
+    t0 = time.perf_counter()
+    for _ in range(steps - profiled):
+        step()
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    prof = profile_window(torch, step, profiled)
+    dec = dict(_build.launch_counts())
+    moe_dec = layers.MOE_MESH_CALLS[0] - moe0
+    check(dec.get("paged_attention", 0) == steps * n_self
+          and dec.get("flash_attention", 0) == 0
+          and moe_dec == steps * cfg.n_layers,
+          f"{tag}: decode launches {dec}, MoE mesh calls {moe_dec} for "
+          f"{steps} steps")
+    peak = torch.cuda.max_memory_allocated()
+    lg = torch.stack(out_logits)
+    check(bool(torch.isfinite(lg).all()), f"{tag}: logits not finite")
+    tokens = lg.argmax(-1).T.tolist()
+    check(tokens == off["tokens"], f"{tag}: greedy tokens differ from the "
+          f"off-mesh run's")
+    pos = cache["pos"].full_tensor()
+    check(bool((pos == torch.arange(T + steps, device="cuda")).all()),
+          f"{tag}: cache positions not 0..{T + steps - 1} in every row")
+    res = {"arch": cfg.name, "B": B, "prompt_tokens": T,
+           "decode_steps": steps, "peak_gb": peak / 1e9,
+           "off_mesh_peak_gb": off["peak_gb"], "prefill_s": prefill_s,
+           "off_mesh_prefill_s": off["prefill_s"],
+           "decode_tok_s": B * (steps - profiled) / decode_s,
+           "decode_step_ms": decode_s / (steps - profiled) * 1e3,
+           "off_mesh_decode_tok_s": off["decode_tok_s"],
+           "off_mesh_decode_step_ms": off["decode_step_ms"],
+           "profile": prof, "off_mesh_profile": off["profile"],
+           "flash_per_prefill": pre.get("flash_attention", 0),
+           "paged_per_step": dec.get("paged_attention", 0) / steps,
+           "moe_mesh_calls_per_step": moe_dec / steps,
+           "cache_k_placements": [str(p) for p in cache["k"].placements],
+           "tokens_equal_off_mesh": True,
+           "leg_s": time.perf_counter() - t_leg,
+           "launches": {k: pre.get(k, 0) + dec.get(k, 0)
+                        for k in set(pre) | set(dec)}}
+    op = off["profile"]
+    log(f"{tag}: tokens equal the off-mesh run's; peak {peak / 1e9:.2f} GB "
+        f"(off the mesh {off['peak_gb']:.2f} GB); prefill {prefill_s:.3f} s "
+        f"({off['prefill_s']:.3f}); decode {res['decode_tok_s']:.2f} tok/s, "
+        f"{res['decode_step_ms']:.1f} ms a step ({off['decode_tok_s']:.2f} "
+        f"tok/s, {off['decode_step_ms']:.1f} ms); profiled step "
+        f"{prof['step_ms']:.1f} ms ({op['step_ms']:.1f}), busy "
+        f"{prof['device_busy_ms_per_step']:.2f} ms "
+        f"({op['device_busy_ms_per_step']:.2f}), idle share "
+        f"{prof['device_idle_share']} ({op['device_idle_share']}), "
+        f"{prof['device_ops_per_step']:.0f} device ops a step "
+        f"({op['device_ops_per_step']:.0f}); flash a prefill "
+        f"{res['flash_per_prefill']}, paged a step {res['paged_per_step']}, "
+        f"MoE local_map calls a step {res['moe_mesh_calls_per_step']}; "
+        f"the leg {res['leg_s']:.1f} s")
+    del out_logits, lg, logits, cache, state, pd
+    return res
+
+
+# the mesh's train leg: phi3-mini-3.8b's widths, depth cut to one layer
+MESH_TRAIN = dict(arch=PHI3, B=4, T=1024, n_layers=1, steps=2)
+
+
+def mesh_train(torch, np) -> dict:
+    """phi3-mini-3.8b at full width (d 3072, 32:32 heads of 96, d_ff
+    8192, vocab 32064) cut to one layer, bf16, remat "dots": two
+    ``make_train_step(model, opt, ctx=ctx, grad_compression="int8")``
+    steps of 4 x 1024 tokens on the mesh (the parameters and moments
+    DTensors; the gradients reduced exactly, then through the int8 ring,
+    which over one data rank hands them back unchanged) against two
+    off-mesh steps from the same state.  Losses within rtol 1e-4,
+    parameters within ``ROW_TOL["bf16"]`` row by row, 2 tensor-core
+    flash launches a step (the layer's forward and its recompute)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import AdamW, tree_map
+    from repro_torch.parallel import make_ctx
+    from repro_torch.train import make_train_step
+    c = MESH_TRAIN
+    t_leg = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    check(before < 1e9, f"{before / 1e9:.2f} GB allocated before the mesh "
+          f"train leg")
+    cfg = get_config(c["arch"], n_layers=c["n_layers"])
+    reduced = f"depth {get_config(c['arch']).n_layers} -> {c['n_layers']} " \
+        f"layer"
+    model = build_model(cfg)
+    tag = f"mesh train {cfg.name}"
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    batches = [{k: torch.randint(0, cfg.vocab, (c["B"], c["T"]),
+                                 generator=g, device="cuda")
+                for k in ("tokens", "targets")} for _ in range(c["steps"])]
+    opt = AdamW()
+    p_off = tree_map(torch.clone, params)
+    s_off = opt.init(p_off)
+    step_off = make_train_step(model, opt)
+    ctx = make_ctx(MESH["mesh"], c["B"])
+    pd = mesh_params(torch, params)
+    sd = opt.init(pd)
+    step_mesh = make_train_step(model, opt, ctx=ctx, grad_compression="int8")
+    rows = {"off": [], "mesh": []}
+    for b in batches:
+        for leg, fn in (("off", step_off), ("mesh", step_mesh)):
+            _build.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if leg == "off":
+                p_off, s_off, m = fn(p_off, s_off, b)
+            else:
+                pd, sd, m = fn(pd, sd, b)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            n = dict(_build.launch_counts())
+            check(n.get("flash_attention_tc", 0) == 2 * cfg.n_layers
+                  and n.get("flash_attention", 0) == 2 * cfg.n_layers,
+                  f"{tag} ({leg}): flash launches {n}")
+            rows[leg].append({"loss": loss, "step_ms": ms, "launches": n})
+    for a, b in zip(rows["off"], rows["mesh"]):
+        check(math.isfinite(a["loss"]) and abs(b["loss"] - a["loss"])
+              <= 1e-4 * abs(a["loss"]), f"{tag}: losses {b['loss']} on the "
+              f"mesh, {a['loss']} off it")
+    worst = 0.0
+    for d, t in zip(_leaves(pd), _leaves(p_off)):
+        d, t = d.full_tensor().detach(), t.detach()
+        worst = max(worst, row_rel_err(d, t) if t.dim()
+                    else float((d - t).abs()))
+    check(worst <= ROW_TOL["bf16"], f"{tag}: parameter row error {worst:.3g}"
+          f" > {ROW_TOL['bf16']}")
+    res = {"arch": cfg.name, "reduced": reduced, "B": c["B"], "T": c["T"],
+           "steps": rows, "max_param_row_rel_err": worst,
+           "leg_s": time.perf_counter() - t_leg,
+           "launches": {k: sum(r["launches"].get(k, 0) for r in rows["mesh"])
+                        for k in rows["mesh"][0]["launches"]}}
+    log(f"{tag} ({reduced}): {c['steps']} int8-compressed steps of "
+        f"{c['B']} x {c['T']} on the mesh, losses "
+        f"{[r['loss'] for r in rows['mesh']]} (off the mesh "
+        f"{[r['loss'] for r in rows['off']]}), step ms "
+        f"{[round(r['step_ms'], 1) for r in rows['mesh']]} (off "
+        f"{[round(r['step_ms'], 1) for r in rows['off']]}), parameter row "
+        f"rel err {worst:.3g}, 2 flash launches a step; the leg "
+        f"{res['leg_s']:.1f} s")
+    del pd, sd, p_off, s_off, batches
+    release_weights(torch, params, c["arch"])
+    return res
+
+
 
 # ------------------------------------------------------------------ main
 def main() -> int:
@@ -3018,6 +3378,11 @@ def main() -> int:
     check_paged_contiguous(torch, rng, results)
     check_codec(torch, rng, results)
     check_flash_attention(torch, rng, results)
+    t0 = time.perf_counter()
+    check_paged_lse(torch, rng, results)
+    check_flash_offset(torch, rng, results)
+    log(f"the mesh's kernel arguments checked in "
+        f"{time.perf_counter() - t0:.1f} s")
     time_kernels(torch, rng, results)
     torch.cuda.synchronize()
 
@@ -3038,12 +3403,18 @@ def main() -> int:
     paths["serve_deepseek"] = serve_deepseek(torch, np)
     # the model API (build_model's prefill and decode_step) at full width,
     # each after the previous weights are freed
+    open_mesh(torch)
     for label, arch, B, T, steps, overrides, reduced in MODEL_RUNS:
-        paths[f"model_{label.replace('-', '_')}"] = serve_model(
-            torch, np, arch, B, T, steps, reduced=reduced, **overrides)
+        key = f"model_{label.replace('-', '_')}"
+        paths[key] = serve_model(torch, np, arch, B, T, steps,
+                                 reduced=reduced, **overrides)
+        if "mesh_leg" in paths[key]:
+            paths[f"mesh_{label}"] = paths[key].pop("mesh_leg")
     # training at full width, once every other phase's weights are freed
     paths["train"] = train_full(torch, np)
     paths["train_ckpt"] = train_ckpt(torch, np)
+    paths["mesh_train"] = mesh_train(torch, np)
+    close_mesh()
     parity = parity_smoke(torch, np)
     model_parity = parity_models(torch, np)
     train_parity = parity_train(torch, np)

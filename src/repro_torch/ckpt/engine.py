@@ -27,9 +27,19 @@ never needs ``ml_dtypes``: ``restore`` returns such a leaf as a host
 ``torch.bfloat16`` tensor over those bits.
 
 ``restore(like=...)`` takes a tree of the port's (its lists of layers
-unstacked) in place of the reference's ``like`` and ``shardings``: the
-leaves come back in its structure and dtypes on ``device`` (the card
-unless the caller names another).
+unstacked; meta tensors will do, ``Model.param_shape``) in place of the
+reference's ``like``: the leaves come back in its structure and dtypes on
+``device`` (the card unless the caller names another).
+
+On a mesh (the elastic restore, the reference's ``shardings=``): the
+state's DTensor leaves are gathered whole while the snapshot is taken,
+every rank taking part (``join_save`` on the ranks that hold no engine),
+and one rank writes the same bytes as from one device.  ``restore(like=,
+placements=, mesh=)`` reads the checkpoint whole on the rank that holds
+the engine (rank 0), the others call ``receive_restore``; each leaf is
+broadcast and kept as the DTensor of its placements on ``mesh``, which
+need not be the mesh that saved it.  The leaves are distributed one at a
+time, so no rank's card holds more than its shards and one whole leaf.
 """
 from __future__ import annotations
 
@@ -39,9 +49,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import Metrics, TransitBuffer
 from repro_torch.models.transformer import params_to_jax
+from repro_torch.parallel.collectives import broadcast_object
+from repro_torch.parallel.sharding import place
 from .blockstore import BlockStore
 
 _CHUNK = 4 << 20          # 4 MB chunks — large enough to amortize, small
@@ -91,23 +104,57 @@ def _int8_encode(arr: np.ndarray) -> tuple[bytes, dict]:
     return q.tobytes(), {"codec": "int8", "scale": scale}
 
 
-def _unstack(like, arrays: dict, device):
+def _unstack(like, arrays: dict | None, device, placements=None,
+             mesh=None):
     """The leaves of ``arrays`` in the structure and dtypes of the port's
-    tree ``like``: a list position is an index into the stacked leaf."""
-    def build(x, parts, index):
+    tree ``like``: a list position is an index into the stacked leaf.
+    ``arrays`` None: empty leaves of ``like``'s shapes.  With ``mesh``:
+    each leaf, made whole and broadcast from rank 0 where the world has
+    more than one rank, is kept as the DTensor of its placements
+    (``placements`` a tree in ``like``'s structure, None for a leaf to
+    keep whole) before the next is made, so that a rank holds its shards
+    and one whole leaf at a time."""
+    def build(x, parts, index, pl):
         if isinstance(x, dict):
-            return {k: build(v, parts + [str(k)], index)
+            return {k: build(v, parts + [str(k)], index,
+                             None if pl is None else pl[k])
                     for k, v in x.items()}
         if isinstance(x, tuple) and hasattr(x, "_fields"):
-            return type(x)(*(build(getattr(x, f), parts + [f".{f}"], index)
+            return type(x)(*(build(getattr(x, f), parts + [f".{f}"], index,
+                                   None if pl is None else getattr(pl, f))
                              for f in x._fields))
         if isinstance(x, list):
-            return [build(v, parts, index + (i,)) for i, v in enumerate(x)]
-        src = torch.as_tensor(arrays["/".join(parts)])[index]
+            return [build(v, parts, index + (i,),
+                          None if pl is None else pl[i])
+                    for i, v in enumerate(x)]
         proto = torch.as_tensor(x)
-        return src.to(device=proto.device if device is None else device,
-                      dtype=proto.dtype, copy=True)
-    return build(like, [], ())
+        dev = proto.device if device is None else device
+        if arrays is None:
+            t = torch.empty(proto.shape, dtype=proto.dtype, device=dev)
+        else:
+            src = torch.as_tensor(arrays["/".join(parts)])[index]
+            t = src.to(device=dev, dtype=proto.dtype, copy=True)
+        if mesh is None:
+            return t
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dist.broadcast(t, src=0)
+        return t if pl is None else place(t, pl, mesh)
+    return build(like, [], (), placements)
+
+
+def join_save(state) -> None:
+    """What a rank that holds no engine does while the writer (rank 0)
+    saves a state of DTensors: it takes part in each leaf's gather, in
+    the writer's order, and writes nothing."""
+    _snapshot(state)
+
+
+def receive_restore(like, placements, mesh, device="cuda"):
+    """The counterpart, on a rank other than 0, of rank 0's
+    ``CheckpointEngine.restore(like=, placements=, mesh=)``: -> (tree,
+    step), the same leaves as DTensors of ``placements``."""
+    step = broadcast_object(None)
+    return _unstack(like, None, device, placements, mesh), step
 
 
 class CheckpointEngine:
@@ -208,14 +255,17 @@ class CheckpointEngine:
         return steps[-1] if steps else None
 
     def restore(self, step: int | None = None, *, like=None,
-                device="cuda"):
+                device="cuda", placements=None, mesh=None):
         """Rebuild the tree of ``step`` (default latest) -> (tree, step).
 
         With no ``like``: the flat ``{key: numpy array}`` of the stacked
         layout (a bf16 leaf a host ``torch.bfloat16`` tensor).  ``like``:
         a tree of the port's giving the structure and dtypes; its leaves
         come back on ``device`` (None: each on its ``like`` leaf's
-        device).
+        device).  ``placements`` (a tree in ``like``'s structure of
+        placement tuples, None for a leaf to keep whole) and ``mesh``:
+        the leaves come back as DTensors of those placements, on rank 0
+        while every other rank calls ``receive_restore``.
         """
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -245,7 +295,11 @@ class CheckpointEngine:
 
         if like is None:
             return arrays, step
-        return _unstack(like, arrays, device), step
+        if placements is None:
+            return _unstack(like, arrays, device), step
+        # the step goes first, as ``receive_restore`` takes it
+        step = broadcast_object(step)
+        return _unstack(like, arrays, device, placements, mesh), step
 
     def close(self) -> None:
         self.wait()

@@ -5,9 +5,9 @@
 // (kernel body _attn_kernel).  Same contract: q (B, T, H, hd); k, v
 // (B, S, Hkv, hd), all f32 or all bf16, contiguous -> out (B, T, H, hd) in
 // q's dtype.  Online softmax in f32 with scale 1/sqrt(hd); q head h reads
-// kv head h / (H / Hkv).  Positions start at 0 on both sides (top-left
-// alignment, T != S allowed): causal keeps k_pos <= q_pos, window > 0 keeps
-// q_pos - k_pos < window.  Masked scores are NEG_INF = -1e30 and get
+// kv head h / (H / Hkv).  Key positions start at 0, query positions at
+// q_off (0 but for a shard of the query rows, T != S allowed): causal
+// keeps k_pos <= q_pos, window > 0 keeps q_pos - k_pos < window.  Masked scores are NEG_INF = -1e30 and get
 // probability 0, and the sum is clamped at 1e-30, so a row with no valid
 // key gives 0.  Unlike the TPU kernel, T and S take any length: the block
 // masks the ragged edge of both itself.
@@ -109,7 +109,7 @@ __global__ void __launch_bounds__(FA_THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
                        int T_len, int S, int H, int Hkv, int hd, float scale,
-                       int causal, int window, bool vec) {
+                       int causal, int window, int q_off, bool vec) {
   extern __shared__ float smem[];
   const int ld = hd + 1;
   float* q_s = smem;                   // (BQ, hd + 1), pre-scaled
@@ -137,9 +137,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < DPT; ++c) acc[i][c] = 0.f;
   }
 
-  // Keys some row of this block can see: [lo, hi).
-  const int hi = causal ? min(S, q0 + FA_BQ) : S;
-  const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  // Keys some row of this block can see: [lo, hi); its rows' positions
+  // start at p0.
+  const int p0 = q_off + q0;
+  const int hi = causal ? min(S, p0 + FA_BQ) : S;
+  const int lo = window > 0 ? max(0, p0 - window + 1) : 0;
   const int kt_hi = (hi + FA_BK - 1) / FA_BK;
   for (int kt = lo / FA_BK; kt < kt_hi; ++kt) {
     const int k0 = kt * FA_BK;
@@ -168,7 +170,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
     for (int i = 0; i < FA_RPT; ++i) {
-      const int qp = q0 + tr + 16 * i;
+      const int qp = p0 + tr + 16 * i;
       bool ok[FA_KPT];
       float mx = NEG_INF;
 #pragma unroll
@@ -242,7 +244,7 @@ size_t smem_bytes(int hd) {
 template <typename T, int DPT>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int T_len, int S, int H, int Hkv, int hd, float scale, int causal,
-           int window, cudaStream_t stream) {
+           int window, int q_off, cudaStream_t stream) {
   const size_t smem = smem_bytes(hd);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -257,7 +259,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   flash_attention_kernel<T, DPT><<<grid, FA_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), T_len, S, H, Hkv, hd,
-      scale, causal, window, vec);
+      scale, causal, window, q_off, vec);
   return (int)cudaGetLastError();
 }
 
@@ -265,18 +267,19 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; hd <= FA_MAX_HD.  Returns
+// dtype: 0 = float32, 1 = bfloat16; hd <= FA_MAX_HD; q_off the position
+// of query row 0.  Returns
 // cudaGetLastError() (or the error of raising the block's shared-memory
 // limit), cudaErrorInvalidValue for a wider head.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int B, int T_len, int S, int H, int Hkv,
                            int hd, float scale, int causal, int window,
-                           int dtype, void* stream) {
+                           int q_off, int dtype, void* stream) {
   if (hd > FA_MAX_HD) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FA_LAUNCH(T, DPT)                                                   \
   return launch<T, DPT>(q, k, v, out, B, T_len, S, H, Hkv, hd, scale,       \
-                        causal, window, s)
+                        causal, window, q_off, s)
   if (dtype == 0) {
     if (hd <= 128) FA_LAUNCH(float, 8);
     FA_LAUNCH(float, 16);

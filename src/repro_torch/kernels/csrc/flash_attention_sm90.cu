@@ -7,8 +7,9 @@
 // != 0 (TMA needs every global stride to be a multiple of 16 bytes).  Same
 // contract: q (B, T, H, hd); k, v (B, S, Hkv, hd), bf16, contiguous -> out
 // (B, T, H, hd) bf16.  Scale 1/sqrt(hd); q head h reads kv head
-// h / (H / Hkv); positions start at 0 on both sides; causal keeps k_pos <=
-// q_pos, window > 0 keeps q_pos - k_pos < window; masked scores get
+// h / (H / Hkv); key positions start at 0, query positions at q_off (0
+// but for a shard of the query rows); causal keeps k_pos <= q_pos, window
+// > 0 keeps q_pos - k_pos < window; masked scores get
 // probability 0 and the sum is clamped at 1e-30, so a row with no valid key
 // gives 0.  T and S take any length.
 //
@@ -277,7 +278,7 @@ struct Block {
   uint64_t *q_full, *full, *empty;
   int q0, h, b, g, kt_lo, n_tiles;
   __device__ __forceinline__ Block(int T_len, int S, int H, int Hkv,
-                                   int causal, int window) {
+                                   int causal, int window, int q_off) {
     extern __shared__ uint8_t smem_raw[];
     // TMA's 128-byte swizzle repeats every 1024 bytes: align the tiles
     uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -294,8 +295,8 @@ struct Block {
     b = blockIdx.z;
     g = h / (H / Hkv);
     // keys some row of this block can see: tiles [kt_lo, kt_lo + n_tiles)
-    const int hi = causal ? min(S, q0 + BM) : S;
-    const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
+    const int hi = causal ? min(S, q_off + q0 + BM) : S;
+    const int lo = window > 0 ? max(0, q_off + q0 - window + 1) : 0;
     kt_lo = lo / L::BN;
     n_tiles = max(0, (hi + L::BN - 1) / L::BN - kt_lo);
   }
@@ -308,9 +309,9 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tv,
                           __nv_bfloat16* __restrict__ out, int T_len, int S,
                           int H, int Hkv, int hd, float scale_log2,
-                          int causal, int window) {
+                          int causal, int window, int q_off) {
   if (threadIdx.x == 0) {
-    const Block<HDP> blk(T_len, S, H, Hkv, causal, window);
+    const Block<HDP> blk(T_len, S, H, Hkv, causal, window, q_off);
     mbar_init(blk.q_full, 1);
     for (int st = 0; st < Tiles<HDP>::STAGES; ++st) {
       mbar_init(&blk.full[st], 1);
@@ -325,7 +326,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   if (threadIdx.x / 128 == 2) {
     // ------------------------------------------------------- producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
-    const Block<HDP> blk(T_len, S, H, Hkv, causal, window);
+    const Block<HDP> blk(T_len, S, H, Hkv, causal, window, q_off);
     using L = Tiles<HDP>;
     if (threadIdx.x == 256) {
       mbar_expect_tx(blk.q_full, L::Q_TILE);
@@ -351,7 +352,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
   } else {
     // ------------------------------------------------------- consumers
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
-    const Block<HDP> blk(T_len, S, H, Hkv, causal, window);
+    const Block<HDP> blk(T_len, S, H, Hkv, causal, window, q_off);
     using L = Tiles<HDP>;
     constexpr int BN = L::BN, NS = BN / 2;       // scores a thread holds
     const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
@@ -359,9 +360,10 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
     // this thread's rows (of the block) are r0 and r0 + 8, and its
     // columns in each 8-wide group are 2 * (lane % 4) and that + 1
     const int r0 = wg * 64 + warp * 16 + lane / 4;
-    const int qa = blk.q0 + r0, qb = qa + 8;        // their positions
+    const int qa = blk.q0 + r0, qb = qa + 8;        // their rows
+    const int pos_a = q_off + qa, pos_b = pos_a + 8;   // and positions
     const int cq = 2 * (lane % 4);
-    const int wg_lo = blk.q0 + wg * 64, wg_hi = wg_lo + 63;   // the wg's
+    const int wg_lo = q_off + blk.q0 + wg * 64, wg_hi = wg_lo + 63;
 
     float o[HDP / 2];
 #pragma unroll
@@ -390,10 +392,10 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
       float mx_a = NEG_INF, mx_b = NEG_INF;
       if (masked) {
         const int base = k0 + cq, c_s = S - base;
-        const int ca_hi = causal ? qa - base : BN, cb_hi = causal ? qb - base
-                                                                  : BN;
-        const int ca_lo = window > 0 ? qa - window - base : -1;
-        const int cb_lo = window > 0 ? qb - window - base : -1;
+        const int ca_hi = causal ? pos_a - base : BN;
+        const int cb_hi = causal ? pos_b - base : BN;
+        const int ca_lo = window > 0 ? pos_a - window - base : -1;
+        const int cb_lo = window > 0 ? pos_b - window - base : -1;
 #pragma unroll
         for (int i = 0; i < NS; ++i) {
           const int c = 8 * (i / 4) + i % 2;
@@ -546,7 +548,7 @@ int encode(CUtensorMap* map, const void* ptr, int B, int n_tok, int n_head,
 template <int HDP>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int T_len, int S, int H, int Hkv, int hd, float scale, int causal,
-           int window, cudaStream_t stream) {
+           int window, int q_off, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int rc = encode(&tq, q, B, T_len, H, hd, BM);
   if (rc == 0) rc = encode(&tk, k, B, S, Hkv, hd, Tiles<HDP>::BN);
@@ -560,7 +562,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((T_len + BM - 1) / BM, H, B);
   flash_attention_tc_kernel<HDP><<<grid, THREADS, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), T_len, S, H, Hkv, hd,
-      scale * LOG2E, causal, window);
+      scale * LOG2E, causal, window, q_off);
   return (int)cudaGetLastError();
 }
 
@@ -569,20 +571,22 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 extern "C" {
 
 // bf16 only; hd % 8 == 0, S > 0, 16-byte aligned pointers (the wrapper
-// checks); hdp, the padded head width in shared memory, 64 (hd <= 64), 128
+// checks); q_off the position of query row 0; hdp, the padded head width
+// in shared memory, 64 (hd <= 64), 128
 // (hd <= 128) or 256 (hd <= 256).  Returns 0, a CUDA error, or
 // cudaErrorInvalidValue for another hdp or when a tensor map could not be
 // encoded.
 int flash_attention_tc_launch(const void* q, const void* k, const void* v,
                               void* out, int B, int T_len, int S, int H,
                               int Hkv, int hd, int hdp, float scale,
-                              int causal, int window, void* stream) {
+                              int causal, int window, int q_off,
+                              void* stream) {
   if ((hdp != 64 && hdp != 128 && hdp != 256) || hd > hdp)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TC_LAUNCH(HDP)                                                       \
   return launch<HDP>(q, k, v, out, B, T_len, S, H, Hkv, hd, scale, causal,   \
-                     window, s)
+                     window, q_off, s)
   if (hdp == 64) TC_LAUNCH(64);
   if (hdp == 128) TC_LAUNCH(128);
   TC_LAUNCH(256);

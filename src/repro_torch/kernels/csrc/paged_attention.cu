@@ -31,7 +31,11 @@
 // scratch; a split wholly past the length writes m = NEG_INF and l = 0.
 // The combine kernel, grid (B, H), 256 threads, weighs the splits that
 // hold tokens by w_s = exp2(m_s - max m), its warps taking the splits 4
-// at a time: out = sum w_s acc_s / max(sum w_s l_s, 1e-30).
+// at a time: out = sum w_s acc_s / max(sum w_s l_s, 1e-30).  Where the
+// caller asks for it, it also writes each row's log-sum-exp of the scaled
+// scores, ln 2 (max m + log2 sum w_s l_s), -inf for a row of length 0
+// (whose output is 0): what a caller needs to merge rows that hold
+// disjoint parts of one sequence.
 // It reads only the splits below ceil(ceil(len / page) / pps), so an
 // empty split never enters a sum and no exp of NEG_INF - NEG_INF occurs.
 //
@@ -58,6 +62,7 @@ constexpr int PA_MAX_REP = 8;      // query rows per kv head
 constexpr int PA_MAX_HD = 256;     // MAX_HD in paged_attention.py
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <typename T> struct Vec;        // dims one lane holds: 16 bytes
 template <> struct Vec<float> {
@@ -316,8 +321,9 @@ __global__ void __launch_bounds__(CB_THREADS)
 paged_attention_combine_kernel(const float* __restrict__ ml,
                                const float* __restrict__ acc,
                                const int32_t* __restrict__ lens,
-                               T* __restrict__ out, int H, int hd, int page,
-                               int max_pages, int pps, int n_split) {
+                               T* __restrict__ out, float* __restrict__ lse,
+                               int H, int hd, int page, int max_pages,
+                               int pps, int n_split) {
   extern __shared__ float part[];          // (CB_WARPS, hd + 1)
   __shared__ float wmax[CB_WARPS];
   const int b = blockIdx.x, h = blockIdx.y;
@@ -373,6 +379,13 @@ paged_attention_combine_kernel(const float* __restrict__ ml,
     }
     from_f32(n / fmaxf(l, 1e-30f), &out[((size_t)b * H + h) * hd + d]);
   }
+  if (lse != nullptr && threadIdx.x == 0) {
+    float l = 0.f;
+#pragma unroll
+    for (int w = 0; w < CB_WARPS; ++w) l += part[w * (hd + 1) + hd];
+    lse[(size_t)b * H + h] =
+        l > 0.f ? (m + log2f(l)) * LN2 : __int_as_float(0xff800000);
+  }
 }
 
 size_t paged_attention_smem_bytes(int rows, int hd, int pps) {
@@ -383,7 +396,7 @@ size_t paged_attention_smem_bytes(int rows, int hd, int pps) {
 template <typename T, int NR, int NC>
 int launch_rows(const void* q, const void* k_pool, const void* v_pool,
                 const void* table, const void* lens, void* out, float* ml,
-                float* acc, int B, int H, int Hkv, int hd, int P, int page,
+                float* acc, float* lse, int B, int H, int Hkv, int hd, int P, int page,
                 int max_pages, int pps, int n_split, float scale,
                 cudaStream_t stream) {
   constexpr int E = Vec<T>::E;
@@ -404,7 +417,7 @@ int launch_rows(const void* q, const void* k_pool, const void* v_pool,
   paged_attention_combine_kernel<T>
       <<<dim3(B, H), CB_THREADS, CB_WARPS * (hd + 1) * sizeof(float),
          stream>>>(ml, acc, static_cast<const int32_t*>(lens),
-                   static_cast<T*>(out), H, hd, page, max_pages, pps,
+                   static_cast<T*>(out), lse, H, hd, page, max_pages, pps,
                    n_split);
   return (int)cudaGetLastError();
 }
@@ -412,7 +425,7 @@ int launch_rows(const void* q, const void* k_pool, const void* v_pool,
 template <typename T>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* table, const void* lens, void* out, float* ml,
-           float* acc, int B, int H, int Hkv, int hd, int P, int page,
+           float* acc, float* lse, int B, int H, int Hkv, int hd, int P, int page,
            int max_pages, int pps, int n_split, float scale,
            cudaStream_t stream) {
   const int n_rep = H / Hkv;
@@ -421,11 +434,11 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
   const bool wide = NC == 2 && hd * (int)sizeof(T) > 32 * 16;
 #define PA_ROWS(NR)                                                          \
   return wide ? launch_rows<T, NR, NC>(q, k_pool, v_pool, table, lens, out, \
-                                       ml, acc, B, H, Hkv, hd, P, page,     \
-                                       max_pages, pps, n_split, scale,      \
-                                       stream)                              \
+                                       ml, acc, lse, B, H, Hkv, hd, P,      \
+                                       page, max_pages, pps, n_split,       \
+                                       scale, stream)                       \
               : launch_rows<T, NR, 1>(q, k_pool, v_pool, table, lens, out,  \
-                                      ml, acc, B, H, Hkv, hd, P, page,      \
+                                      ml, acc, lse, B, H, Hkv, hd, P, page, \
                                       max_pages, pps, n_split, scale,       \
                                       stream)
   if (hd > PA_MAX_HD) return (int)cudaErrorInvalidValue;
@@ -442,24 +455,27 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  ml: (B, H, n_split, 2) and acc:
-// (B, H, n_split, hd) f32 scratch.  n_rep <= PA_MAX_REP and hd <=
+// (B, H, n_split, hd) f32 scratch.  lse: (B, H) f32, or null for none.
+// n_rep <= PA_MAX_REP and hd <=
 // PA_MAX_HD (the wrapper checks).  Returns cudaGetLastError() of the first
 // launch that failed, else of the second; cudaErrorInvalidValue for
 // n_rep > PA_MAX_REP or hd > PA_MAX_HD.
 int paged_attention_launch(const void* q, const void* k_pool,
                            const void* v_pool, const void* table,
                            const void* lens, void* out, void* ml, void* acc,
-                           int B, int H, int Hkv, int hd, int P, int page,
+                           void* lse, int B, int H, int Hkv, int hd, int P, int page,
                            int max_pages, int pps, int n_split, float scale,
                            int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* mlf = static_cast<float*>(ml);
   float* accf = static_cast<float*>(acc);
+  float* lsef = static_cast<float*>(lse);
   if (dtype == 0)
-    return launch<float>(q, k_pool, v_pool, table, lens, out, mlf, accf, B, H,
-                         Hkv, hd, P, page, max_pages, pps, n_split, scale, s);
+    return launch<float>(q, k_pool, v_pool, table, lens, out, mlf, accf, lsef,
+                         B, H, Hkv, hd, P, page, max_pages, pps, n_split,
+                         scale, s);
   return launch<__nv_bfloat16>(q, k_pool, v_pool, table, lens, out, mlf, accf,
-                               B, H, Hkv, hd, P, page, max_pages, pps,
+                               lsef, B, H, Hkv, hd, P, page, max_pages, pps,
                                n_split, scale, s);
 }
 

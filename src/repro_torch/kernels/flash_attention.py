@@ -48,7 +48,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_launch.argtypes = [vp] * 4 + [i] * 6 + [
-            ctypes.c_float, i, i, i, vp]
+            ctypes.c_float, i, i, i, i, vp]
         lib.flash_attention_launch.restype = i
         lib._typed = True
     return lib
@@ -59,16 +59,18 @@ def _lib_tc() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_tc_launch.argtypes = [vp] * 4 + [i] * 7 + [
-            ctypes.c_float, i, i, vp]
+            ctypes.c_float, i, i, i, vp]
         lib.flash_attention_tc_launch.restype = i
         lib._typed = True
     return lib
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
+                         q_offset: int = 0):
     """Attention on the card.  q: (B, T, H, hd); k, v: (B, S, Hkv, hd), one
     dtype of f32 / bf16, contiguous -> (B, T, H, hd) in q's dtype.  T and S
-    take any length; positions start at 0 on both sides.  The kernel is
+    take any length; key positions start at 0, query positions at
+    ``q_offset`` (a shard of the query rows).  The kernel is
     the one ``flash_route`` names (bf16 with hd % 8 == 0 on the tensor
     cores, the rest on the SIMT kernel).
 
@@ -100,8 +102,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
         raise ValueError(f"flash_attention_cuda: q must be (B, T, H, hd) and "
                          f"k, v (B, S, Hkv, hd), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if window < 0:
-        raise ValueError(f"flash_attention_cuda: window {window} < 0")
+    if window < 0 or q_offset < 0:
+        raise ValueError(f"flash_attention_cuda: window {window} or "
+                         f"q_offset {q_offset} < 0")
     B, T, H, hd = q.shape
     Bk, S, Hkv, hd_k = k.shape
     if Bk != B or hd_k != hd or Hkv == 0 or H % Hkv != 0:
@@ -122,12 +125,12 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
             rc = _lib_tc().flash_attention_tc_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
                 T, S, H, Hkv, hd, padded_hd(hd), scale, int(causal),
-                int(window), stream)
+                int(window), int(q_offset), stream)
         else:
             rc = _lib().flash_attention_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
                 T, S, H, Hkv, hd, scale, int(causal), int(window),
-                _DTYPES[q.dtype], stream)
+                int(q_offset), _DTYPES[q.dtype], stream)
     _build.check(rc, f"flash_attention ({route})")
     _build.count_launch("flash_attention")
     if route == "tc":

@@ -35,35 +35,40 @@ class _FlashAttention(torch.autograd.Function):
     ``_flash_bwd`` does through its oracle: no backward kernel exists."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, q_offset):
         ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.window = causal, window
+        ctx.args = dict(causal=causal, window=window, q_offset=q_offset)
         if _on_card(q):
-            return flash_attention_cuda(q, k, v, causal=causal, window=window)
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+            return flash_attention_cuda(q, k, v, **ctx.args)
+        return flash_attention_plain(q, k, v, **ctx.args)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
         with torch.enable_grad():
-            out = flash_attention_plain(q, k, v, causal=ctx.causal,
-                                        window=ctx.window)
+            out = flash_attention_plain(q, k, v, **ctx.args)
             dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0):
     """q: (B, T, H, hd); k, v: (B, S, Hkv, hd) -> (B, T, H, hd), with a
-    gradient with respect to q, k and v."""
-    return _FlashAttention.apply(q, k, v, causal, window)
+    gradient with respect to q, k and v.  Query row t sits at position
+    ``q_offset + t`` (a shard of the query rows), key s at s."""
+    return _FlashAttention.apply(q, k, v, causal, window, q_offset)
 
 
-def paged_attention(q, k_pool, v_pool, block_table, seq_lens):
+def paged_attention(q, k_pool, v_pool, block_table, seq_lens, *,
+                    return_lse: bool = False):
     """q: (B, H, hd); pools: (P, page, Hkv, hd); block_table: (B, max_pages)
-    int32; seq_lens: (B,) int32 -> (B, H, hd)."""
+    int32; seq_lens: (B,) int32 -> (B, H, hd), and with ``return_lse``
+    each row's log-sum-exp (B, H) f32 (-inf at length 0)."""
     if _on_card(q):
-        return paged_attention_cuda(q, k_pool, v_pool, block_table, seq_lens)
-    return paged_attention_plain(q, k_pool, v_pool, block_table, seq_lens)
+        return paged_attention_cuda(q, k_pool, v_pool, block_table, seq_lens,
+                                    return_lse=return_lse)
+    return paged_attention_plain(q, k_pool, v_pool, block_table, seq_lens,
+                                 return_lse=return_lse)
 
 
 def gather_quantize_crc_units(stack, units):

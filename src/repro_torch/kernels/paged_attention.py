@@ -29,7 +29,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("paged_attention")
     if not getattr(lib, "_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.paged_attention_launch.argtypes = [vp] * 8 + [i] * 9 + [
+        lib.paged_attention_launch.argtypes = [vp] * 9 + [i] * 9 + [
             ctypes.c_float, i, vp]
         lib.paged_attention_launch.restype = i
         lib._typed = True
@@ -58,14 +58,17 @@ def _smem_bytes(n_rep: int, hd: int, pps: int) -> int:
 
 
 def paged_attention_cuda(q, k_pool, v_pool, block_table, seq_lens, *,
-                         pages_per_split: int | None = None):
+                         pages_per_split: int | None = None,
+                         return_lse: bool = False):
     """One decode step on the card.  q: (B, H, hd); pools: (P, page, Hkv,
     hd) in q's dtype (f32 or bf16); block_table: (B, max_pages) int32;
     seq_lens: (B,) int32 -> (B, H, hd) in q's dtype.  Every entry of a
     table row below ``ceil(len / page)`` must name a page of the pool.
     ``pages_per_split`` overrides ``split_plan`` (tests force 1 and
-    max_pages).  Takes n_rep = H / Hkv <= 8 and hd <= 256, and raises on
-    anything else.
+    max_pages).  ``return_lse`` also returns each row's log-sum-exp of its
+    scaled scores, (B, H) f32, -inf for a row of length 0 (whose output is
+    0), written by the combine launch.  Takes n_rep = H / Hkv <= 8 and hd
+    <= 256, and raises on anything else.
 
     Replaces ``src/repro/kernels/paged_attention.py:paged_attention_pallas``.
     Bound on the H100 by the bytes it reads: each live K and V page once,
@@ -109,9 +112,12 @@ def paged_attention_cuda(q, k_pool, v_pool, block_table, seq_lens, *,
         raise ValueError(f"paged_attention_cuda: hd {hd} outside "
                          f"1..{MAX_HD}")
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     max_pages = block_table.shape[1]
     if B == 0 or max_pages == 0 or H == 0:
-        return out.zero_()
+        out.zero_()
+        return (out, lse.fill_(-math.inf)) if return_lse else out
     pps, n_split = split_plan(B, Hkv, max_pages)
     if pages_per_split is not None:
         if not 0 < pages_per_split <= max_pages:
@@ -131,8 +137,10 @@ def paged_attention_cuda(q, k_pool, v_pool, block_table, seq_lens, *,
         rc = _lib().paged_attention_launch(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-            ml.data_ptr(), acc.data_ptr(), B, H, Hkv, hd, P, page, max_pages,
-            pps, n_split, 1.0 / math.sqrt(hd), _DTYPES[q.dtype], stream)
+            ml.data_ptr(), acc.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, H, Hkv, hd, P, page,
+            max_pages, pps, n_split, 1.0 / math.sqrt(hd), _DTYPES[q.dtype],
+            stream)
     _build.check(rc, "paged_attention")
     _build.count_launch("paged_attention")
-    return out
+    return (out, lse) if return_lse else out

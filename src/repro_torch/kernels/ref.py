@@ -10,8 +10,10 @@ import torch
 ADLER_MOD = 65521
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: (B, T, H, hd); k, v: (B, S, Hkv, hd) -> (B, T, H, hd). f32 math."""
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0):
+    """q: (B, T, H, hd); k, v: (B, S, Hkv, hd) -> (B, T, H, hd). f32 math.
+    Query row t sits at position ``q_offset + t``, key s at s."""
     B, T, H, hd = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     n_rep = H // Hkv
@@ -19,7 +21,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     v = v.repeat_interleave(n_rep, dim=2)
     scale = 1.0 / math.sqrt(hd)
     s = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale
-    q_pos = torch.arange(T, device=q.device)[:, None]
+    q_pos = q_offset + torch.arange(T, device=q.device)[:, None]
     k_pos = torch.arange(S, device=q.device)[None, :]
     valid = torch.ones((T, S), dtype=torch.bool, device=q.device)
     if causal:
@@ -33,9 +35,12 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     return out.to(q.dtype)
 
 
-def paged_attention_ref(q, k_pool, v_pool, block_table, seq_lens):
+def paged_attention_ref(q, k_pool, v_pool, block_table, seq_lens, *,
+                        return_lse: bool = False):
     """q: (B, H, hd); pools: (P, page, Hkv, hd); block_table: (B, max_pages);
-    seq_lens: (B,) -> (B, H, hd)."""
+    seq_lens: (B,) -> (B, H, hd), and with ``return_lse`` each row's
+    log-sum-exp of its scaled scores (B, H) f32 (-inf at length 0, where
+    the output is 0)."""
     B, H, hd = q.shape
     P, page, Hkv, _ = k_pool.shape
     n_rep = H // Hkv
@@ -52,8 +57,8 @@ def paged_attention_ref(q, k_pool, v_pool, block_table, seq_lens):
     s = s.masked_fill(~valid, -math.inf)
     p = torch.softmax(s, dim=-1)
     p = torch.where(valid, p, torch.zeros((), device=q.device))
-    out = torch.einsum("bhs,bshd->bhd", p, v)
-    return out.to(q.dtype)
+    out = torch.einsum("bhs,bshd->bhd", p, v).to(q.dtype)
+    return (out, torch.logsumexp(s, dim=-1)) if return_lse else out
 
 
 def gather_quantize_ref(pool, page_ids, eps: float = 1e-12):

@@ -1,10 +1,11 @@
 """Model configuration, as ``repro.models.common`` with torch dtypes, and
 the activation checkpointing that its ``remat`` field selects.
 
-The reference's fields under its names and defaults, except: the knobs
+The reference's fields under its names and defaults, except the knobs
 that steer JAX's compiler (``attn_impl``, ``scan_layers``) and the chunk
-of its XLA attention (``attn_chunk``), since the port runs eagerly on one
-card and attends through the flash kernel; and the mesh context.
+of its XLA attention (``attn_chunk``), since the port runs eagerly and
+attends through the flash kernel.  ``MeshCtx`` is the reference's, over a
+``torch.distributed`` ``DeviceMesh``.
 """
 from __future__ import annotations
 
@@ -14,6 +15,41 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
+
+
+@dataclass(frozen=True)
+class MeshCtx:
+    """How model code should see the device mesh (None = one device).
+
+    mesh: a ``DeviceMesh`` with named dims.  batch_axes: mesh axes the
+    batch dim is sharded over (may be empty, e.g. batch=1 long-context
+    decode).  model_axis: the TP/EP axis name."""
+    mesh: Any = None
+    batch_axes: tuple = ()
+    model_axis: str | None = None
+
+    def size(self, axis: str | None) -> int:
+        """The mesh's size along ``axis`` (1 for None or an axis it lacks)."""
+        if self.mesh is None or axis not in (self.mesh.mesh_dim_names or ()):
+            return 1
+        return self.mesh.size(self.mesh.mesh_dim_names.index(axis))
+
+    def rank(self, axis: str | None) -> int:
+        """This rank's coordinate along ``axis`` (0 for None)."""
+        if self.mesh is None or axis not in (self.mesh.mesh_dim_names or ()):
+            return 0
+        return self.mesh.get_local_rank(axis)
+
+    def group(self, axis: str):
+        return self.mesh.get_group(axis)
+
+    def batch_shards(self) -> tuple[int, int]:
+        """(this rank's index, count) of the batch shards over
+        ``batch_axes``, the first axis major."""
+        i, n = 0, 1
+        for a in self.batch_axes:
+            i, n = i * self.size(a) + self.rank(a), n * self.size(a)
+        return i, n
 
 
 @dataclass(frozen=True)

@@ -1,8 +1,19 @@
-"""Model primitives, as in ``repro.models.layers`` without a mesh: norms,
-RoPE and sinusoidal positions, the projections, decode attention over a
-contiguous cache on the paged kernel, the MLP, the capacity-routed MoE
-block, and parameter init.  Attention over a prompt is the flash kernel's
+"""Model primitives, as ``repro.models.layers``: norms, RoPE and
+sinusoidal positions, the projections, decode attention over a contiguous
+cache on the paged kernel, the MLP, the capacity-routed MoE block, and
+parameter init.  Attention over a prompt is the flash kernel's
 (``kernels.ops.flash_attention``), whose plain version is the CPU's.
+
+On a mesh (a ``MeshCtx`` with a mesh; parameters and activations are
+DTensors) each of the reference's ``shard_map`` regions is a
+``local_map`` region over local tensors, the port's kernels and explicit
+collectives: ``mesh_attention`` (heads over ``model``, or the query
+sequence where the heads do not divide: the reference's
+``sharded_attention``), ``mesh_decode_attend`` over an S-sharded cache
+(the write on the shard that owns the slot, the paged kernel over each
+shard's slots, the shards merged by log-sum-exp) and ``moe_apply``
+(experts over ``model``, ZeRO-3 gathers over ``data``).  With no mesh
+every function is the single-device path.
 
 Parameter layout follows the reference, so converted JAX parameters drop
 in unchanged:
@@ -16,14 +27,21 @@ distributions; parameters land on the generator's device.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor.experimental import (implicit_replication,
+                                                   local_map)
 
-from repro_torch.kernels.ops import paged_attention
+from repro_torch.kernels.ops import flash_attention, paged_attention
 from repro_torch.kernels.paged_attention import MAX_REP
+from repro_torch.parallel.sharding import placements
 
 
 # --------------------------------------------------------------------- norms
@@ -205,6 +223,287 @@ def decode_update_and_attend(q, cache_k, cache_v, cache_pos, new_k, new_v,
     return decode_attention(q, cache_k, cache_v, pages)
 
 
+# ------------------------------------------------------------------ the mesh
+def on_mesh(ctx) -> bool:
+    return ctx is not None and ctx.mesh is not None
+
+
+@contextlib.contextmanager
+def mesh_scope(ctx):
+    """The context the model runs in: on a mesh, DTensor's implicit
+    replication (a tensor that is no DTensor, as positions or RoPE's
+    frequencies, counts as whole on every rank); else nothing.  A scope
+    opened inside another leaves it to the outer one
+    (``implicit_replication`` turns the replication off on any exit, and
+    a train step's backward runs after the loss's scope closes, inside
+    the step's)."""
+    if not on_mesh(ctx) or DTensor._op_dispatcher._allow_implicit_replication:
+        yield
+        return
+    with implicit_replication():
+        yield
+
+
+def _bspec(ctx):
+    return ctx.batch_axes if on_mesh(ctx) and ctx.batch_axes else None
+
+
+def act_spec(ctx, nd: int = 3) -> tuple:
+    """The activations' spec: the batch over the DP axes, the rest whole."""
+    return (_bspec(ctx),) + (None,) * (nd - 1)
+
+
+def constrain(x, ctx, spec: tuple):
+    """``x`` redistributed to ``spec`` on the mesh (the counterpart of
+    ``with_sharding_constraint``; a tensor that is no DTensor is taken as
+    whole on every rank); ``x`` itself off the mesh."""
+    if not on_mesh(ctx):
+        return x
+    pl = placements(spec, ctx.mesh)
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, ctx.mesh, [Replicate()] * len(pl),
+                               run_check=False)
+    return x if tuple(x.placements) == pl else x.redistribute(ctx.mesh, pl)
+
+
+def _pl(ctx, spec, partial: tuple = ()):
+    """A spec's placements as a list (``local_map``'s form for one tensor),
+    ``Partial()`` on the mesh axes named in ``partial``; None stays None."""
+    if spec is None:
+        return None
+    pl = list(placements(spec, ctx.mesh))
+    for i, name in enumerate(ctx.mesh.mesh_dim_names):
+        if name in partial:
+            pl[i] = Partial()
+    return pl
+
+
+def _local(fn, ctx, in_specs, out_specs, grad_partial=None):
+    """``local_map`` of ``fn`` over ``ctx.mesh``: the DTensor inputs
+    redistributed to ``in_specs`` (None for an input that is no DTensor),
+    the outputs of ``out_specs`` (a list for several).  ``grad_partial``:
+    per input, the mesh axes over which its gradient is a partial sum (an
+    input whole there whose ranks each use a part of it)."""
+    gp = None
+    if grad_partial is not None:
+        gp = tuple(_pl(ctx, s, part) for s, part in zip(in_specs,
+                                                          grad_partial))
+    outs = (tuple(_pl(ctx, s) for s in out_specs)
+            if isinstance(out_specs, list) else _pl(ctx, out_specs))
+    return local_map(fn, out_placements=outs,
+                     in_placements=tuple(_pl(ctx, s) for s in in_specs),
+                     in_grad_placements=gp, device_mesh=ctx.mesh,
+                     redistribute_inputs=True)
+
+
+def heads(t, n: int, hd: int, ctx=None):
+    """(B, T, n * hd) -> (B, T, n, hd).  On a mesh a flat axis sharded over
+    ``model`` whose head count does not divide it (qwen's 2 kv heads at tp
+    4) is redistributed whole over ``model`` first: DTensor cannot split a
+    shard across the (n, hd) reshape."""
+    B, T = t.shape[:2]
+    if on_mesh(ctx) and ctx.model_axis and n % ctx.size(ctx.model_axis):
+        t = constrain(t, ctx, act_spec(ctx))
+    return t.reshape(B, T, n, hd)
+
+
+def mesh_attention(q, k, v, ctx, *, causal: bool = True, window: int = 0):
+    """Attention over a prompt on a mesh: the flash kernel on each rank's
+    local rows.  q: (B, T, H, hd); k, v: (B, S, Hkv, hd), DTensors.
+
+    * H divides the model axis: each rank takes its heads (the reference's
+      GSPMD partition by head), and its share of the kv heads where Hkv
+      divides too; else K/V stay whole over ``model`` and each rank takes
+      the kv heads its query heads read, where that is a whole number of
+      kv heads, or one kv head for several ranks.
+    * H does not divide and T does: the reference's ``sharded_attention``,
+      the query sequence over ``model`` (T / tp rows a rank, the flash
+      kernel's ``q_offset`` their first position), K/V whole.
+    * Else every rank computes every head (q, K and V whole over
+      ``model``)."""
+    ax, tp, b = ctx.model_axis, ctx.size(ctx.model_axis), _bspec(ctx)
+    B, T, H, hd = q.shape
+    Hkv = k.shape[2]
+    n_rep = H // Hkv
+    whole = (b, None, None, None)
+    by_head = (b, None, ax, None)
+    r = ctx.rank(ax)
+    part = (ax,) if ax else ()
+
+    def flash(q_l, k_l, v_l, q_offset=0):
+        return flash_attention(q_l.contiguous(), k_l.contiguous(),
+                               v_l.contiguous(), causal=causal,
+                               window=window, q_offset=q_offset)
+
+    if ax and H % tp == 0:
+        H_l = H // tp
+        if Hkv % tp == 0:
+            return _local(flash, ctx, (by_head,) * 3, by_head)(q, k, v)
+        if H_l % n_rep == 0 or n_rep % H_l == 0:
+            lo, n_kv = r * H_l // n_rep, max(1, H_l // n_rep)
+            return _local(lambda q_l, k_l, v_l: flash(
+                q_l, k_l[:, :, lo:lo + n_kv], v_l[:, :, lo:lo + n_kv]),
+                ctx, (by_head, whole, whole), by_head,
+                grad_partial=((), part, part))(q, k, v)
+    elif ax and T % tp == 0:
+        by_row = (b, ax, None, None)
+        return _local(lambda q_l, k_l, v_l: flash(q_l, k_l, v_l,
+                                                  r * (T // tp)),
+                      ctx, (by_row, whole, whole), by_row,
+                      grad_partial=((), part, part))(q, k, v)
+    return _local(flash, ctx, (whole,) * 3, whole)(q, k, v)
+
+
+def _tmap(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tmap(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tmap(fn, v) for v in tree)
+    return None if tree is None else fn(tree)
+
+
+def whole_over_model(fn, ctx, x, p, *rest):
+    """``fn(x, p, *rest)`` on each rank's local tensors, with its batch
+    rows and every parameter whole: the recurrent mixers (the mLSTM's
+    chunkwise form, the sLSTM's and the RG-LRU's scans, the causal conv),
+    whose reshapes and scans DTensor has no sharding rules for.  ``x`` and
+    the tensors of ``rest`` (states, or None) have the batch first and go
+    to the activations' spec; the parameters of ``p`` go whole over the
+    mesh (an all-gather of those sharded over ``model``), their gradient a
+    partial sum over the DP axes.  Every rank of the model axis computes
+    the same thing.  The outputs come back with the activations' spec."""
+    mesh = ctx.mesh
+    whole = [Replicate()] * mesh.ndim
+    grad = [Partial() if n in ctx.batch_axes else Replicate()
+            for n in mesh.mesh_dim_names]
+
+    def param(t):
+        if not isinstance(t, DTensor):
+            return t
+        return t.redistribute(mesh, whole).to_local(grad_placements=grad)
+
+    def act(t):
+        return constrain(t, ctx, act_spec(ctx, t.dim())).to_local()
+
+    out = fn(_tmap(act, x), _tmap(param, p), *(_tmap(act, r) for r in rest))
+    return _tmap(lambda t: DTensor.from_local(
+        t, mesh, placements(act_spec(ctx, t.dim()), mesh),
+        run_check=False), out)
+
+
+def fill_cache_shard(kv, k, v, positions, T: int, n: int, S: int, ctx) -> None:
+    """A prefill's last n of T keys, values and positions into one
+    layer's cache on a mesh, position p in slot p % S: each rank writes
+    the slots of its own shard of S (all of them where S does not divide
+    the model axis), IN PLACE."""
+    tp = ctx.size(ctx.model_axis)
+    sharded = bool(ctx.model_axis) and S % tp == 0
+    S_l = S // tp if sharded else S
+    lo = ctx.rank(ctx.model_axis) * S_l if sharded else 0
+    js = [j for j in range(T - n, T) if lo <= j % S < lo + S_l]
+    dev = positions.device
+    src = torch.tensor(js, dtype=torch.long, device=dev)
+    dst = torch.tensor([j % S - lo for j in js], dtype=torch.long,
+                       device=dev)
+    b = act_spec(ctx, 2)[0]
+    s_ax = ctx.model_axis if sharded else None
+
+    def f(ck, cv, cp, k_l, v_l, p_l):
+        ck[:, dst] = k_l[:, src].to(ck.dtype)
+        cv[:, dst] = v_l[:, src].to(cv.dtype)
+        cp[:, dst] = p_l[:, src].to(cp.dtype)
+
+    cache_kv, whole = (b, s_ax, None, None), (b, None, None, None)
+    _local(f, ctx, (cache_kv, cache_kv, (b, s_ax), whole, whole, (b, None)),
+           None)(kv["k"], kv["v"], kv["pos"], k, v,
+                 constrain(positions, ctx, (b, None)))
+
+
+@dataclass(frozen=True)
+class MeshDecode:
+    """One decode step's view of a cache from this rank: its batch rows'
+    slot (``idx`` within this shard, clamped, and whether this shard owns
+    it, ``owns``), their positions, and the pages of this shard's slots
+    over each row's local length, clamp(len - rank * S / tp, 0, S / tp)
+    (the valid slots are a prefix of the cache, a ring's too).  ``sharded``:
+    the cache's S is split over ``model`` (else each rank holds it
+    whole)."""
+    rows: torch.Tensor         # (B_l,) 0..B_l - 1
+    idx: torch.Tensor          # (B_l,)
+    owns: torch.Tensor         # (B_l,) bool
+    pos: torch.Tensor          # (B_l,)
+    pages: DecodePages
+    sharded: bool
+
+
+def mesh_decode(pos, S: int, n_rep: int, ctx, ring: bool) -> MeshDecode:
+    """``pos`` (B,) the step's positions, whole on every rank."""
+    tp = ctx.size(ctx.model_axis)
+    sharded = bool(ctx.model_axis) and S % tp == 0
+    S_l, r = (S // tp, ctx.rank(ctx.model_axis)) if sharded else (S, 0)
+    i, n = ctx.batch_shards()
+    B_l = pos.shape[0] // n
+    pos_l = pos[i * B_l:(i + 1) * B_l]
+    slot = (pos_l % S if ring else pos_l) - r * S_l
+    lens = torch.clamp(torch.clamp(pos_l + 1, max=S) - r * S_l, 0, S_l)
+    return MeshDecode(torch.arange(B_l, device=pos.device),
+                      torch.clamp(slot, 0, S_l - 1),
+                      (slot >= 0) & (slot < S_l), pos_l,
+                      decode_pages(lens, S_l, n_rep), sharded)
+
+
+def _merge_shards(out, lse, group):
+    """Rows that hold disjoint parts of one sequence, merged over
+    ``group`` by their log-sum-exps: out (R, H, hd), lse (R, H) f32 ->
+    sum_r exp(lse_r - max) out_r / sum_r exp(lse_r - max), an all-reduce
+    of the max and one of the weighted sums.  A shard with no valid slot
+    has lse -inf and weighs 0."""
+    m = lse.clone()
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    w = torch.exp(lse - m)
+    both = torch.cat([out.float() * w[..., None], w[..., None]], dim=-1)
+    dist.all_reduce(both, group=group)
+    return (both[..., :-1] / both[..., -1:]).to(out.dtype)
+
+
+def mesh_decode_attend(q, cache_k, cache_v, cache_pos, new_k, new_v,
+                       step: MeshDecode, ctx):
+    """The reference's ``decode_update_and_attend`` on a mesh, a
+    ``local_map`` over the cache's shards: the new token's K/V and
+    position are written IN PLACE on the shard that owns the slot (the
+    others write back what they hold), each shard runs the paged kernel
+    over its own slots with the rows' log-sum-exps, and the shards are
+    merged (``_merge_shards``).  q (B, 1, H, hd) and new_k/v (B, 1, Hkv,
+    hd) whole over ``model``; cache_k/v (B, S, Hkv, hd) and cache_pos
+    (B, S) with S over ``model`` where ``step.sharded`` -> (B, 1, H, hd)."""
+    b, ax = _bspec(ctx), ctx.model_axis
+    s_ax = ax if step.sharded else None
+    whole = (b, None, None, None)
+    kv = (b, s_ax, None, None)
+
+    def f(q_l, k_l, v_l, cp_l, nk_l, nv_l):
+        at, own = (step.rows, step.idx), step.owns
+        k_l[at] = torch.where(own[:, None, None], nk_l[:, 0].to(k_l.dtype),
+                              k_l[at])
+        v_l[at] = torch.where(own[:, None, None], nv_l[:, 0].to(v_l.dtype),
+                              v_l[at])
+        cp_l[at] = torch.where(own, step.pos.to(cp_l.dtype), cp_l[at])
+        pages = step.pages
+        Bl, _, H, hd = q_l.shape
+        Hkv = k_l.shape[2]
+        split, r = pages.split, H // Hkv // pages.split
+        out, lse = paged_attention(
+            *paged_view(q_l.contiguous(), k_l, v_l, pages), pages.table,
+            pages.lens, return_lse=True)
+        if step.sharded:
+            out = _merge_shards(out, lse, ctx.group(ax))
+        return out.view(Bl, split, Hkv, r, hd).transpose(1, 2) \
+            .reshape(Bl, 1, H, hd)
+
+    return _local(f, ctx, (whole, kv, kv, (b, s_ax), whole, whole),
+                  whole)(q, cache_k, cache_v, cache_pos, new_k, new_v)
+
+
 # ---------------------------------------------------------------- MLP blocks
 def silu(x):
     """x * sigmoid(x), one op at a time: in bf16 each step rounds where the
@@ -246,28 +545,56 @@ def capacity_top_k(score, capacity: int):
     return vals[..., :capacity], idx[..., :capacity]
 
 
-def moe_local(x, router, wg, wu, wd, *, top_k: int, capacity: int):
+def moe_local(x, router, wg, wu, wd, *, top_k: int, capacity: int,
+              expert_offset: int = 0):
     """Token-choice routing with per-expert top-C capacity over the
-    scores, the experts' SwiGLU on the gathered tokens, then a scatter-add.
-    x: (T, D); wg/wu: (E, D, F); wd: (E, F, D) -> (T, D), every expert
-    local (the reference's ``expert_offset`` 0).  Tokens an expert does
-    not route score 0; where C exceeds the routed count, the zero-gate
-    tokens picked add exactly nothing."""
+    scores, the experts' SwiGLU on the gathered tokens, then each token's
+    sum over its k experts.  x: (T, D); wg/wu: (E_l, D, F); wd: (E_l, F,
+    D), the router's experts ``expert_offset`` .. ``expert_offset + E_l -
+    1`` -> their partial output (T, D).  Tokens an expert does not route
+    score 0; where C exceeds the routed count, the zero-gate tokens picked
+    add exactly nothing, so they are left out of the sum."""
     T, D = x.shape
     E = wg.shape[0]
     logits = (x @ router.to(x.dtype)).float()                      # (T, E)
     probs = torch.softmax(logits, dim=-1)
     topw, topi = torch.topk(probs, top_k, dim=-1)                  # (T, k)
     topw = topw / (topw.sum(dim=-1, keepdim=True) + 1e-9)
-    hit = topi[:, :, None] == torch.arange(E, device=x.device)     # (T, k, E)
+    hit = topi[:, :, None] == torch.arange(
+        expert_offset, expert_offset + E, device=x.device)         # (T, k, E)
     score = torch.where(hit, topw[:, :, None], 0.0).sum(dim=1)     # (T, E)
     gate, idx = capacity_top_k(score.T, capacity)                  # (E, C)
     xe = x[idx]                                                    # (E, C, D)
     h = silu(torch.bmm(xe, wg)) * torch.bmm(xe, wu)
     ye = torch.bmm(h, wd)
     ye = ye * gate[..., None].to(ye.dtype)
-    return torch.zeros((T, D), dtype=ye.dtype, device=x.device).index_add_(
-        0, idx.reshape(-1), ye.reshape(-1, D))
+    if E < router.shape[-1]:          # a part of the experts: number them
+        topi = topi - expert_offset   # locally, E for one held elsewhere
+        topi = topi.where((topi >= 0) & (topi < E), E)
+    return combine_top_k(ye, idx, topi, T)
+
+
+def combine_top_k(ye, idx, topi, T: int):
+    """out[t] = sum over j < k of ye[topi[t, j], the slot of t there]:
+    ye (E, C, D) the experts' gated outputs, idx (E, C) the token in each
+    slot, topi (T, k) each token's experts (E, or an expert not holding t
+    in its C slots, adds nothing).  A gather and a sum in a fixed order:
+    a scatter-add (``index_add_``) adds a token's k outputs with atomics
+    in no fixed order on the card, and in bf16 the rounding follows the
+    order (two runs of moonshot-v1-16b-a3b at full width gave different
+    greedy tokens)."""
+    E, C, D = ye.shape
+    # each token's first slot in each expert, C where it holds none (its
+    # routed tokens fill an expert's first slots; a later slot of the
+    # same token could only be one of gate 0).  The least of the writes
+    # is kept, whatever order they land in
+    slot = torch.full((T, E + 1), C, dtype=torch.long, device=ye.device)
+    slot.scatter_reduce_(0, idx.T, torch.arange(C, device=ye.device)[
+        :, None].expand(C, E), "amin")
+    rows = torch.add(slot.gather(1, topi), topi, alpha=C + 1)      # (T, k)
+    ye = F.pad(ye, (0, 0, 0, 1, 0, 1))      # expert E and slot C: zeros
+    return ye.reshape(-1, D).index_select(0, rows.reshape(-1)).reshape(
+        T, -1, D).sum(dim=1)
 
 
 def moe_capacity(n_tokens: int, top_k: int, n_experts: int, cf: float) -> int:
@@ -276,13 +603,73 @@ def moe_capacity(n_tokens: int, top_k: int, n_experts: int, cf: float) -> int:
     return max(1, min(n_tokens, c))
 
 
-def moe_apply(x, p, moe_cfg):
-    """x: (B, T, D), every expert local (the reference without a mesh)."""
+class _SumOverRanks(torch.autograd.Function):
+    """The sum of each rank's part over ``group``, whole on every rank;
+    its gradient is the output's, which every rank holds whole."""
+
+    @staticmethod
+    def forward(ctx_, x, group):
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx_, g):
+        return g, None
+
+
+# calls of ``moe_apply``'s mesh branch, for the chip smoke to count
+MOE_MESH_CALLS = [0]
+
+
+def moe_apply(x, p, moe_cfg, ctx=None):
+    """x: (B, T, D).  Off the mesh every expert is local.  On a mesh the
+    experts are split over ``model`` (the tokens whole there): each rank
+    runs its E / tp experts from offset rank * E / tp and an all-reduce
+    sums the outputs; with ``data`` > 1 and F divisible by it, the expert
+    weights are stored sharded over ``data`` on F (ZeRO-3, as
+    ``parallel.sharding``'s rule) and all-gathered per layer."""
     B, T, D = x.shape
     E, k, cf = moe_cfg.n_experts, moe_cfg.top_k, moe_cfg.capacity_factor
-    out = moe_local(x.reshape(-1, D), p["router"], p["wg"], p["wu"], p["wd"],
-                    top_k=k, capacity=moe_capacity(B * T, k, E, cf))
-    return out.reshape(B, T, D)
+    if not on_mesh(ctx):
+        out = moe_local(x.reshape(-1, D), p["router"], p["wg"], p["wu"],
+                        p["wd"], top_k=k,
+                        capacity=moe_capacity(B * T, k, E, cf))
+        return out.reshape(B, T, D)
+    ax, tp = ctx.model_axis, ctx.size(ctx.model_axis)
+    if ax is None or E % tp:
+        raise ValueError(f"{E} experts over a model axis of {tp} (axis "
+                         f"{ax!r})")
+    F_ = p["wg"].shape[-1]
+    dp = ctx.size("data")
+    fsdp = "data" if dp > 1 and F_ % dp == 0 else None
+    b = _bspec(ctx)
+    off = ctx.rank(ax) * (E // tp)
+    MOE_MESH_CALLS[0] += 1
+
+    def f(xl, router, wg, wu, wd):
+        if fsdp is not None:
+            # ZeRO-3 gather: this layer's expert shard, whole
+            grp = ctx.group(fsdp)
+            wg = funcol.all_gather_tensor_autograd(wg, 2, grp)
+            wu = funcol.all_gather_tensor_autograd(wu, 2, grp)
+            wd = funcol.all_gather_tensor_autograd(wd, 1, grp)
+        Bl, Tl = xl.shape[:2]
+        out = moe_local(xl.reshape(-1, D), router, wg, wu, wd, top_k=k,
+                        capacity=moe_capacity(Bl * Tl, k, E, cf),
+                        expert_offset=off)
+        return _SumOverRanks.apply(out, ctx.group(ax)).reshape(Bl, Tl, D)
+
+    # gradients that are partial sums: the tokens' over the experts'
+    # ranks; the router's over those and the batch's; the experts' over
+    # the batch's, unless the ZeRO-3 gather's reduce-scatter sums them
+    dp_axes = tuple(ctx.batch_axes)
+    w_part = () if fsdp else dp_axes
+    return _local(
+        f, ctx, ((b, None, None), (None, None), (ax, None, fsdp),
+                 (ax, None, fsdp), (ax, fsdp, None)), (b, None, None),
+        grad_partial=((ax,), (ax,) + dp_axes, w_part, w_part, w_part))(
+        x, p["router"], p["wg"], p["wu"], p["wd"])
 
 
 def moe_init(gen: torch.Generator, d: int, moe_cfg, dtype):
@@ -311,8 +698,7 @@ def attn_init(gen: torch.Generator, d: int, n_heads: int, n_kv: int, hd: int,
     return p
 
 
-def qkv_proj(x, p, n_heads: int, n_kv: int, hd: int):
-    B, T, _ = x.shape
+def qkv_proj(x, p, n_heads: int, n_kv: int, hd: int, ctx=None):
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
@@ -320,8 +706,8 @@ def qkv_proj(x, p, n_heads: int, n_kv: int, hd: int):
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    return (q.reshape(B, T, n_heads, hd), k.reshape(B, T, n_kv, hd),
-            v.reshape(B, T, n_kv, hd))
+    return (heads(q, n_heads, hd, ctx), heads(k, n_kv, hd, ctx),
+            heads(v, n_kv, hd, ctx))
 
 
 def out_proj(attn_out, p):

@@ -25,6 +25,12 @@ runs the flash kernel with the window, decode attention the paged kernel
 over the ring viewed as pages (``layers.decode_attention``), the valid
 slots of a row being 0..min(pos, W - 1).  The decode step writes the new
 state IN PLACE and returns it.
+
+On a mesh (``ctx``) the parameters are DTensors: the recurrent mixer
+runs in ``layers.whole_over_model``, the attention in
+``layers.mesh_attention`` and, in decode, ``layers.mesh_decode_attend``
+over the ring sharded on W; the state is a tree of DTensors of
+``parallel.sharding.cache_spec_tree``'s placements.
 """
 from __future__ import annotations
 
@@ -34,11 +40,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ops import flash_attention
+from repro_torch.parallel.sharding import cache_spec_tree, distribute_tree
 from .common import ModelConfig, remat
-from .layers import (_normal, attn_init, check_decode_positions,
-                     decode_pages, decode_update_and_attend, init_norm,
-                     mlp_apply, mlp_init, out_proj, prompt_positions,
-                     qkv_proj, rms_norm, rope, token_nll)
+from .layers import (_normal, act_spec, attn_init, check_decode_positions,
+                     constrain, decode_pages, decode_update_and_attend,
+                     fill_cache_shard, init_norm, mesh_attention,
+                     mesh_decode, mesh_decode_attend, mlp_apply, mlp_init,
+                     on_mesh, out_proj, prompt_positions, qkv_proj, rms_norm,
+                     rope, token_nll, whole_over_model)
 
 PATTERN = ("rec", "rec", "attn")
 GROUP_KEYS = ("rec1", "rec2", "attn")    # a group's layers, by PATTERN
@@ -135,32 +144,43 @@ def rec_mixer_apply(x, p, cfg: ModelConfig, state=None):
 
 
 def attn_mixer_apply(x, p, cfg: ModelConfig, positions, cache=None,
-                     slot=None, pages=None):
+                     slot=None, pages=None, ctx=None):
     """Local attention.  A prompt (cache None) attends on the flash kernel
     with the window and returns its keys and values; a decode token writes
     its K/V into the ring ``cache`` at ``slot`` = (rows, slot index) and
     attends over it through ``pages``."""
     xn = rms_norm(x, p["ln1"]["scale"])
-    q, k, v = qkv_proj(xn, p["attn"], cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+    q, k, v = qkv_proj(xn, p["attn"], cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                       ctx)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    if cache is not None:
+    if cache is not None and on_mesh(ctx):
+        out = mesh_decode_attend(q, cache["k"], cache["v"], cache["pos"], k,
+                                 v, pages, ctx)
+    elif cache is not None:
         out = decode_update_and_attend(q, cache["k"], cache["v"],
                                        cache["pos"], k, v, slot, pages,
                                        pos=positions[:, 0])
+    elif on_mesh(ctx):
+        out = mesh_attention(q, k, v, ctx, causal=True,
+                             window=cfg.attn_window)
     else:
         out = flash_attention(q, k, v, causal=True, window=cfg.attn_window)
     return out_proj(out, p["attn"]), (k, v)
 
 
 def rg_layer_apply(x, p, kind, cfg, positions, state=None, slot=None,
-                   pages=None):
+                   pages=None, ctx=None):
     """-> (x, the recurrent layer's new state, or the attention layer's
     new keys and values)."""
-    if kind == "rec":
+    if kind == "rec" and on_mesh(ctx):
+        mix, new = whole_over_model(lambda x_, p_, st_: rec_mixer_apply(
+            x_, p_, cfg, st_), ctx, x, p["rec"], state)
+    elif kind == "rec":
         mix, new = rec_mixer_apply(x, p["rec"], cfg, state)
     else:
-        mix, new = attn_mixer_apply(x, p, cfg, positions, state, slot, pages)
+        mix, new = attn_mixer_apply(x, p, cfg, positions, state, slot, pages,
+                                    ctx)
     x = x + mix
     x = x + mlp_apply(rms_norm(x, p["ln2"]["scale"]), p["mlp"], cfg.act)
     return x, new
@@ -188,7 +208,7 @@ def init_rg(cfg: ModelConfig, gen: torch.Generator) -> dict:
     return params
 
 
-def rg_states(cfg: ModelConfig, B: int, device="cuda") -> dict:
+def rg_states(cfg: ModelConfig, B: int, device="cuda", ctx=None) -> dict:
     """The zeroed decode state: recurrences at 0, the ring's W slots empty
     (pos -1)."""
     G, tail = n_groups(cfg)
@@ -210,6 +230,8 @@ def rg_states(cfg: ModelConfig, B: int, device="cuda") -> dict:
                                    device=device)}}}
     for t in range(tail):
         st[f"tail{t}"] = rec()
+    if on_mesh(ctx):
+        st = distribute_tree(st, cache_spec_tree(st, ctx), ctx.mesh)
     return st
 
 
@@ -222,9 +244,9 @@ def _layers(params, cfg: ModelConfig):
         yield "rec", params[f"tail{t}"], f"tail{t}", None
 
 
-def _embed(params, tokens, cfg: ModelConfig):
+def _embed(params, tokens, cfg: ModelConfig, ctx=None):
     x = params["embed"][tokens] * math.sqrt(cfg.d_model)
-    return x.to(cfg.dtype)
+    return constrain(x.to(cfg.dtype), ctx, act_spec(ctx))
 
 
 def _head(params, x):
@@ -233,19 +255,22 @@ def _head(params, x):
 
 
 def rg_backbone(params, tokens, cfg: ModelConfig, collect: bool,
-                mode: str = "none"):
+                mode: str = "none", ctx=None):
     """-> (final hidden states (B,T,D), the decode state or None).  Each
     group runs under ``remat(mode)``; the trailing layers as they are."""
     tokens, positions = prompt_positions(tokens, params["embed"].device)
     B, T = tokens.shape
-    x = _embed(params, tokens, cfg)
-    states = rg_states(cfg, B, tokens.device) if collect else None
+    x = _embed(params, tokens, cfg, ctx)
+    states = rg_states(cfg, B, tokens.device, ctx) if collect else None
     W = cfg.attn_window
     n = min(T, W)
     ring = torch.arange(T - n, T, device=tokens.device) % W
 
     def keep(kind, st, g, new):
-        if kind == "attn":
+        if kind == "attn" and on_mesh(ctx):
+            fill_cache_shard({k: v[g] for k, v in st.items()}, *new,
+                             positions, T, n, W, ctx)
+        elif kind == "attn":
             # the last min(T, W) keys, position p in slot p % W
             st["k"][g][:, ring] = new[0][:, T - n:].to(cfg.dtype)
             st["v"][g][:, ring] = new[1][:, T - n:].to(cfg.dtype)
@@ -257,7 +282,8 @@ def rg_backbone(params, tokens, cfg: ModelConfig, collect: bool,
     def group(h, grp):
         news = []
         for key, kind in zip(GROUP_KEYS, PATTERN):
-            h, new = rg_layer_apply(h, grp[key], kind, cfg, positions)
+            h, new = rg_layer_apply(h, grp[key], kind, cfg, positions,
+                                    ctx=ctx)
             news.append(new)
         return h, news
 
@@ -268,35 +294,38 @@ def rg_backbone(params, tokens, cfg: ModelConfig, collect: bool,
             for key, kind, new in zip(GROUP_KEYS, PATTERN, news):
                 keep(kind, states["groups"][key], g, new)
     for t in range(n_groups(cfg)[1]):
-        x, new = rg_layer_apply(x, params[f"tail{t}"], "rec", cfg, positions)
+        x, new = rg_layer_apply(x, params[f"tail{t}"], "rec", cfg, positions,
+                                ctx=ctx)
         if collect:
             keep("rec", states[f"tail{t}"], None, new)
     return x, states
 
 
-def rg_forward(params, batch, cfg: ModelConfig):
+def rg_forward(params, batch, cfg: ModelConfig, ctx=None):
     """Logits (B, T, V).  Each group runs under ``remat``, as the
     reference's scan body does: its ``_remat`` recomputes the whole group
     for "dots" as for "full"."""
     x, _ = rg_backbone(params, batch["tokens"], cfg, False,
-                       "none" if cfg.remat == "none" else "full")
+                       "none" if cfg.remat == "none" else "full", ctx)
     return _head(params, x)
 
 
-def rg_loss(params, batch, cfg: ModelConfig):
+def rg_loss(params, batch, cfg: ModelConfig, ctx=None):
     """Mean next-token NLL over every position (the reference's loss
-    takes no mask)."""
-    return token_nll(rg_forward(params, batch, cfg),
-                     batch["targets"]).mean()
+    takes no mask).  On a mesh the logits go whole over ``model`` first
+    (``transformer.lm_loss`` says why)."""
+    logits = constrain(rg_forward(params, batch, cfg, ctx), ctx,
+                       act_spec(ctx))
+    return token_nll(logits, batch["targets"]).mean()
 
 
-def rg_prefill(params, batch, cfg: ModelConfig):
+def rg_prefill(params, batch, cfg: ModelConfig, ctx=None):
     """-> (last-token logits (B, V), the decode state with a W-slot ring)."""
-    x, states = rg_backbone(params, batch["tokens"], cfg, True)
+    x, states = rg_backbone(params, batch["tokens"], cfg, True, ctx=ctx)
     return _head(params, x[:, -1:])[:, 0], states
 
 
-def rg_decode_step(params, state, token, pos, cfg: ModelConfig):
+def rg_decode_step(params, state, token, pos, cfg: ModelConfig, ctx=None):
     """One serve step: token (B,), absolute positions pos (B,) -> (logits
     (B, V), the state updated in place).  Each row's ring must hold
     min(pos, W) tokens, as a prefill and one step at each later position
@@ -305,21 +334,26 @@ def rg_decode_step(params, state, token, pos, cfg: ModelConfig):
     dev = params["embed"].device
     pos = torch.as_tensor(pos, device=dev).long()
     W = cfg.attn_window
-    check_decode_positions(
-        pos, (state["groups"]["attn"]["pos"][0] >= 0).sum(dim=-1), W, True)
+    filled = (state["groups"]["attn"]["pos"][0] >= 0).sum(dim=-1)
+    if on_mesh(ctx):
+        filled = filled.full_tensor()
+    check_decode_positions(pos, filled, W, True)
     token = torch.as_tensor(token, device=dev).long()
     B = token.shape[0]
     positions = pos[:, None]
-    x = _embed(params, token[:, None], cfg)
+    x = _embed(params, token[:, None], cfg, ctx)
     # the ring's slot and pages once a step, shared by every attn layer
-    slot = (torch.arange(B, device=dev), pos % W)
-    pages = decode_pages(torch.clamp(pos + 1, max=W), W,
-                         cfg.n_heads // cfg.n_kv_heads)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    if on_mesh(ctx):
+        slot, pages = None, mesh_decode(pos, W, n_rep, ctx, ring=True)
+    else:
+        slot = (torch.arange(B, device=dev), pos % W)
+        pages = decode_pages(torch.clamp(pos + 1, max=W), W, n_rep)
     for kind, layer, key, g in _layers(params, cfg):
         st = state[key] if g is None else {
             k: v[g] for k, v in state["groups"][key].items()}
         x, new = rg_layer_apply(x, layer, kind, cfg, positions, state=st,
-                                slot=slot, pages=pages)
+                                slot=slot, pages=pages, ctx=ctx)
         if kind == "rec":
             for k in ("h", "tail"):
                 st[k].copy_(new[k])

@@ -1,5 +1,5 @@
-"""Transformer families, as ``repro.models.transformer`` without a mesh:
-the decoder-only LM (dense and MoE), the encoder-decoder (whisper) and the
+"""Transformer families, as ``repro.models.transformer``: the
+decoder-only LM (dense and MoE), the encoder-decoder (whisper) and the
 VLM with interleaved cross-attention layers (llama-vision); random init
 from a ``torch.Generator``; and the converters from a JAX parameter pytree
 (and back, ``params_to_jax``) and a JAX decode state or cache, for every
@@ -25,6 +25,16 @@ step writes the new token's K/V into the cache IN PLACE and returns the
 cache it was given (the reference returns a new one).  Modality
 frontends are stubs, as in the reference: whisper takes frame embeddings
 (``frames``), the VLM patch embeddings (``image_embeds``).
+
+Every entry point takes ``ctx`` (a ``MeshCtx``; None is one device).  On
+a mesh the parameters are DTensors of ``parallel.sharding``'s placements,
+DTensor's sharding propagation partitions the dense products as GSPMD
+does in the reference, ``constrain`` stands on the reference's lines,
+and the attention and MoE regions run as ``local_map`` regions
+(``layers.mesh_attention``, ``layers.mesh_decode_attend``,
+``layers.moe_apply``); the cache is a tree of DTensors of
+``parallel.sharding.cache_spec_tree``'s placements.  The caller runs the
+model inside ``layers.mesh_scope(ctx)``, which the API's entry points do.
 """
 from __future__ import annotations
 
@@ -32,14 +42,19 @@ import math
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.ops import flash_attention
 from .common import ModelConfig, remat
-from .layers import (apply_norm, attn_init, check_decode_positions,
-                     decode_pages, decode_update_and_attend,
-                     decode_attention, init_norm, mlp_apply, mlp_init,
-                     moe_apply, moe_init, out_proj, prompt_positions,
-                     qkv_proj, rope, sinusoidal_pos, token_nll)
+from repro_torch.parallel.sharding import cache_spec_tree, distribute_tree
+from .layers import (_local, act_spec, apply_norm, attn_init,
+                     check_decode_positions, constrain, decode_pages,
+                     fill_cache_shard,
+                     decode_update_and_attend, decode_attention, init_norm,
+                     mesh_attention, mesh_decode, mesh_decode_attend,
+                     mlp_apply, mlp_init, moe_apply, moe_init, on_mesh,
+                     out_proj, prompt_positions, qkv_proj, rope,
+                     sinusoidal_pos, token_nll, heads)
 
 
 # =========================================================== block def/init
@@ -63,60 +78,76 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, *,
 
 
 def self_attention(x, p, cfg: ModelConfig, *, positions, causal=True,
-                   window=0, cache=None, slot=None, pos=None, pages=None):
+                   window=0, cache=None, slot=None, pos=None, pages=None,
+                   ctx=None):
     """Returns (attn_out, k, v), k and v being this call's new keys and
     values.  With ``cache`` (one layer's ``{"k", "v", "pos"}``), x is the
     single new token (B, 1, D) at positions ``pos``: its K/V go into the
-    cache at ``slot`` and it attends over the cache through ``pages``."""
-    q, k, v = qkv_proj(x, p, cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+    cache at ``slot`` and it attends over the cache through ``pages`` (on
+    a mesh, a ``layers.MeshDecode``)."""
+    q, k, v = qkv_proj(x, p, cfg.n_heads, cfg.n_kv_heads, cfg.hd, ctx)
     if cfg.pos == "rope":
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    if cache is not None:
+    if cache is not None and on_mesh(ctx):
+        out = mesh_decode_attend(q, cache["k"], cache["v"], cache["pos"],
+                                 k, v, pages, ctx)
+    elif cache is not None:
         out = decode_update_and_attend(q, cache["k"], cache["v"],
                                        cache["pos"], k, v, slot, pages, pos)
+    elif on_mesh(ctx):
+        out = mesh_attention(q, k, v, ctx, causal=causal, window=window)
     else:
         out = flash_attention(q, k, v, causal=causal, window=window)
     return out_proj(out, p), k, v
 
 
-def cross_attention(x, p, cfg: ModelConfig, *, xk, xv, pages=None):
+def cross_attention(x, p, cfg: ModelConfig, *, xk, xv, pages=None,
+                    ctx=None):
     """Full attention of x over xk/xv: the flash kernel (non-causal, any
-    T against S), or the paged kernel through ``pages`` in decode."""
+    T against S), or the paged kernel through ``pages`` in decode (on a
+    mesh, the pages of this rank's batch rows)."""
     B, T, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, T, cfg.n_heads, cfg.hd)
-    out = (decode_attention(q, xk, xv, pages) if pages is not None
-           else flash_attention(q, xk, xv, causal=False))
+    q = heads(x @ p["wq"], cfg.n_heads, cfg.hd, ctx)
+    if not on_mesh(ctx):
+        out = (decode_attention(q, xk, xv, pages) if pages is not None
+               else flash_attention(q, xk, xv, causal=False))
+    elif pages is None:
+        out = mesh_attention(q, xk, xv, ctx, causal=False)
+    else:
+        whole = act_spec(ctx, 4)
+        out = _local(lambda q_l, k_l, v_l: decode_attention(
+            q_l.contiguous(), k_l, v_l, pages), ctx, (whole,) * 3,
+            whole)(q, xk, xv)
     return out_proj(out, p)
 
 
-def cross_kv(enc_out, p, cfg: ModelConfig):
-    B, S, _ = enc_out.shape
-    k = (enc_out @ p["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.hd)
-    v = (enc_out @ p["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+def cross_kv(enc_out, p, cfg: ModelConfig, ctx=None):
+    k = heads(enc_out @ p["wk"], cfg.n_kv_heads, cfg.hd, ctx)
+    v = heads(enc_out @ p["wv"], cfg.n_kv_heads, cfg.hd, ctx)
     return k, v
 
 
 def block_apply(x, p, cfg: ModelConfig, *, positions, causal=True, window=0,
                 cache=None, slot=None, pos=None, pages=None, xk=None,
-                xv=None, xpages=None):
+                xv=None, xpages=None, ctx=None):
     """Returns (x, (k, v)) with the self-attention's new keys and values."""
     a, k, v = self_attention(
         apply_norm(x, p["ln1"], cfg.norm), p["attn"], cfg,
         positions=positions, causal=causal, window=window, cache=cache,
-        slot=slot, pos=pos, pages=pages)
+        slot=slot, pos=pos, pages=pages, ctx=ctx)
     x = x + a
     if xk is not None:
         g = torch.tanh(p["xgate"]).to(x.dtype) if "xgate" in p else 1.0
         c = cross_attention(apply_norm(x, p["lnx"], cfg.norm), p["xattn"],
-                            cfg, xk=xk, xv=xv, pages=xpages)
+                            cfg, xk=xk, xv=xv, pages=xpages, ctx=ctx)
         x = x + g * c
     h = apply_norm(x, p["ln2"], cfg.norm)
     if cfg.moe is not None:
-        x = x + moe_apply(h, p["moe"], cfg.moe)
+        x = x + moe_apply(h, p["moe"], cfg.moe, ctx)
     else:
         x = x + mlp_apply(h, p["mlp"], cfg.act)
-    return x, (k, v)
+    return constrain(x, ctx, act_spec(ctx)), (k, v)
 
 
 # ============================================================= LM (decoder)
@@ -151,6 +182,7 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator) -> dict:
 
 
 def _device(params) -> torch.device:
+    """The parameters' device (a DTensor's is its local tensor's)."""
     return params["embed"].device
 
 
@@ -167,31 +199,36 @@ def _unembed(params, x, cfg: ModelConfig):
     return logits.float() if cfg.logits_f32 else logits
 
 
-def _encoder_apply(params, frames, cfg: ModelConfig, mode: str = "none"):
+def _encoder_apply(params, frames, cfg: ModelConfig, mode: str = "none",
+                   ctx=None):
     """Whisper encoder over stub conv-frontend frame embeddings (B,S,D),
     each block under ``remat(mode)``."""
     B, S, _ = frames.shape
     pos = torch.arange(S, device=frames.device)[None].expand(B, S)
     x = frames.to(cfg.dtype) + sinusoidal_pos(pos, cfg.d_model, cfg.dtype)
+    x = constrain(x, ctx, act_spec(ctx))
     enc_cfg = cfg.with_(act="gelu")
     layer = remat(lambda h, blk: block_apply(h, blk, enc_cfg, positions=pos,
-                                             causal=False)[0], mode)
+                                             causal=False, ctx=ctx)[0], mode)
     for blk in params["enc_blocks"]:
         x = layer(x, blk)
     return apply_norm(x, params["enc_norm"], cfg.norm)
 
 
-def _cross_source(params, batch, cfg: ModelConfig, mode: str = "none"):
+def _cross_source(params, batch, cfg: ModelConfig, mode: str = "none",
+                  ctx=None):
     """What the cross-attention layers attend over: the encoder's output
     (encdec, its blocks under ``remat(mode)``) or the patch embeddings
     (vlm); None for the other families."""
     dev = _device(params)
     if cfg.family == "encdec":
         return _encoder_apply(params, torch.as_tensor(batch["frames"],
-                                                      device=dev), cfg, mode)
+                                                      device=dev), cfg, mode,
+                              ctx)
     if cfg.family == "vlm":
-        return torch.as_tensor(batch["image_embeds"],
-                               device=dev).to(cfg.dtype)
+        return constrain(torch.as_tensor(batch["image_embeds"],
+                                         device=dev).to(cfg.dtype),
+                         ctx, act_spec(ctx))
     return None
 
 
@@ -228,21 +265,22 @@ def _scan_steps(params, cfg: ModelConfig):
             yield [unit]
 
 
-def lm_forward(params, batch, cfg: ModelConfig):
+def lm_forward(params, batch, cfg: ModelConfig, ctx=None):
     """Full-sequence forward -> logits (B, T, V). batch carries 'tokens' and
     family extras ('frames' for encdec, 'image_embeds' for vlm).  Each
     step of the reference's layer scan (a block; a vlm group) runs under
     ``remat(cfg.remat)``, as the reference's does."""
     tokens, positions = prompt_positions(batch["tokens"], _device(params))
-    x = _embed_in(params, tokens, positions, cfg)
-    src = _cross_source(params, batch, cfg, cfg.remat)
+    x = constrain(_embed_in(params, tokens, positions, cfg), ctx,
+                  act_spec(ctx))
+    src = _cross_source(params, batch, cfg, cfg.remat, ctx)
 
     def scan_step(h, blocks):
         for blk, has_cross in blocks:
-            xk, xv = (cross_kv(src, blk["xattn"], cfg) if has_cross
+            xk, xv = (cross_kv(src, blk["xattn"], cfg, ctx) if has_cross
                       else (None, None))
             h, _ = block_apply(h, blk, cfg, positions=positions,
-                               window=_window(cfg), xk=xk, xv=xv)
+                               window=_window(cfg), xk=xk, xv=xv, ctx=ctx)
         return h
 
     scan_step = remat(scan_step, cfg.remat)
@@ -253,9 +291,12 @@ def lm_forward(params, batch, cfg: ModelConfig):
 
 
 # ------------------------------------------------------------- loss
-def lm_loss(params, batch, cfg: ModelConfig):
-    """Mean next-token NLL (the forward value; no train step here)."""
-    logits = lm_forward(params, batch, cfg)
+def lm_loss(params, batch, cfg: ModelConfig, ctx=None):
+    """Mean next-token NLL (the forward value)."""
+    # DTensor has no rule for the gather of the gold logit from a
+    # vocab-sharded axis: the logits go whole over ``model`` first
+    logits = constrain(lm_forward(params, batch, cfg, ctx), ctx,
+                       act_spec(ctx))
     nll = token_nll(logits, batch["targets"])
     mask = batch.get("loss_mask")
     if mask is None:
@@ -266,14 +307,15 @@ def lm_loss(params, batch, cfg: ModelConfig):
 
 # ------------------------------------------------------- prefill / decode
 def make_cache(cfg: ModelConfig, B: int, S_max: int, device="cuda",
-               cross_len: int | None = None) -> dict:
+               cross_len: int | None = None, ctx=None) -> dict:
     """The reference's layout: stacked (L, B, S, Hkv, hd) ``k``/``v`` and
     (L, B, S) ``pos`` (-1 = empty); encdec adds ``cross_k``/``cross_v`` of
     ``cross_len`` (default ``enc_seq``) frames under ``self``; vlm keeps
     ``self`` as (G, cross_every - 1, ...), ``cross_self`` as (G, ...) and
     ``cross_k``/``cross_v`` of ``cross_len`` (default ``n_img_tokens``)
     patches.  A windowed cache is a ring of min(S_max, attn_window)
-    slots."""
+    slots.  On a mesh every leaf is a DTensor of
+    ``parallel.sharding.cache_spec_tree``'s placements."""
     dtype, hd, Hkv = cfg.dtype, cfg.hd, cfg.n_kv_heads
     S = min(S_max, cfg.attn_window) if cfg.attn_window else S_max
 
@@ -288,17 +330,21 @@ def make_cache(cfg: ModelConfig, B: int, S_max: int, device="cuda",
 
     if cfg.family == "encdec":
         n = cross_len or cfg.enc_seq
-        return {"self": kv(cfg.n_layers),
-                "cross_k": zeros(cfg.n_layers, B, n, Hkv, hd),
-                "cross_v": zeros(cfg.n_layers, B, n, Hkv, hd)}
-    if cfg.family == "vlm":
+        cache = {"self": kv(cfg.n_layers),
+                 "cross_k": zeros(cfg.n_layers, B, n, Hkv, hd),
+                 "cross_v": zeros(cfg.n_layers, B, n, Hkv, hd)}
+    elif cfg.family == "vlm":
         G = cfg.n_layers // cfg.cross_every
         n = cross_len or cfg.n_img_tokens
-        return {"self": kv(G, cfg.cross_every - 1),
-                "cross_self": kv(G),
-                "cross_k": zeros(G, B, n, Hkv, hd),
-                "cross_v": zeros(G, B, n, Hkv, hd)}
-    return kv(cfg.n_layers)
+        cache = {"self": kv(G, cfg.cross_every - 1),
+                 "cross_self": kv(G),
+                 "cross_k": zeros(G, B, n, Hkv, hd),
+                 "cross_v": zeros(G, B, n, Hkv, hd)}
+    else:
+        cache = kv(cfg.n_layers)
+    if on_mesh(ctx):
+        cache = distribute_tree(cache, cache_spec_tree(cache, ctx), ctx.mesh)
+    return cache
 
 
 def _self_caches(cache, cfg: ModelConfig):
@@ -326,7 +372,8 @@ def _self_len(cache, cfg: ModelConfig) -> int:
     return next(_self_caches(cache, cfg))["k"].shape[1]
 
 
-def lm_prefill(params, batch, cfg: ModelConfig, s_max: int | None = None):
+def lm_prefill(params, batch, cfg: ModelConfig, s_max: int | None = None,
+               ctx=None):
     """Full-context prefill: returns (last-token logits (B, V), populated
     cache).  ``s_max`` pads the cache with empty (pos = -1) slots up to
     ``s_max`` so decode steps can append new tokens.  A windowed cache
@@ -335,10 +382,12 @@ def lm_prefill(params, batch, cfg: ModelConfig, s_max: int | None = None):
     reference's, which pads to W when given ``s_max``)."""
     tokens, positions = prompt_positions(batch["tokens"], _device(params))
     B, T = tokens.shape
-    x = _embed_in(params, tokens, positions, cfg)
-    src = _cross_source(params, batch, cfg)
+    x = constrain(_embed_in(params, tokens, positions, cfg), ctx,
+                  act_spec(ctx))
+    src = _cross_source(params, batch, cfg, ctx=ctx)
     cache = make_cache(cfg, B, max(T, s_max or 0), device=tokens.device,
-                       cross_len=None if src is None else src.shape[1])
+                       cross_len=None if src is None else src.shape[1],
+                       ctx=ctx)
     S = _self_len(cache, cfg)
     n = min(T, S)                      # T > S only in a full ring (S = W)
     ring = torch.arange(T - n, T, device=tokens.device) % S
@@ -348,10 +397,14 @@ def lm_prefill(params, batch, cfg: ModelConfig, s_max: int | None = None):
         xk = xv = None
         if has_cross:
             xk, xv = next(crosses)
-            for dst, new in zip((xk, xv), cross_kv(src, blk["xattn"], cfg)):
-                dst.copy_(new)
+            for dst, new in zip((xk, xv), cross_kv(src, blk["xattn"], cfg,
+                                                   ctx)):
+                dst.copy_(constrain(new, ctx, act_spec(ctx, 4)))
         x, (k, v) = block_apply(x, blk, cfg, positions=positions,
-                                window=_window(cfg), xk=xk, xv=xv)
+                                window=_window(cfg), xk=xk, xv=xv, ctx=ctx)
+        if on_mesh(ctx):
+            fill_cache_shard(kv, k, v, positions, T, n, S, ctx)
+            continue
         kv["k"][:, ring] = k[:, T - n:]
         kv["v"][:, ring] = v[:, T - n:]
         kv["pos"][:, ring] = positions[:, T - n:].to(kv["pos"].dtype)
@@ -359,7 +412,7 @@ def lm_prefill(params, batch, cfg: ModelConfig, s_max: int | None = None):
     return _unembed(params, x, cfg)[:, 0], cache
 
 
-def lm_decode_step(params, cache, token, pos, cfg: ModelConfig):
+def lm_decode_step(params, cache, token, pos, cfg: ModelConfig, ctx=None):
     """One serve step: new token (B,), absolute positions pos (B,) ->
     (logits (B, V), the cache updated in place).  The valid slots of each
     row are 0..pos-1 before the step (a prefill, then one step at each
@@ -372,33 +425,44 @@ def lm_decode_step(params, cache, token, pos, cfg: ModelConfig):
     cache of fewer than W slots is no ring, since wrapping would drop keys
     still inside the window) and on one that is not its row's count of
     valid slots, min(pos, W) in a ring (ValueError: past it, the kernel
-    would read never-written slots that the reference masks out)."""
+    would read never-written slots that the reference masks out).  On a
+    mesh ``pos`` and ``token`` are whole on every rank, and the step's
+    pages are those of this rank's batch rows and shard of S
+    (``layers.mesh_decode``)."""
     dev = _device(params)
     pos = torch.as_tensor(pos, device=dev).long()
     S = _self_len(cache, cfg)
     ring = _window(cfg) > 0 and S == _window(cfg)
-    check_decode_positions(
-        pos, (next(_self_caches(cache, cfg))["pos"] >= 0).sum(dim=-1), S,
-        ring)
+    filled = (next(_self_caches(cache, cfg))["pos"] >= 0).sum(dim=-1)
+    if on_mesh(ctx):
+        filled = filled.full_tensor()
+    check_decode_positions(pos, filled, S, ring)
     token = torch.as_tensor(token, device=dev).long()
     B = token.shape[0]
     positions = pos[:, None]
-    x = _embed_in(params, token[:, None], positions, cfg)
+    x = constrain(_embed_in(params, token[:, None], positions, cfg), ctx,
+                  act_spec(ctx))
     n_rep = cfg.n_heads // cfg.n_kv_heads
     # the pages' tables and lengths once a step, on the device
-    slot = (torch.arange(B, device=dev), pos % S)
-    pages = decode_pages(torch.clamp(pos + 1, max=S), S, n_rep)
+    if on_mesh(ctx):
+        slot, pages = None, mesh_decode(pos, S, n_rep, ctx, ring)
+        B_rows = pages.rows.shape[0]
+    else:
+        slot = (torch.arange(B, device=dev), pos % S)
+        pages = decode_pages(torch.clamp(pos + 1, max=S), S, n_rep)
+        B_rows = B
     crosses = xpages = None
     if cfg.family in ("encdec", "vlm"):
         crosses = _cross_caches(cache)
         S_x = cache["cross_k"].shape[2]
-        xpages = decode_pages(torch.full((B,), S_x, device=dev), S_x, n_rep)
+        xpages = decode_pages(torch.full((B_rows,), S_x, device=dev), S_x,
+                              n_rep)
     for (blk, has_cross), kv in zip(_blocks(params, cfg),
                                     _self_caches(cache, cfg)):
         xk, xv = next(crosses) if has_cross else (None, None)
         x, _ = block_apply(x, blk, cfg, positions=positions, cache=kv,
                            slot=slot, pos=pos, pages=pages, xk=xk, xv=xv,
-                           xpages=xpages if has_cross else None)
+                           xpages=xpages if has_cross else None, ctx=ctx)
     x = apply_norm(x, params["final_norm"], cfg.norm)
     return _unembed(params, x, cfg)[:, 0], cache
 
@@ -452,7 +516,8 @@ def params_to_jax(tree):
     int16 one (numpy has no bf16 without ml_dtypes), into whose slices
     the layers are copied one by one from their device: nothing is
     stacked on the card, and nothing of the result shares memory with
-    ``tree``, which the optimizer updates in place."""
+    ``tree``, which the optimizer updates in place.  A DTensor leaf is
+    gathered whole first."""
     if isinstance(tree, dict):
         return {k: params_to_jax(v) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
@@ -499,6 +564,9 @@ def _host_stack(parts: list) -> torch.Tensor:
     host = torch.from_numpy(np.empty(lead + tuple(first.shape), np_dtype))
     host = host.view(torch.bfloat16) if bf16 else host
     for ix, t in parts:
+        # a DTensor is gathered whole (a collective: every rank of its
+        # mesh takes the same leaves in the same order)
+        t = t.full_tensor() if isinstance(t, DTensor) else t
         host[ix].copy_(t.detach())
     return host
 

@@ -16,6 +16,12 @@ of einsums) where T is a multiple of the chunk, else the step recurrence;
 the sLSTM is a loop over time.  Both are plain PyTorch: the reference runs
 them outside any Pallas kernel.  The decode step writes the new state into
 the state it was given, IN PLACE, and returns it.
+
+On a mesh (``ctx``) the parameters are DTensors, the projections around
+the mixers run under DTensor's propagation, and each mixer runs in
+``layers.whole_over_model`` (its batch rows, its parameters whole); the
+decode state is a tree of DTensors of
+``parallel.sharding.cache_spec_tree``'s placements.
 """
 from __future__ import annotations
 
@@ -24,8 +30,11 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.sharding import cache_spec_tree
 from .common import ModelConfig, remat
-from .layers import _normal, init_norm, prompt_positions, rms_norm, token_nll
+from .layers import (_normal, act_spec, constrain, init_norm, on_mesh,
+                     prompt_positions, rms_norm, token_nll,
+                     whole_over_model)
 
 GROUP = 8          # 7 mLSTM + 1 sLSTM per group
 NEG = -1e30        # the stabiliser m of an empty state
@@ -235,28 +244,48 @@ def init_xlstm(cfg: ModelConfig, gen: torch.Generator) -> dict:
     return params
 
 
-def xlstm_states(cfg: ModelConfig, B: int, device="cuda") -> dict:
+def xlstm_states(cfg: ModelConfig, B: int, device="cuda", ctx=None) -> dict:
     G = cfg.n_layers // GROUP
-    return {"m": mlstm_state(cfg, B, device, (G, GROUP - 1)),
-            "s": slstm_state(cfg, B, device, (G,))}
+    st = {"m": mlstm_state(cfg, B, device, (G, GROUP - 1)),
+          "s": slstm_state(cfg, B, device, (G,))}
+    return _on_cache_spec(st, ctx)
+
+
+def _on_cache_spec(st: dict, ctx) -> dict:
+    """A state of whole tensors (or of DTensors) with the placements of
+    ``cache_spec_tree`` on a mesh; ``st`` itself off it."""
+    if not on_mesh(ctx):
+        return st
+    specs = cache_spec_tree(st, ctx)
+    return {part: {k: constrain(v, ctx, specs[part][k])
+                   for k, v in st[part].items()} for part in st}
+
+
+def _mixer(fn, cfg: ModelConfig, ctx):
+    """``fn(x, p, cfg, state=...)``, on a mesh in ``whole_over_model``."""
+    if not on_mesh(ctx):
+        return lambda x, p, state=None: fn(x, p, cfg, state=state)
+    return lambda x, p, state=None: whole_over_model(
+        lambda x_, p_, st_: fn(x_, p_, cfg, state=st_), ctx, x, p, state)
 
 
 def _backbone(params, x, cfg: ModelConfig, state=None, collect=False,
-              mode: str = "none"):
+              mode: str = "none", ctx=None):
     """The blocks over x (B,T,D), each group under ``remat(mode)``.
     ``state``: continue from it and write the new state into it;
     ``collect``: return the final states, stacked in the reference's
     layout."""
 
+    mlstm, slstm = _mixer(mlstm_apply, cfg, ctx), _mixer(slstm_apply, cfg, ctx)
+
     def group(h, grp, st):
         ms = []
         for i, blk in enumerate(grp["m"]):
-            out, ns = mlstm_apply(h, blk, cfg, state=None if st is None
-                                  else {k: v[i] for k, v in st["m"].items()})
+            out, ns = mlstm(h, blk, state=None if st is None
+                            else {k: v[i] for k, v in st["m"].items()})
             h = h + out
             ms.append(ns)
-        out, ns = slstm_apply(h, grp["s"], cfg, state=None if st is None
-                              else st["s"])
+        out, ns = slstm(h, grp["s"], state=None if st is None else st["s"])
         return h + out, ms, ns
 
     group = remat(group, mode)
@@ -288,38 +317,42 @@ def _head(params, x):
     return (x @ params["head"]).float()
 
 
-def _embed(params, tokens):
-    return params["embed"][prompt_positions(tokens,
-                                            params["embed"].device)[0]]
+def _embed(params, tokens, ctx=None):
+    x = params["embed"][prompt_positions(tokens, params["embed"].device)[0]]
+    return constrain(x, ctx, act_spec(ctx))
 
 
-def xlstm_forward(params, batch, cfg: ModelConfig):
+def xlstm_forward(params, batch, cfg: ModelConfig, ctx=None):
     """Logits (B, T, V).  Each group runs under ``remat``, as the
     reference's scan body does: its ``_remat`` recomputes the whole group
     for "dots" as for "full"."""
-    x, _ = _backbone(params, _embed(params, batch["tokens"]), cfg,
-                     mode="none" if cfg.remat == "none" else "full")
+    x, _ = _backbone(params, _embed(params, batch["tokens"], ctx), cfg,
+                     mode="none" if cfg.remat == "none" else "full",
+                     ctx=ctx)
     return _head(params, x)
 
 
-def xlstm_loss(params, batch, cfg: ModelConfig):
+def xlstm_loss(params, batch, cfg: ModelConfig, ctx=None):
     """Mean next-token NLL over every position (the reference's xLSTM loss
-    takes no mask)."""
-    return token_nll(xlstm_forward(params, batch, cfg),
-                     batch["targets"]).mean()
+    takes no mask).  On a mesh the logits go whole over ``model`` first
+    (``transformer.lm_loss`` says why)."""
+    logits = constrain(xlstm_forward(params, batch, cfg, ctx), ctx,
+                       act_spec(ctx))
+    return token_nll(logits, batch["targets"]).mean()
 
 
-def xlstm_prefill(params, batch, cfg: ModelConfig):
+def xlstm_prefill(params, batch, cfg: ModelConfig, ctx=None):
     """-> (last-token logits (B, V), the decode state)."""
-    x, states = _backbone(params, _embed(params, batch["tokens"]), cfg,
-                          collect=True)
-    return _head(params, x[:, -1:])[:, 0], states
+    x, states = _backbone(params, _embed(params, batch["tokens"], ctx), cfg,
+                          collect=True, ctx=ctx)
+    return _head(params, x[:, -1:])[:, 0], _on_cache_spec(states, ctx)
 
 
-def xlstm_decode_step(params, state, token, pos, cfg: ModelConfig):
+def xlstm_decode_step(params, state, token, pos, cfg: ModelConfig,
+                      ctx=None):
     """One token (B,) -> (logits (B, V), the state updated in place).
     ``pos`` is unused: the recurrence carries the position."""
     token = torch.as_tensor(token, device=params["embed"].device)
-    x, _ = _backbone(params, _embed(params, token[:, None]), cfg,
-                     state=state)
+    x, _ = _backbone(params, _embed(params, token[:, None], ctx), cfg,
+                     state=state, ctx=ctx)
     return _head(params, x)[:, 0], state

@@ -72,14 +72,16 @@ class AdamW:
         return self.lr * warm * cos
 
     def init(self, params) -> AdamWState:
-        """Zeroed f32 moments in the parameters' structure, step 0."""
+        """Zeroed f32 moments in the parameters' structure (DTensors of
+        their placements on a mesh, meta tensors for meta parameters),
+        step 0."""
         return AdamWState(
             step=torch.zeros((), dtype=torch.int32,
                              device=tree_leaves(params)[0].device),
-            m=tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                             device=p.device), params),
-            v=tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                             device=p.device), params))
+            m=tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                       params),
+            v=tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                       params))
 
     @torch.no_grad()
     def update(self, grads, state: AdamWState, params, decay=None):

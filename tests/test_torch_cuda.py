@@ -983,3 +983,136 @@ def test_trainer_crash_restart_on_the_card(card):
     assert out["last_step"] == 7 and len(out["losses"]) == 4
     assert all(t.is_cuda for t in tree_leaves(out["params"]))
     np.testing.assert_allclose(out["losses"], ref["losses"][4:], rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,hd,page,P,maxp,lens", [
+    (4, 16, 2, 128, 16, 64, 16, (200, 0, 1, 256)),   # qwen2.5-3b serving
+    (4, 8, 8, 128, 16, 36, 9, (144, 130, 0, 17)),    # moonshot's 144 slots
+    (2, 8, 1, 256, 16, 260, 128, (2048, 0)),         # the ring, hd 256
+])
+def test_paged_attention_lse_matches_plain(card, B, H, Hkv, hd, page, P,
+                                           maxp, lens, dtype):
+    """The combine launch's per-row log-sum-exp (the mesh's S-sharded
+    decode merges shards by it), a row of length 0 included: lse -inf,
+    output 0."""
+    g = torch.Generator(device=card).manual_seed(0)
+    q = torch.randn((B, H, hd), generator=g, device=card).to(dtype)
+    kp = torch.randn((P, page, Hkv, hd), generator=g, device=card).to(dtype)
+    vp = torch.randn((P, page, Hkv, hd), generator=g, device=card).to(dtype)
+    table = torch.tensor(np.random.default_rng(0).permutation(P)[:B * maxp]
+                         .reshape(B, maxp), dtype=torch.int32, device=card)
+    lens = torch.tensor(lens, dtype=torch.int32, device=card)
+    out, lse = paged_attention_cuda(q, kp, vp, table, lens, return_lse=True)
+    exp_out, exp_lse = paged_attention_plain(q, kp, vp, table, lens,
+                                             return_lse=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), exp_out.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    empty = lens == 0
+    assert bool(torch.isneginf(lse[empty]).all())
+    assert bool((out[empty] == 0).all())
+    torch.testing.assert_close(lse[~empty], exp_lse[~empty], atol=1e-4,
+                               rtol=1e-5)
+    assert torch.equal(out, paged_attention_cuda(q, kp, vp, table, lens))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 100),
+                                           (False, 0)])
+@pytest.mark.parametrize("parts", [2, 4])
+def test_flash_attention_q_offset_matches_plain(card, parts, causal, window,
+                                                dtype):
+    """deepseek-coder-33b's heads (56:8, hd 128) with the query rows split
+    2 and 4 ways, each part at its ``q_offset``: every part equals the
+    plain version at that offset and the rows of the whole prompt's
+    kernel output; bf16 runs the tensor-core kernel, f32 the SIMT one."""
+    B, T, H, Hkv, hd = 1, 512, 56, 8, 128
+    g = torch.Generator(device=card).manual_seed(0)
+    q = torch.randn((B, T, H, hd), generator=g, device=card).to(dtype)
+    k = torch.randn((B, T, Hkv, hd), generator=g, device=card).to(dtype)
+    v = torch.randn((B, T, Hkv, hd), generator=g, device=card).to(dtype)
+    whole = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    n = T // parts
+    _build.reset_launch_counts()
+    for i in range(parts):
+        qi = q[:, i * n:(i + 1) * n].contiguous()
+        got = flash_attention_cuda(qi, k, v, causal=causal, window=window,
+                                   q_offset=i * n)
+        exp = flash_attention_plain(qi, k, v, causal=causal, window=window,
+                                    q_offset=i * n)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), exp.float(), atol=TOL[dtype],
+                                   rtol=TOL[dtype])
+        assert_rows_close(got, exp)
+        torch.testing.assert_close(got, whole[:, i * n:(i + 1) * n],
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+    tc = _build.launch_counts().get("flash_attention_tc", 0)
+    assert tc == (parts if dtype == torch.bfloat16 else 0)
+
+
+def test_decode_through_a_one_rank_nccl_mesh_equals_off_mesh(card, tmp_path):
+    """internlm2 SMOKE in f32 on a world-size-1 NCCL mesh (data 1, model
+    1): the decode's S-sharded branch (the paged kernel with its
+    log-sum-exp, merged by an NCCL all-reduce) and the weights wrapped
+    with no copy give the off-mesh logits."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.parallel import distribute_tree, make_ctx, param_spec_tree
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        cfg = get_config("internlm2-1.8b", smoke=True, dtype=torch.float32)
+        model = build_model(cfg)
+        p = model.init(torch.Generator(device=card).manual_seed(0))
+        mesh = make_local_mesh(1)
+        ctx = make_ctx(mesh, 2)
+        pd = distribute_tree(p, param_spec_tree(p, mesh), mesh)
+        assert pd["embed"].to_local().data_ptr() == p["embed"].data_ptr()
+        toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 12))
+        a, ca = model.prefill(p, {"tokens": toks}, s_max=16)
+        b, cb = model.prefill(pd, {"tokens": toks}, ctx=ctx, s_max=16)
+        torch.testing.assert_close(b.full_tensor(), a, atol=2e-5, rtol=2e-5)
+        _build.reset_launch_counts()
+        for i in range(3):
+            tok = a.argmax(-1)
+            a, ca = model.decode_step(p, ca, tok, np.full(2, 12 + i))
+            b, cb = model.decode_step(pd, cb, tok, np.full(2, 12 + i),
+                                      ctx=ctx)
+            torch.testing.assert_close(b.full_tensor(), a, atol=2e-5,
+                                       rtol=2e-5)
+        assert _build.launch_counts()["paged_attention"] == \
+            2 * 3 * cfg.n_layers
+        assert torch.equal(cb["pos"].full_tensor(), ca["pos"])
+    finally:
+        dist.destroy_process_group()
+
+
+def test_moe_combine_is_deterministic_on_the_card(card, monkeypatch):
+    """moonshot-v1-16b-a3b's MoE widths in bf16 (64 experts, top 6, a
+    4 x 128 prefill): two calls give the same bits, and the combine
+    agrees with the scatter-add of the same slots on the card."""
+    import repro_torch.models.layers as tl
+    D, E, F, k, T = 2048, 64, 1408, 6, 512
+    g = torch.Generator(device=card).manual_seed(0)
+    x = torch.randn((T, D), generator=g, device=card).to(torch.bfloat16)
+    router = torch.randn((D, E), generator=g, device=card) / D ** 0.5
+    wg, wu = (torch.randn((E, D, F), generator=g, device=card
+                          ).to(torch.bfloat16) / D ** 0.5 for _ in range(2))
+    wd = torch.randn((E, F, D), generator=g, device=card
+                     ).to(torch.bfloat16) / F ** 0.5
+    kw = dict(top_k=k, capacity=tl.moe_capacity(T, k, E, 1.25))
+    seen, combine = {}, tl.combine_top_k
+
+    def spy(ye, idx, topi, T):
+        seen.update(ye=ye, idx=idx)
+        return combine(ye, idx, topi, T)
+    monkeypatch.setattr(tl, "combine_top_k", spy)
+    a = tl.moe_local(x, router, wg, wu, wd, **kw)
+    b = tl.moe_local(x, router, wg, wu, wd, **kw)
+    assert torch.equal(a, b)
+    exp = torch.zeros_like(a).index_add_(0, seen["idx"].reshape(-1),
+                                         seen["ye"].reshape(-1, D))
+    assert_rows_close(a, exp)

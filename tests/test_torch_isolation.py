@@ -47,7 +47,8 @@ def test_every_port_module_imports_without_jax_or_repro():
               "models.xlstm", "models.rglru", "configs.xlstm_1p3b",
               "configs.recurrentgemma_9b", "optim.adamw", "train.step",
               "train.loop", "data.pipeline", "launch.train", "ckpt.engine",
-              "ckpt.blockstore", "cluster.cluster"):
+              "ckpt.blockstore", "cluster.cluster", "parallel.sharding",
+              "parallel.collectives", "launch.mesh"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -129,6 +130,9 @@ def test_entry_points_default_to_the_card():
                make_cache, CheckpointEngine.restore):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert build_parser().parse_args([]).device == "cuda"
+    from repro_torch.launch.mesh import make_local_mesh
+    assert inspect.signature(make_local_mesh).parameters[
+        "device_type"].default == "cuda"
     for arch in ("xlstm-1.3b", "recurrentgemma-9b", "moonshot-v1-16b-a3b"):
         model = build_model(get_config(arch, smoke=True))
         assert inspect.signature(model.make_cache).parameters[

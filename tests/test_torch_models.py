@@ -430,6 +430,31 @@ def test_moe_zero_gate_ties_cannot_change_the_output(monkeypatch):
     np.testing.assert_allclose(stable, exp, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("n_local,offset", [(8, 0), (4, 0), (4, 4)])
+def test_moe_combine_equals_the_scatter_add(monkeypatch, n_local, offset):
+    """The gather and fixed-order sum of each token's k expert outputs
+    equals the scatter-add of every slot's output (zero-gate slots
+    among them), also where the call holds a part of the experts."""
+    D, E, F, T, k, C = 16, 8, 24, 20, 2, 6
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn((T, D), generator=g)
+    router = torch.randn((D, E), generator=g)
+    wg, wu = (torch.randn((n_local, D, F), generator=g) for _ in range(2))
+    wd = torch.randn((n_local, F, D), generator=g)
+    seen, combine = {}, tl.combine_top_k
+
+    def spy(ye, idx, topi, T):
+        seen.update(ye=ye, idx=idx)
+        return combine(ye, idx, topi, T)
+    monkeypatch.setattr(tl, "combine_top_k", spy)
+    got = tl.moe_local(x, router, wg, wu, wd, top_k=k, capacity=C,
+                       expert_offset=offset)
+    exp = torch.zeros((T, D)).index_add_(0, seen["idx"].reshape(-1),
+                                         seen["ye"].reshape(-1, D))
+    assert (seen["ye"].abs().sum(-1) == 0).any()         # zero-gate slots
+    torch.testing.assert_close(got, exp, rtol=1e-6, atol=1e-6)
+
+
 def test_moe_local_in_bf16_rounds_where_the_reference_rounds():
     """bf16 router logits widened after the product, silu one op at a
     time, the gate in the experts' dtype: equal to the reference's bits."""
