@@ -192,6 +192,18 @@ Phases, each ending in ``torch.cuda.synchronize()``:
             against two off-mesh steps from the same state, losses within
             rtol 1e-4, parameters within ``ROW_TOL["bf16"]`` row by row,
             2 flash launches a step.
+21. dry run — after phase 20's process group is closed: the port's dry
+            run (``launch/dryrun.py``) of two production cells at full
+            width, each on a fake process group that ``run_cell`` opens
+            and closes (phi3-mini-3.8b ``train_4k`` on (16, 16) and
+            moonshot-v1-16b-a3b ``decode_32k`` on (2, 16, 16)), every
+            record ``status: OK``, printing per device the counted FLOPs,
+            bytes, wire bytes, arguments and temporaries; then phase 17's
+            step traced on fake tensors at one device: the counted bytes
+            of the parameters and AdamW state equal those phase 17 held
+            on the card, and the counted peak and FLOPs are printed
+            beside phase 17's measured peak and its bound's products.
+            Nothing of it runs on the card.
 
 In phases 10-16 every self-attention over a prompt and every
 cross-attention runs the flash kernel (one launch a layer), every decode
@@ -972,6 +984,40 @@ def time_paged(torch, rng, label, B, H, Hkv, hd, page, P, maxp, lens,
         f"({out['ms_from']}), plain {out['plain_ms']:.5f} ms "
         f"({out['plain_ms_from']}); per call: kernel {out['call_ms']:.5f} "
         f"ms; bound {b_ms:.6f} ms ({b_by})")
+    return out
+
+
+def dispatch_cost(torch, rng, calls: int = 100, rounds: int = 7) -> dict:
+    """The host's microseconds a call of the paged kernel through its
+    ``torch.library`` op (``ops.paged_attention``, as the decode path calls
+    it) and through its wrapper alone (``paged_attention_cuda``), at
+    qwen2.5-3b's serve shape (4 x 144 tokens): ``calls`` calls issued back
+    to back with no synchronisation (fewer launches than the device's
+    queue holds, so the host never waits for it), the least of ``rounds``
+    rounds, the two in turn."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import paged_attention_cuda
+    args = paged_case(torch, rng, 4, 16, 2, 128, 16, 64, 16, [144] * 4,
+                      torch.bfloat16)
+    fns = {"op": lambda: ops.paged_attention(*args),
+           "wrapper": lambda: paged_attention_cuda(*args)}
+    best = {k: math.inf for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            fn()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            best[k] = min(best[k], (time.perf_counter() - t) / calls * 1e6)
+            torch.cuda.synchronize()
+    out = {"op_us": best["op"], "wrapper_us": best["wrapper"],
+           "dispatch_us": best["op"] - best["wrapper"], "calls": calls,
+           "rounds": rounds}
+    log(f"paged attention host cost a call (qwen-serve, least of {rounds} "
+        f"rounds of {calls}): op {out['op_us']:.2f} us, wrapper alone "
+        f"{out['wrapper_us']:.2f} us, the dispatcher "
+        f"{out['dispatch_us']:.2f} us")
     return out
 
 
@@ -2426,6 +2472,12 @@ def train_full(torch, np) -> dict:
     _build.reset_launch_counts()
     out = tr.run(torch.Generator(device="cuda").manual_seed(0))
     params, opt_state = out["params"], out["opt_state"]
+    # the step's arguments on the card (each storage once): the parameters
+    # and the AdamW state, which phase 21 counts on fake tensors
+    held = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+            for t in _leaves({"p": params, "s": opt_state.step,
+                              "m": opt_state.m, "v": opt_state.v})}
+    state_arg_bytes = sum(held.values())
     step2 = make_train_step(model, opt, accum=TRAIN["accum"])
     accum_s, losses2 = [], []
     for s in range(TRAIN["steps"], TRAIN["steps"] + TRAIN["accum_steps"]):
@@ -2478,6 +2530,7 @@ def train_full(torch, np) -> dict:
     res = {"arch": arch, "B": B, "T": T, "params": n_params,
            "remat": cfg.remat, "state_gb": state_gb,
            "state_total_gb": sum(state_gb.values()), "peak_gb": peak / 1e9,
+           "peak_bytes": peak, "state_argument_bytes": state_arg_bytes,
            "losses": losses, "first_step_s": tr.history[0].dt_s,
            "step_ms": step_ms, "steps_timed": len(steady),
            "tokens_per_s": B * T / (step_ms / 1e3),
@@ -3345,6 +3398,88 @@ def mesh_train(torch, np) -> dict:
 
 
 
+# ---------------------------------------------------- phase 21: the dry run
+# Two production cells at full width on fake process groups (the card's
+# machine has its own torch, whose fake backend, DTensor and fake tensors
+# must trace them), and phase 17's step traced at world size 1 against
+# what phase 17 held and measured on the card
+DRYRUN_CELLS = [(PHI3, "train_4k", False), (MOONSHOT, "decode_32k", True)]
+
+
+def dryrun_phase(torch, train: dict) -> dict:
+    """(a) ``launch.dryrun.run_cell`` for each of ``DRYRUN_CELLS``: every
+    record ``status: OK``; prints per device the counted FLOPs, bytes,
+    wire bytes, argument and temporary bytes and the trace's seconds.
+    (b) ``trace_cell`` of phase 17's step (phi3-mini-3.8b FULL, 4 x 1024
+    tokens, remat "dots", AdamW, one device) on fake tensors: the counted
+    bytes of the parameters and the AdamW state must equal those phase 17
+    held on the card; the counted peak (arguments + temporaries) beside
+    phase 17's ``max_memory_allocated`` and the counted FLOPs beside the
+    products of its step's bound.  Nothing here touches the card; every
+    counted number is counted, not measured."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch.dryrun import run_cell, trace_cell
+    from repro_torch.models import ShapeCfg
+    check(not dist.is_initialized(), "dry run: a process group is still "
+          "open (close phase 20's mesh first)")
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    res = {"cells": {}, "launches": {}}
+    try:
+        for arch, shape, multi_pod in DRYRUN_CELLS:
+            rec = run_cell(arch, shape, multi_pod, out_dir)
+            cell = f"{arch} {shape} {rec['mesh']}"
+            check(rec["status"] == "OK", f"dry run {cell}: {rec['status']} "
+                  f"{rec.get('error')}\n{rec.get('traceback')}")
+            check(not dist.is_initialized(), f"dry run {cell}: its fake "
+                  f"process group was left open")
+            hc, mem = rec["hlo_cost"], rec["memory"]
+            res["cells"][cell] = {k: rec[k] for k in (
+                "status", "trace_s", "n_devices", "cost", "memory",
+                "collectives", "hlo_cost", "attention")}
+            log(f"dry run {cell} (counted, per device of "
+                f"{rec['n_devices']}): {hc['flops'] / 1e12:.3f} TFLOP, "
+                f"{hc['bytes'] / 1e9:.2f} GB moved, "
+                f"{hc['wire_bytes'] / 1e9:.3f} GB on the wire, "
+                f"{hc['ops']} ops; arguments "
+                f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB, temporaries "
+                f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB, outputs "
+                f"{mem['output_size_in_bytes'] / 1e9:.3f} GB (aliased "
+                f"{mem['alias_size_in_bytes'] / 1e9:.3f}); traced in "
+                f"{rec['trace_s']} s")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    shape = ShapeCfg("train_phase17", "train", TRAIN["T"], TRAIN["B"])
+    rec = trace_cell(TRAIN["arch"], shape, None, {})
+    mem, hc = rec["memory"], rec["hlo_cost"]
+    params_b, opt_b, batch_b = mem["argument_bytes_by_input"]
+    state_b = params_b + opt_b
+    check(state_b == train["state_argument_bytes"], f"dry run: counted "
+          f"parameters + AdamW state {state_b} bytes, phase 17 held "
+          f"{train['state_argument_bytes']}")
+    counted_peak = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    bound_flops = (train["model_tflop"] + train["attention_tflop"]) * 1e12
+    res["phase17"] = {
+        "trace_s": rec["trace_s"], "cost": rec["cost"], "memory": mem,
+        "hlo_cost": hc, "state_argument_bytes": state_b,
+        "measured_state_argument_bytes": train["state_argument_bytes"],
+        "counted_peak_bytes": counted_peak,
+        "measured_peak_bytes": train["peak_bytes"],
+        "counted_flops": hc["flops"], "bound_product_flops": bound_flops}
+    log(f"dry run of phase 17's step (counted on fake tensors, one "
+        f"device): parameters + AdamW state {state_b / 1e9:.3f} GB, equal "
+        f"to phase 17's on the card; batch {batch_b} bytes; peak "
+        f"{counted_peak / 1e9:.2f} GB counted (arguments + "
+        f"{mem['temp_size_in_bytes'] / 1e9:.2f} GB of temporaries) against "
+        f"{train['peak_bytes'] / 1e9:.2f} GB measured; "
+        f"{hc['flops'] / 1e12:.2f} TFLOP counted against the bound's "
+        f"{bound_flops / 1e12:.2f} TFLOP of products; "
+        f"{hc['bytes'] / 1e9:.1f} GB moved, {hc['ops']} ops; traced in "
+        f"{rec['trace_s']} s")
+    return res
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -3384,6 +3519,7 @@ def main() -> int:
     log(f"the mesh's kernel arguments checked in "
         f"{time.perf_counter() - t0:.1f} s")
     time_kernels(torch, rng, results)
+    dispatch = dispatch_cost(torch, rng)
     torch.cuda.synchronize()
 
     cfg, params = init_full(torch, QWEN)
@@ -3415,6 +3551,7 @@ def main() -> int:
     paths["train_ckpt"] = train_ckpt(torch, np)
     paths["mesh_train"] = mesh_train(torch, np)
     close_mesh()
+    paths["dryrun"] = dryrun_phase(torch, paths["train"])
     parity = parity_smoke(torch, np)
     model_parity = parity_models(torch, np)
     train_parity = parity_train(torch, np)
@@ -3468,6 +3605,7 @@ def main() -> int:
             "tensor_core": c.get("flash_attention_tc", 0),
             "simt": c.get("flash_attention", 0)}
         for k, c in by_path.items()}}))
+    print(json.dumps({"paged_dispatch": dispatch}))
     print(json.dumps(variants))
     print(json.dumps(line))
     print(smi.stdout.strip().splitlines()[0])

@@ -2,6 +2,15 @@
 tensor to the kernel's plain PyTorch version.  There is no fallback: a
 CUDA call that the kernel refuses raises, and any other device raises.
 
+The two attention kernels are operators of their own
+(``torch.ops.repro_torch.flash_attention``, ``paged_attention`` and
+``paged_attention_lse``), whose fake form gives the kernel's outputs by
+shape: a fake or meta tensor, on any device, reaches it and neither the
+kernel nor the plain version, so a trace under ``FakeTensorMode`` (the dry run,
+``launch/dryrun.py``) sees one op a call where the card runs one kernel,
+and counts its work (``launch/op_cost.py``) by the kernel's formulas,
+not the plain version's score matrices.
+
 The torch counterpart of ``repro/kernels/ops.py``'s TPU / interpret switch.
 """
 from __future__ import annotations
@@ -29,18 +38,65 @@ def _on_card(t) -> bool:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
+# The attention kernels as operators: a CPU kernel (the plain version), a
+# CUDA kernel (the hand-written one) and a fake form (the outputs by
+# shape), registered through ``torch.library.Library``.  The decode path
+# calls the paged kernel once a layer and step, so the dispatch's host
+# cost counts: ``chip_smoke.py``'s ``dispatch_cost`` times a call of the
+# op beside a call of the wrapper alone.
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
+            "int window, int q_offset) -> Tensor")
+_PAGED_ARGS = ("(Tensor q, Tensor k_pool, Tensor v_pool, Tensor block_table, "
+               "Tensor seq_lens)")
+_LIB.define(f"paged_attention{_PAGED_ARGS} -> Tensor")
+_LIB.define(f"paged_attention_lse{_PAGED_ARGS} -> (Tensor, Tensor)")
+
+
+def _flash_kw(causal, window, q_offset) -> dict:
+    return dict(causal=causal, window=window, q_offset=q_offset)
+
+
+_LIB.impl("flash_attention", lambda q, k, v, *a: flash_attention_plain(
+    q, k, v, **_flash_kw(*a)), "CPU")
+_LIB.impl("flash_attention", lambda q, k, v, *a: flash_attention_cuda(
+    q, k, v, **_flash_kw(*a)), "CUDA")
+_LIB.impl("paged_attention", lambda *a: paged_attention_plain(*a), "CPU")
+_LIB.impl("paged_attention", lambda *a: paged_attention_cuda(*a), "CUDA")
+_LIB.impl("paged_attention_lse", lambda *a: paged_attention_plain(
+    *a, return_lse=True), "CPU")
+_LIB.impl("paged_attention_lse", lambda *a: paged_attention_cuda(
+    *a, return_lse=True), "CUDA")
+
+
+@torch.library.register_fake("repro_torch::flash_attention", lib=_LIB)
+def _flash_fake(q, k, v, causal, window, q_offset):
+    return torch.empty_like(q)
+
+
+@torch.library.register_fake("repro_torch::paged_attention", lib=_LIB)
+def _paged_fake(q, k_pool, v_pool, block_table, seq_lens):
+    return torch.empty_like(q)
+
+
+@torch.library.register_fake("repro_torch::paged_attention_lse", lib=_LIB)
+def _paged_lse_fake(q, k_pool, v_pool, block_table, seq_lens):
+    return torch.empty_like(q), q.new_empty(q.shape[:2],
+                                            dtype=torch.float32)
+
+
 class _FlashAttention(torch.autograd.Function):
-    """The forward on the kernel (CUDA) or the plain version (CPU); the
-    backward recomputes through the plain version, as the reference's
-    ``_flash_bwd`` does through its oracle: no backward kernel exists."""
+    """The forward on the kernel (CUDA) or the plain version (CPU), through
+    the ``repro_torch::flash_attention`` op; the backward recomputes
+    through the plain version, as the reference's ``_flash_bwd`` does
+    through its oracle: no backward kernel exists."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset):
         ctx.save_for_backward(q, k, v)
         ctx.args = dict(causal=causal, window=window, q_offset=q_offset)
-        if _on_card(q):
-            return flash_attention_cuda(q, k, v, **ctx.args)
-        return flash_attention_plain(q, k, v, **ctx.args)
+        return torch.ops.repro_torch.flash_attention(q, k, v, causal,
+                                                     window, q_offset)
 
     @staticmethod
     def backward(ctx, g):
@@ -64,11 +120,9 @@ def paged_attention(q, k_pool, v_pool, block_table, seq_lens, *,
     """q: (B, H, hd); pools: (P, page, Hkv, hd); block_table: (B, max_pages)
     int32; seq_lens: (B,) int32 -> (B, H, hd), and with ``return_lse``
     each row's log-sum-exp (B, H) f32 (-inf at length 0)."""
-    if _on_card(q):
-        return paged_attention_cuda(q, k_pool, v_pool, block_table, seq_lens,
-                                    return_lse=return_lse)
-    return paged_attention_plain(q, k_pool, v_pool, block_table, seq_lens,
-                                 return_lse=return_lse)
+    op = torch.ops.repro_torch.paged_attention_lse if return_lse \
+        else torch.ops.repro_torch.paged_attention
+    return op(q, k_pool, v_pool, block_table, seq_lens)
 
 
 def gather_quantize_crc_units(stack, units):

@@ -10,16 +10,18 @@ Every architecture exposes the same entry points:
     decode_step(params, cache, token, pos, ctx=None) -> (logits (B, V),
                                       cache)
     make_cache(B, S, device="cuda", ctx=None) -> zeroed cache or state
+    cache_shape(B, S) -> the cache or state as meta tensors (no memory)
     param_shape() -> the parameters as meta tensors (no memory)
+plus ``input_specs(shape)``, meta tensors standing in for every input of
+a ``ShapeCfg``'s train, prefill or decode step: the dry-run contract
+(``launch/dryrun.py``).
 The recurrent families (ssm: xLSTM, hybrid: RecurrentGemma) carry a
 decode state of a fixed size: their ``prefill`` ignores ``s_max`` and
 their ``make_cache`` ``S``, as the reference's do.  Inputs (numpy arrays
 or tensors) go to the parameters' device.  ``ctx`` is a ``MeshCtx``: on a
 mesh the parameters are DTensors (``parallel.distribute_tree`` of
 ``parallel.param_spec_tree``), each entry point runs in
-``layers.mesh_scope`` and the cache or state is a tree of DTensors.  The
-rest of the reference's dry-run contract (``input_specs``,
-``cache_shape``) is ROADMAP Queue 1 item 5.
+``layers.mesh_scope`` and the cache or state is a tree of DTensors.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from typing import Callable
 
 import torch
 
-from .common import ModelConfig
+from .common import ModelConfig, ShapeCfg
 from .layers import mesh_scope
 from . import rglru, transformer, xlstm
 
@@ -52,6 +54,38 @@ class Model:
     prefill: Callable
     decode_step: Callable
     make_cache: Callable          # (B, S) -> concrete zeroed cache
+
+    def cache_shape(self, B: int, S: int) -> dict:
+        """``make_cache(B, S)``'s tree of meta tensors (the recurrent
+        families' state ignores S)."""
+        return self.make_cache(B, S, device="meta")
+
+    # ---------------------------------------------------------- input specs
+    def input_specs(self, shape: ShapeCfg) -> dict:
+        """Meta tensors for every model input of ``shape``: ``batch``
+        (``tokens``, with ``targets`` to train, and ``frames`` for encdec
+        or ``image_embeds`` for vlm) for a train or prefill step; the
+        S-slot ``cache`` and the new ``token`` and its ``pos`` for a
+        decode step.  The reference's shapes and dtypes."""
+        cfg = self.cfg
+        B, S = shape.batch, shape.seq
+
+        def sds(shp, dtype=torch.int32):
+            return torch.empty(shp, dtype=dtype, device="meta")
+        extras = {}
+        if cfg.family == "encdec":
+            extras["frames"] = sds((B, cfg.enc_seq, cfg.d_model), cfg.dtype)
+        if cfg.family == "vlm":
+            extras["image_embeds"] = sds((B, cfg.n_img_tokens, cfg.d_model),
+                                         cfg.dtype)
+        if shape.kind == "train":
+            return {"batch": {"tokens": sds((B, S)), "targets": sds((B, S)),
+                              **extras}}
+        if shape.kind == "prefill":
+            return {"batch": {"tokens": sds((B, S)), **extras}}
+        # decode: one new token against an S-token cache
+        return {"cache": self.cache_shape(B, S), "token": sds((B,)),
+                "pos": sds((B,))}
 
     def param_shape(self) -> dict:
         """``init``'s tree of meta tensors: each parameter's shape and

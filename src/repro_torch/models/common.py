@@ -1,5 +1,7 @@
-"""Model configuration, as ``repro.models.common`` with torch dtypes, and
-the activation checkpointing that its ``remat`` field selects.
+"""Model configuration, as ``repro.models.common`` with torch dtypes, the
+dry run's production shapes (``ShapeCfg``, ``SHAPES``,
+``shape_applicable``), and the activation checkpointing that the
+``remat`` field selects.
 
 The reference's fields under its names and defaults, except the knobs
 that steer JAX's compiler (``attn_impl``, ``scan_layers``) and the chunk
@@ -95,6 +97,11 @@ class ModelConfig:
     def hd(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch decode at 500k context with bounded state?"""
+        return self.family in ("ssm", "hybrid")
+
     def with_(self, **kw) -> "ModelConfig":
         return replace(self, **kw)
 
@@ -146,6 +153,30 @@ class ModelConfig:
         return self.block_pattern[i % len(self.block_pattern)]
 
 
+@dataclass(frozen=True)
+class ShapeCfg:
+    name: str
+    kind: str        # train | prefill | decode
+    seq: int
+    batch: int
+
+
+# the reference's production shapes (``repro.models.common.SHAPES``)
+SHAPES: dict[str, ShapeCfg] = {
+    "train_4k":    ShapeCfg("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeCfg("prefill_32k", "prefill", 32768, 32),
+    "decode_32k":  ShapeCfg("decode_32k", "decode", 32768, 128),
+    "long_500k":   ShapeCfg("long_500k", "decode", 524288, 1),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeCfg) -> tuple[bool, str]:
+    """Which (arch x shape) cells run, the reference's rule."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "full-attention arch: 500k dense KV decode skipped per assignment"
+    return True, ""
+
+
 # the products that "dots" keeps: matrix products with no batch dimension
 # (a (B, T, D) @ (D, F) projection reaches the dispatcher as ``aten.mm``)
 _SAVED_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
@@ -161,9 +192,9 @@ def remat(fn, mode: str):
     inputs and recomputes the rest in the backward; ``"dots"`` (the
     counterpart of ``dots_with_no_batch_dims_saveable``) also keeps the
     outputs of ``aten.mm`` and ``aten.addmm`` and recomputes everything
-    else.  The flash kernel is launched through ctypes, not as an aten op,
-    so under either it runs again in the backward.  With grad disabled
-    ``fn`` runs as it is."""
+    else.  The flash kernel's op (``repro_torch::flash_attention``) is
+    not among them, so under either it runs again in the backward.  With
+    grad disabled ``fn`` runs as it is."""
     if mode not in ("none", "dots", "full"):
         raise ValueError(f"remat {mode!r}: none, dots or full")
     if mode == "none":

@@ -35,6 +35,7 @@ import torch
 import torch.distributed as dist
 import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 from torch.distributed.tensor import DTensor, Partial, Replicate
 from torch.distributed.tensor.experimental import (implicit_replication,
                                                    local_map)
@@ -103,11 +104,30 @@ def prompt_positions(tokens, device):
     return tokens, torch.arange(T, device=device)[None].expand(B, T)
 
 
-def token_nll(logits, targets):
+def embed(table, tokens, ctx=None):
+    """The rows of ``table`` (V, D) at ``tokens``.  ``F.embedding``, not an
+    index: on a mesh DTensor has a rule for it over a vocab-sharded table
+    (each rank looks up its rows, a masked partial sum), where an index
+    gathers the table whole and its gradient's ``index_put`` fails to
+    propagate on torch 2.11.  The tokens go to the activations' batch
+    shards first, so the mask covers the rows each rank keeps."""
+    if on_mesh(ctx):
+        tokens = constrain(tokens, ctx, act_spec(ctx, tokens.dim()))
+    return F.embedding(tokens, table)
+
+
+def token_nll(logits, targets, ctx=None):
     """The next-token NLL at every position: logits (B, T, V), targets
-    (B, T) -> (B, T)."""
-    targets = torch.as_tensor(targets, device=logits.device).long()
-    gold = logits.gather(-1, targets[..., None])[..., 0]
+    (B, T) -> (B, T).  On a mesh (the logits whole over ``model``) each
+    rank takes its own batch rows in a ``local_map``: DTensor's backward
+    of the gold logit's gather would build a zero tensor of the global
+    (B, T, V) on every rank."""
+    targets = torch.as_tensor(targets, device=logits.device)
+    if on_mesh(ctx):
+        b = _bspec(ctx)
+        return _local(token_nll, ctx, ((b, None, None), (b, None)),
+                      (b, None))(logits, constrain(targets, ctx, (b, None)))
+    gold = logits.gather(-1, targets.long()[..., None])[..., 0]
     return torch.logsumexp(logits, dim=-1) - gold
 
 
@@ -119,7 +139,11 @@ def check_decode_positions(pos, filled, S: int, ring: bool) -> None:
     reference drops such a write, ROADMAP Queue 3 item 2), and ValueError
     where a row does not hold exactly its positions before pos, min(pos,
     S) of them in a ring: past them the paged kernel would read
-    never-written slots that the reference masks out."""
+    never-written slots that the reference masks out.  Fake tensors (a
+    trace under ``FakeTensorMode``: the dry run) hold no positions to
+    read, and pass."""
+    if is_fake(pos) or is_fake(filled):
+        return
     want, have = torch.stack([pos, filled]).tolist()
     if min(want) < 0 or (not ring and max(want) >= S):
         raise IndexError(f"decode at positions {min(want)}..{max(want)} "
@@ -253,17 +277,45 @@ def act_spec(ctx, nd: int = 3) -> tuple:
     return (_bspec(ctx),) + (None,) * (nd - 1)
 
 
+class _Constrain(torch.autograd.Function):
+    """A DTensor redistributed to the placements ``pl``; its gradient
+    goes back to the input's placements (a partial sum's as whole), and a
+    gradient that arrives as a partial sum (a column-parallel product's
+    input gradient) is reduced here, as GSPMD reduces it at the
+    constraint.  Left partial, DTensor would carry it down the residual
+    stream and meet it at each product by gathering the weight whole, a
+    product tp times the size of the rank's share."""
+
+    @staticmethod
+    def forward(ctx_, x, mesh, pl):
+        ctx_.mesh = mesh
+        ctx_.src = tuple(Replicate() if q.is_partial() else q
+                         for q in x.placements)
+        return x.view_as(x) if tuple(x.placements) == pl \
+            else x.redistribute(mesh, pl)
+
+    @staticmethod
+    def backward(ctx_, g):
+        if isinstance(g, DTensor) and tuple(g.placements) != ctx_.src:
+            g = g.redistribute(ctx_.mesh, ctx_.src)
+        return g, None, None
+
+
 def constrain(x, ctx, spec: tuple):
     """``x`` redistributed to ``spec`` on the mesh (the counterpart of
     ``with_sharding_constraint``; a tensor that is no DTensor is taken as
-    whole on every rank); ``x`` itself off the mesh."""
+    whole on every rank), its gradient back to ``x``'s placements with a
+    partial sum reduced (``_Constrain``); ``x`` itself off the mesh."""
     if not on_mesh(ctx):
         return x
     pl = placements(spec, ctx.mesh)
     if not isinstance(x, DTensor):
         x = DTensor.from_local(x, ctx.mesh, [Replicate()] * len(pl),
                                run_check=False)
-    return x if tuple(x.placements) == pl else x.redistribute(ctx.mesh, pl)
+    if not x.requires_grad:
+        return x if tuple(x.placements) == pl \
+            else x.redistribute(ctx.mesh, pl)
+    return _Constrain.apply(x, ctx.mesh, pl)
 
 
 def _pl(ctx, spec, partial: tuple = ()):
@@ -710,6 +762,19 @@ def qkv_proj(x, p, n_heads: int, n_kv: int, hd: int, ctx=None):
             heads(v, n_kv, hd, ctx))
 
 
-def out_proj(attn_out, p):
-    B, T = attn_out.shape[:2]
-    return attn_out.reshape(B, T, -1) @ p["wo"]
+def out_proj(attn_out, p, ctx=None):
+    """(B, T, H, hd) -> (B, T, D).  On a mesh whose model axis the head
+    count does not divide (``heads``'s counterpart), the flat heads go
+    through a constraint: the gradient of the row-parallel product comes
+    back sharded on the flat axis, and DTensor cannot split that shard
+    across the (H, hd) reshape, so the constraint's backward gathers it
+    whole first.  Its forward shards the flat axis over ``model`` where it
+    divides, as the product takes it."""
+    B, T, H = attn_out.shape[:3]
+    flat = attn_out.reshape(B, T, -1)
+    if on_mesh(ctx) and ctx.model_axis:
+        tp = ctx.size(ctx.model_axis)
+        if H % tp:
+            ax = ctx.model_axis if flat.shape[-1] % tp == 0 else None
+            flat = constrain(flat, ctx, act_spec(ctx, 2) + (ax,))
+    return flat @ p["wo"]

@@ -44,7 +44,7 @@ from repro_torch.parallel.sharding import cache_spec_tree, distribute_tree
 from .common import ModelConfig, remat
 from .layers import (_normal, act_spec, attn_init, check_decode_positions,
                      constrain, decode_pages, decode_update_and_attend,
-                     fill_cache_shard, init_norm, mesh_attention,
+                     embed, fill_cache_shard, init_norm, mesh_attention,
                      mesh_decode, mesh_decode_attend, mlp_apply, mlp_init,
                      on_mesh, out_proj, prompt_positions, qkv_proj, rms_norm,
                      rope, token_nll, whole_over_model)
@@ -166,7 +166,7 @@ def attn_mixer_apply(x, p, cfg: ModelConfig, positions, cache=None,
                              window=cfg.attn_window)
     else:
         out = flash_attention(q, k, v, causal=True, window=cfg.attn_window)
-    return out_proj(out, p["attn"]), (k, v)
+    return out_proj(out, p["attn"], ctx), (k, v)
 
 
 def rg_layer_apply(x, p, kind, cfg, positions, state=None, slot=None,
@@ -181,9 +181,11 @@ def rg_layer_apply(x, p, kind, cfg, positions, state=None, slot=None,
     else:
         mix, new = attn_mixer_apply(x, p, cfg, positions, state, slot, pages,
                                     ctx)
-    x = x + mix
+    # the mixer's and the MLP's partial sums reduced at the residual, as
+    # in ``transformer.block_apply``
+    x = x + constrain(mix, ctx, act_spec(ctx))
     x = x + mlp_apply(rms_norm(x, p["ln2"]["scale"]), p["mlp"], cfg.act)
-    return x, new
+    return constrain(x, ctx, act_spec(ctx)), new
 
 
 # --------------------------------------------------------------- full model
@@ -245,7 +247,7 @@ def _layers(params, cfg: ModelConfig):
 
 
 def _embed(params, tokens, cfg: ModelConfig, ctx=None):
-    x = params["embed"][tokens] * math.sqrt(cfg.d_model)
+    x = embed(params["embed"], tokens, ctx) * math.sqrt(cfg.d_model)
     return constrain(x.to(cfg.dtype), ctx, act_spec(ctx))
 
 
@@ -316,7 +318,7 @@ def rg_loss(params, batch, cfg: ModelConfig, ctx=None):
     (``transformer.lm_loss`` says why)."""
     logits = constrain(rg_forward(params, batch, cfg, ctx), ctx,
                        act_spec(ctx))
-    return token_nll(logits, batch["targets"]).mean()
+    return token_nll(logits, batch["targets"], ctx).mean()
 
 
 def rg_prefill(params, batch, cfg: ModelConfig, ctx=None):

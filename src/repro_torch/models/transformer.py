@@ -47,7 +47,7 @@ from torch.distributed.tensor import DTensor
 from repro_torch.kernels.ops import flash_attention
 from .common import ModelConfig, remat
 from repro_torch.parallel.sharding import cache_spec_tree, distribute_tree
-from .layers import (_local, act_spec, apply_norm, attn_init,
+from .layers import (_local, act_spec, apply_norm, attn_init, embed,
                      check_decode_positions, constrain, decode_pages,
                      fill_cache_shard,
                      decode_update_and_attend, decode_attention, init_norm,
@@ -99,7 +99,7 @@ def self_attention(x, p, cfg: ModelConfig, *, positions, causal=True,
         out = mesh_attention(q, k, v, ctx, causal=causal, window=window)
     else:
         out = flash_attention(q, k, v, causal=causal, window=window)
-    return out_proj(out, p), k, v
+    return out_proj(out, p, ctx), k, v
 
 
 def cross_attention(x, p, cfg: ModelConfig, *, xk, xv, pages=None,
@@ -119,7 +119,7 @@ def cross_attention(x, p, cfg: ModelConfig, *, xk, xv, pages=None,
         out = _local(lambda q_l, k_l, v_l: decode_attention(
             q_l.contiguous(), k_l, v_l, pages), ctx, (whole,) * 3,
             whole)(q, xk, xv)
-    return out_proj(out, p)
+    return out_proj(out, p, ctx)
 
 
 def cross_kv(enc_out, p, cfg: ModelConfig, ctx=None):
@@ -136,12 +136,15 @@ def block_apply(x, p, cfg: ModelConfig, *, positions, causal=True, window=0,
         apply_norm(x, p["ln1"], cfg.norm), p["attn"], cfg,
         positions=positions, causal=causal, window=window, cache=cache,
         slot=slot, pos=pos, pages=pages, ctx=ctx)
-    x = x + a
+    # on a mesh the row-parallel out-projection's partial sums are reduced
+    # here, before the residual: left partial, DTensor would carry them
+    # through the norm and gather the next product's weights whole
+    x = x + constrain(a, ctx, act_spec(ctx))
     if xk is not None:
         g = torch.tanh(p["xgate"]).to(x.dtype) if "xgate" in p else 1.0
         c = cross_attention(apply_norm(x, p["lnx"], cfg.norm), p["xattn"],
                             cfg, xk=xk, xv=xv, pages=xpages, ctx=ctx)
-        x = x + g * c
+        x = x + g * constrain(c, ctx, act_spec(ctx))
     h = apply_norm(x, p["ln2"], cfg.norm)
     if cfg.moe is not None:
         x = x + moe_apply(h, p["moe"], cfg.moe, ctx)
@@ -186,8 +189,8 @@ def _device(params) -> torch.device:
     return params["embed"].device
 
 
-def _embed_in(params, tokens, positions, cfg: ModelConfig):
-    x = params["embed"][tokens]
+def _embed_in(params, tokens, positions, cfg: ModelConfig, ctx=None):
+    x = embed(params["embed"], tokens, ctx)
     if cfg.pos == "sinusoidal":
         x = x + sinusoidal_pos(positions, cfg.d_model, cfg.dtype)
     return x
@@ -271,7 +274,7 @@ def lm_forward(params, batch, cfg: ModelConfig, ctx=None):
     step of the reference's layer scan (a block; a vlm group) runs under
     ``remat(cfg.remat)``, as the reference's does."""
     tokens, positions = prompt_positions(batch["tokens"], _device(params))
-    x = constrain(_embed_in(params, tokens, positions, cfg), ctx,
+    x = constrain(_embed_in(params, tokens, positions, cfg, ctx), ctx,
                   act_spec(ctx))
     src = _cross_source(params, batch, cfg, cfg.remat, ctx)
 
@@ -297,7 +300,7 @@ def lm_loss(params, batch, cfg: ModelConfig, ctx=None):
     # vocab-sharded axis: the logits go whole over ``model`` first
     logits = constrain(lm_forward(params, batch, cfg, ctx), ctx,
                        act_spec(ctx))
-    nll = token_nll(logits, batch["targets"])
+    nll = token_nll(logits, batch["targets"], ctx)
     mask = batch.get("loss_mask")
     if mask is None:
         return nll.mean()
@@ -382,7 +385,7 @@ def lm_prefill(params, batch, cfg: ModelConfig, s_max: int | None = None,
     reference's, which pads to W when given ``s_max``)."""
     tokens, positions = prompt_positions(batch["tokens"], _device(params))
     B, T = tokens.shape
-    x = constrain(_embed_in(params, tokens, positions, cfg), ctx,
+    x = constrain(_embed_in(params, tokens, positions, cfg, ctx), ctx,
                   act_spec(ctx))
     src = _cross_source(params, batch, cfg, ctx=ctx)
     cache = make_cache(cfg, B, max(T, s_max or 0), device=tokens.device,
@@ -440,8 +443,8 @@ def lm_decode_step(params, cache, token, pos, cfg: ModelConfig, ctx=None):
     token = torch.as_tensor(token, device=dev).long()
     B = token.shape[0]
     positions = pos[:, None]
-    x = constrain(_embed_in(params, token[:, None], positions, cfg), ctx,
-                  act_spec(ctx))
+    x = constrain(_embed_in(params, token[:, None], positions, cfg, ctx),
+                  ctx, act_spec(ctx))
     n_rep = cfg.n_heads // cfg.n_kv_heads
     # the pages' tables and lengths once a step, on the device
     if on_mesh(ctx):

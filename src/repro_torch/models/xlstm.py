@@ -32,7 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.parallel.sharding import cache_spec_tree
 from .common import ModelConfig, remat
-from .layers import (_normal, act_spec, constrain, init_norm, on_mesh,
+from .layers import (_normal, act_spec, constrain, embed, init_norm, on_mesh,
                      prompt_positions, rms_norm, token_nll,
                      whole_over_model)
 
@@ -318,7 +318,8 @@ def _head(params, x):
 
 
 def _embed(params, tokens, ctx=None):
-    x = params["embed"][prompt_positions(tokens, params["embed"].device)[0]]
+    x = embed(params["embed"],
+              prompt_positions(tokens, params["embed"].device)[0], ctx)
     return constrain(x, ctx, act_spec(ctx))
 
 
@@ -338,7 +339,7 @@ def xlstm_loss(params, batch, cfg: ModelConfig, ctx=None):
     (``transformer.lm_loss`` says why)."""
     logits = constrain(xlstm_forward(params, batch, cfg, ctx), ctx,
                        act_spec(ctx))
-    return token_nll(logits, batch["targets"]).mean()
+    return token_nll(logits, batch["targets"], ctx).mean()
 
 
 def xlstm_prefill(params, batch, cfg: ModelConfig, ctx=None):

@@ -1116,3 +1116,39 @@ def test_moe_combine_is_deterministic_on_the_card(card, monkeypatch):
     exp = torch.zeros_like(a).index_add_(0, seen["idx"].reshape(-1),
                                          seen["ye"].reshape(-1, D))
     assert_rows_close(a, exp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_fake_forms_match_the_kernels_and_cuda_still_launches(
+        card, dtype):
+    """The attention ops' fake forms (the dry run's path) give the real
+    kernels' output shapes and dtypes on the card; real CUDA tensors still
+    reach the kernels, whose launch counters move."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    g = torch.Generator(device=card).manual_seed(0)
+    q = torch.randn((2, 40, 8, 96), generator=g, device=card).to(dtype)
+    k = torch.randn((2, 40, 2, 96), generator=g, device=card).to(dtype)
+    v = torch.randn((2, 40, 2, 96), generator=g, device=card).to(dtype)
+    pq = torch.randn((3, 8, 64), generator=g, device=card).to(dtype)
+    kp = torch.randn((6, 16, 2, 64), generator=g, device=card).to(dtype)
+    vp = torch.randn((6, 16, 2, 64), generator=g, device=card).to(dtype)
+    table = torch.arange(6, dtype=torch.int32, device=card).view(3, 2)
+    lens = torch.tensor([5, 32, 17], dtype=torch.int32, device=card)
+    _build.reset_launch_counts()
+    real = (ops.flash_attention(q, k, v, window=16),
+            *ops.paged_attention(pq, kp, vp, table, lens, return_lse=True),
+            ops.paged_attention(pq, kp, vp, table, lens))
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    assert counts.get("flash_attention", 0) == 1
+    assert counts.get("paged_attention", 0) == 2
+    with FakeTensorMode() as mode:
+        fq, fk, fv, fpq, fkp, fvp, ft, fl = (
+            mode.from_tensor(t) for t in (q, k, v, pq, kp, vp, table, lens))
+        fake = (ops.flash_attention(fq, fk, fv, window=16),
+                *ops.paged_attention(fpq, fkp, fvp, ft, fl, return_lse=True),
+                ops.paged_attention(fpq, fkp, fvp, ft, fl))
+    assert _build.launch_counts() == counts      # the fakes launch nothing
+    for r, f in zip(real, fake):
+        assert f.shape == r.shape and f.dtype == r.dtype
+        assert f.device == r.device

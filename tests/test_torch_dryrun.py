@@ -1,0 +1,511 @@
+"""The port's dry run (``launch/dryrun.py``, ``launch/op_cost.py``, the
+shapes, ``input_specs`` / ``cache_shape`` and ``make_production_mesh``)
+on the CPU, against the reference.
+
+  (a) ``SHAPES``, ``shape_applicable`` and ``sub_quadratic`` equal the
+      reference's for all ten configs; ``input_specs`` and
+      ``cache_shape`` give its shapes and dtypes for all ten FULL configs
+      at all four shapes; the production meshes on fake process groups of
+      256 and 512 ranks;
+  (b) ``OpCost`` against ``HloCost`` on ``tests/test_hlo_cost.py``'s four
+      programs (a matmul, a 24-step loop, a gradient through checkpointed
+      layers, a copy's bytes), and per device on a fake (2, 4) mesh: a
+      sharded product counts its local 2 M N K, a replicated one its
+      whole;
+  (c) the dry run of every config at SMOKE widths on (2, 4) meshes
+      against the reference's ``build_cell`` (its own mesh of 8 forced
+      host devices with Auto axes, in a subprocess), for a train, a
+      prefill and a decode cell at short shapes added to both packages'
+      ``SHAPES`` (with pytest's monkeypatch here): argument bytes equal
+      and FLOPs within the tolerances stated beside each term below;
+  (d) the reference's own ``run_cell`` failing on jax 0.9.0 (its
+      production mesh's Explicit axes; shown, not fixed), and the port's
+      CLI writing an OK record with the reference's keys and a SKIP for a
+      full-attention arch at ``long_500k``.
+
+Fake tensors (``FakeTensorMode``) and the ``fake`` process-group backend
+hold no memory: nothing here computes at full width.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs import ARCHS, get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.op_cost import OpCost
+from repro_torch.models import SHAPES, ShapeCfg, build_model, shape_applicable
+from repro_torch.models import common as port_common
+from repro_torch.parallel import map_tree, zero_spec
+from repro_torch.parallel.sharding import _param_rule
+
+ROOT = Path(__file__).resolve().parents[1]
+# short shapes for the comparison at SMOKE widths: at T 16 attention is a
+# few percent of a step's products (see (c))
+SHORT = {"train_t": ("train", 16, 8), "prefill_t": ("prefill", 16, 8),
+         "decode_t": ("decode", 16, 8)}
+MESH = (2, 4)
+# the fields the reference's config has and the port's lacks (its
+# compiler's knobs); dtype and remat stay each package's FULL value
+_SKIP_FIELDS = {"name", "dtype", "remat", "logits_f32", "attn_impl",
+                "attn_chunk", "scan_layers"}
+
+
+def smoke_overrides(arch: str) -> dict:
+    """The SMOKE widths as ``cfg_overrides`` of the FULL config, the same
+    dict for both packages."""
+    sm = get_config(arch, smoke=True)
+    return {f.name: getattr(sm, f.name) for f in dataclasses.fields(sm)
+            if f.name not in _SKIP_FIELDS}
+
+
+def _plain(overrides: dict) -> dict:
+    """The overrides with ``moe`` as a dict, to rebuild in the reference's
+    ``MoECfg``."""
+    moe = overrides.get("moe")
+    return dict(overrides, moe=dataclasses.asdict(moe) if moe else None)
+
+
+@pytest.fixture
+def short_shapes(monkeypatch):
+    for name, (kind, seq, batch) in SHORT.items():
+        monkeypatch.setitem(port_common.SHAPES, name,
+                            ShapeCfg(name, kind, seq, batch))
+
+
+@pytest.fixture
+def fake_group():
+    """A fake process group of 8 ranks, destroyed after the case."""
+    dist.init_process_group("fake", rank=0, world_size=8, store=FakeStore())
+    try:
+        yield init_device_mesh("cpu", MESH, mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+# ============================================== (a) shapes, specs, meshes
+@pytest.mark.parametrize("arch", ARCHS)
+def test_shapes_and_applicability_equal_the_reference(arch):
+    from repro.configs import get_config as ref_config
+    from repro.models import SHAPES as REF_SHAPES
+    from repro.models import shape_applicable as ref_applicable
+    assert {k: dataclasses.astuple(v) for k, v in SHAPES.items()} == \
+        {k: dataclasses.astuple(v) for k, v in REF_SHAPES.items()}
+    for smoke in (False, True):
+        cfg, ref = get_config(arch, smoke=smoke), ref_config(arch, smoke=smoke)
+        assert cfg.sub_quadratic == ref.sub_quadratic
+        for name in SHAPES:
+            assert shape_applicable(cfg, SHAPES[name]) == \
+                ref_applicable(ref, REF_SHAPES[name])
+
+
+def _port_leaves(tree) -> dict:
+    out = {}
+    map_tree(lambda path, stack, t: out.setdefault(
+        "/".join(map(str, path)), (tuple(t.shape), str(t.dtype).split(".")[-1],
+                                   t.device.type)), tree)
+    return out
+
+
+def _ref_leaves(tree) -> dict:
+    import jax
+    return {"/".join(str(getattr(k, "key", getattr(k, "name", k)))
+                     for k in path): (tuple(leaf.shape), str(leaf.dtype),
+                                      "meta")
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_input_specs_and_cache_shape_equal_the_reference(arch):
+    from repro.configs import get_config as ref_config
+    from repro.models import SHAPES as REF_SHAPES
+    from repro.models import build_model as ref_build
+    model, ref = build_model(get_config(arch)), ref_build(ref_config(arch))
+    for name, shape in SHAPES.items():
+        got = model.input_specs(shape)
+        exp = ref.input_specs(REF_SHAPES[name])
+        assert set(got) == set(exp)
+        for key in got:
+            g = _port_leaves(got[key]) if isinstance(got[key], dict) \
+                else _port_leaves({key: got[key]})
+            e = _ref_leaves(exp[key]) if isinstance(exp[key], dict) \
+                else _ref_leaves({key: exp[key]})
+            assert g == e, (name, key)
+    assert _port_leaves(model.cache_shape(2, 64)) == \
+        _ref_leaves(ref.cache_shape(2, 64))
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_production_mesh_on_a_fake_group(multi_pod):
+    n = 512 if multi_pod else 256
+    dist.init_process_group("fake", rank=0, world_size=n, store=FakeStore())
+    try:
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        assert mesh.size() == n
+        if multi_pod:
+            assert tuple(mesh.shape) == (2, 16, 16)
+            assert mesh.mesh_dim_names == ("pod", "data", "model")
+        else:
+            assert tuple(mesh.shape) == (16, 16)
+            assert mesh.mesh_dim_names == ("data", "model")
+        with pytest.raises(ValueError, match="needs"):
+            make_production_mesh(multi_pod=not multi_pod)
+    finally:
+        dist.destroy_process_group()
+
+
+# ======================================================= (b) the counter
+def _ref_cost(fn, *args):
+    import jax
+    from repro.launch.hlo_cost import HloCost
+    return HloCost(jax.jit(fn).lower(*args).compile().as_text()).totals()
+
+
+def test_op_cost_single_matmul_equals_hlo_cost():
+    import jax
+    import jax.numpy as jnp
+    m, k, n = 256, 512, 128
+    ref = _ref_cost(lambda a, b: a @ b,
+                    jax.ShapeDtypeStruct((m, k), jnp.float32),
+                    jax.ShapeDtypeStruct((k, n), jnp.float32))
+    with FakeTensorMode():
+        a, b = torch.empty(m, k), torch.empty(k, n)
+        with OpCost() as c:
+            a @ b
+    assert c.totals()["flops"] == 2.0 * m * k * n
+    assert c.totals()["flops"] == pytest.approx(ref["flops"], rel=0.01)
+
+
+def test_op_cost_loop_counts_every_trip_as_hlo_cost_does():
+    """The reference's scan body is counted times its trip count; the
+    port's Python loop runs its body each trip."""
+    import jax
+    import jax.numpy as jnp
+    m, trips = 128, 24
+
+    def scanned(x):
+        def body(h, _):
+            return jnp.tanh(h @ h), None
+        return jax.lax.scan(body, x, None, length=trips)[0]
+    ref = _ref_cost(scanned, jax.ShapeDtypeStruct((m, m), jnp.float32))
+    with FakeTensorMode():
+        h = torch.empty(m, m)
+        with OpCost() as c:
+            for _ in range(trips):
+                h = torch.tanh(h @ h)
+    got = c.totals()
+    assert got["flops"] == trips * 2.0 * m ** 3
+    assert got["flops"] == pytest.approx(ref["flops"], rel=0.1)
+    assert got["transcendentals"] == trips * m * m
+
+
+def test_op_cost_counts_the_recompute_of_checkpointed_layers():
+    import jax
+    import jax.numpy as jnp
+    m, trips = 128, 8
+
+    def loss(x):
+        @jax.checkpoint
+        def body(h, _):
+            return jnp.tanh(h @ h), None
+        return jnp.sum(jax.lax.scan(body, x, None, length=trips)[0])
+    ref = _ref_cost(lambda x: jax.grad(loss)(x),
+                    jax.ShapeDtypeStruct((m, m), jnp.float32))
+
+    def layer(h):
+        return torch.tanh(h @ h)
+    with FakeTensorMode():
+        x = torch.empty(m, m, requires_grad=True)
+        with OpCost() as c:
+            h = x
+            for _ in range(trips):
+                h = checkpoint(layer, h, use_reentrant=False)
+            torch.autograd.grad(h.sum(), x)
+    got = c.totals()["flops"]
+    # forward + recompute + 2 backward products: 4 a layer
+    assert got == trips * 4 * 2.0 * m ** 3
+    assert got == pytest.approx(ref["flops"], rel=0.15)
+
+
+def test_op_cost_bytes_of_a_copy_as_hlo_cost():
+    import jax
+    import jax.numpy as jnp
+    n = 1 << 20
+    ref = _ref_cost(lambda x: x * 2.0, jax.ShapeDtypeStruct((n,), jnp.float32))
+    with FakeTensorMode():
+        x = torch.empty(n)
+        with OpCost() as c:
+            c.hold(x)
+            y = x * 2.0
+        mem = c.memory(y)
+    assert c.totals()["bytes"] == 8 * n           # one read, one write
+    assert 8e6 * 0.9 < ref["bytes"] < 8e6 * 3
+    assert c.totals()["bytes"] == pytest.approx(ref["bytes"], rel=0.1)
+    assert mem == {"argument_size_in_bytes": 4 * n,
+                   "output_size_in_bytes": 4 * n, "alias_size_in_bytes": 0,
+                   "temp_size_in_bytes": 4 * n}
+
+
+def test_op_cost_counts_a_sharded_product_at_its_local_shape(fake_group):
+    """A mode above DTensor would see the global (64, 64) @ (64, 32); the
+    counter sees rank 0's (64, 64) @ (64, 8), and the all-reduce of the
+    sum's partial over ``model``."""
+    mesh = fake_group
+    M, K, N = 64, 64, 32
+    whole = [Replicate(), Replicate()]
+    with FakeTensorMode():
+        a = DTensor.from_local(torch.empty(M, K), mesh, whole,
+                               run_check=False)
+        b = DTensor.from_local(torch.empty(K, N // 4), mesh,
+                               [Replicate(), Shard(1)], run_check=False)
+        with OpCost() as c:
+            s = (a @ b).sum().full_tensor()
+        with OpCost() as r:
+            a @ a
+    got = c.totals()
+    assert got["flops"] == 2.0 * M * K * N / 4
+    assert got["collectives"]["all-reduce"]["count"] == 1
+    assert got["collectives"]["all-reduce"]["group"] == 4
+    assert tuple(s.shape) == ()
+    assert r.totals()["flops"] == 2.0 * M * K * M
+
+
+# ============================================ (c) the dry run, cell by cell
+CELLS = [(arch, name) for arch in ARCHS for name in SHORT]
+
+
+@pytest.fixture(scope="module")
+def reference_cells(tmp_path_factory):
+    """The reference's ``build_cell`` for every cell on a (2, 4) mesh of
+    forced host devices with Auto axes, lowered and compiled: argument
+    bytes from ``memory_analysis`` (``jax.jit`` with ``keep_unused=True``,
+    so an argument the step does not read, as the encoder's weights in a
+    decode, is counted as the port holds it) and ``HloCost``'s FLOPs.
+    Then its own ``run_cell``, which builds its production mesh."""
+    out = tmp_path_factory.mktemp("ref") / "cells.json"
+    code = "import os\nos.environ['XLA_FLAGS'] = " \
+        "'--xla_force_host_platform_device_count=8'\n" + textwrap.dedent(f"""
+    import functools, json, tempfile
+    import jax
+    from jax.sharding import AxisType
+    jax.jit = functools.partial(jax.jit, keep_unused=True)
+    from repro.launch import dryrun
+    from repro.launch.hlo_cost import HloCost
+    from repro.models import SHAPES
+    from repro.models.common import ShapeCfg
+    for name, (kind, seq, batch) in {SHORT!r}.items():
+        SHAPES[name] = ShapeCfg(name, kind, seq, batch)
+    mesh = jax.make_mesh({MESH!r}, ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    res = {{}}
+    from repro.models.common import MoECfg
+
+    def ref_overrides(ov):
+        return dict(ov, moe=MoECfg(**ov["moe"])) if ov.get("moe") else ov
+    for arch, name, ov in {[(a, n, _plain(smoke_overrides(a))) for a, n in CELLS]!r}:
+        fn, args = dryrun.build_cell(arch, name, mesh,
+                                     {{"cfg_overrides": ref_overrides(ov)}})
+        c = fn.lower(*args).compile()
+        res[arch + ":" + name] = {{
+            "args": c.memory_analysis().argument_size_in_bytes,
+            "flops": HloCost(c.as_text()).totals()["flops"]}}
+    # its production mesh (16, 16) shards a batch of 16 over ``data``
+    SHAPES["decode_p"] = ShapeCfg("decode_p", "decode", 16, 16)
+    ov = {_plain(smoke_overrides("internlm2-1.8b"))!r}
+    rec = dryrun.run_cell("internlm2-1.8b", "decode_p", False,
+                          tempfile.mkdtemp(),
+                          {{"cfg_overrides": ref_overrides(ov)}})
+    res["run_cell"] = {{k: rec.get(k) for k in ("status", "error")}}
+    open({str(out)!r}, "w").write(json.dumps(res))
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    run = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=900)
+    assert run.returncode == 0, run.stderr[-3000:]
+    return json.loads(out.read_text())
+
+
+def stacked_moment_gap(arch: str, mesh_shape: dict) -> int:
+    """Bytes of AdamW moments that the reference's ZeRO-1 shards along a
+    stacked layer axis and the port cannot: its layers are a list, each
+    layer's leaf the stacked leaf's row, so the moment of a per-layer
+    scalar (an ``xgate``) or of a leaf whose only free axis is the stack's
+    (qwen's k / v biases, already split over ``model``) stays whole over
+    ``data``.  Each such leaf's m and v are rank 0's shard, f32, larger by
+    the data axis's size."""
+    cfg = get_config(arch, **smoke_overrides(arch))
+    dp = mesh_shape["data"]
+    gap = []
+
+    def leaf(path, stack, t):
+        shape = stack + tuple(t.shape)
+        ref = zero_spec(_param_rule(path, shape, mesh_shape), shape,
+                        mesh_shape)
+        if "data" in ref[:len(stack)]:
+            local = 1
+            for n, s in zip(t.shape, ref[len(stack):]):
+                local *= -(-n // mesh_shape[s]) if s else n
+            gap.append(2 * 4 * local * (dp - 1) // dp)
+    map_tree(leaf, build_model(cfg).param_shape())
+    return sum(gap)
+
+
+def cross_decode_term(arch: str, mesh_shape: dict) -> float:
+    """FLOPs the port's mesh decode spends past the reference's on
+    cross-attention: its cache is whole over ``model``, so each rank runs
+    the paged kernel over every head (4 hd a head and key) where the
+    reference's partition splits the heads.  0 for the other families."""
+    cfg = get_config(arch, **smoke_overrides(arch))
+    if cfg.family not in ("encdec", "vlm"):
+        return 0.0
+    kind, seq, batch = SHORT["decode_t"]
+    n_cross = cfg.n_layers if cfg.family == "encdec" \
+        else cfg.n_layers // cfg.cross_every
+    s_x = cfg.enc_seq if cfg.family == "encdec" else cfg.n_img_tokens
+    tp = mesh_shape["model"]
+    return 4.0 * cfg.hd * cfg.n_heads * (batch // mesh_shape["data"]) * s_x \
+        * n_cross * (1 - 1 / tp)
+
+
+def recurrent_mixer_term(arch: str, name: str, mesh_shape: dict) -> float:
+    """FLOPs the port's mesh step spends past the reference's on the
+    recurrent mixers: each runs whole on every rank of ``model``
+    (``layers.whole_over_model``) where the reference's partition splits
+    it, so rank 0 counts (tp - 1) / tp of their products more.  Their
+    products, a batch row of T tokens (T 1 in a decode):
+
+      * mLSTM: q, k, v, the output gate and the out-projection (5 d^2)
+        and the input and forget gates (2 d H), 2 T d (5 d + 2 H); in a
+        prompt, per chunk of L and head, the scores, the weighted values
+        and the normaliser's keys (6 L^2 dh), the carried state's query
+        (2 L dh^2) and the normaliser's dot (2 L dh), and the chunk-end
+        state (2 L dh^2 + 2 L dh); in a decode step, per head, the
+        normaliser's dot (2 dh) and the state's query (2 dh^2);
+      * sLSTM: z, o and the out-projection (3 d^2) and the gates (2 d H),
+        2 T d (3 d + 2 H), and the recurrence, 2 T H dh (dh + 2);
+      * RG-LRU: the gate and input projections, its r and i gates and the
+        out-projection, 2 T (3 d R + 2 R^2); the conv and the scan are
+        elementwise.
+
+    A train step runs a layer's products 4 times under remat (forward,
+    recompute, two gradients) and 3 times outside it (recurrentgemma's
+    trailing layers).  The mLSTM's last chunk-end state reaches no loss
+    and gets no gradient, and its first chunk's carried state is zeros,
+    which get none either.  0 for the other families."""
+    cfg = get_config(arch, **smoke_overrides(arch))
+    if cfg.family not in ("ssm", "hybrid"):
+        return 0.0
+    kind, T, batch = SHORT[name]
+    T = 1 if kind == "decode" else T
+    rows, tp = batch // mesh_shape["data"], mesh_shape["model"]
+    passes = 4 if cfg.remat != "none" else 3
+    d, H = cfg.d_model, cfg.n_heads
+    if cfg.family == "hybrid":
+        R = cfg.lru_width or d
+        groups, rest = divmod(cfg.n_layers, 3)
+        per_layer = 2.0 * T * (3 * d * R + 2 * R * R)
+        n = 2 * groups + min(rest, 2)        # (rec, rec, attn), then trailing
+        if kind == "train":
+            return (1 - 1 / tp) * rows * per_layer * (
+                passes * 2 * groups + 3 * min(rest, 2))
+        return (1 - 1 / tp) * rows * per_layer * n
+    dh = d // H
+    if kind == "decode":
+        m_core, m_end, m_init = H * (2 * dh + 2 * dh * dh), 0.0, 0.0
+    else:
+        L = min(128, T)
+        m_core = T // L * H * (6 * L * L * dh + 2 * L * dh * dh + 2 * L * dh)
+        m_end = H * (2 * L * dh * dh + 2 * L * dh)   # a chunk's end state
+        m_core += (T // L - 1) * m_end
+        m_init = H * 2 * L * dh * dh             # chunk 0's carried state
+    mlstm = 2.0 * T * d * (5 * d + 2 * H) + m_core + m_end
+    slstm = 2.0 * T * d * (3 * d + 2 * H) + 2.0 * T * H * dh * (dh + 2)
+    fwd = 7 * mlstm + slstm
+    if kind == "train":
+        fwd = passes * fwd - 7 * (2 * m_end + m_init)
+    return (1 - 1 / tp) * rows * (cfg.n_layers // 8) * fwd
+
+
+@pytest.mark.parametrize("arch,name", CELLS)
+def test_dry_run_cell_against_the_reference_build_cell(
+        reference_cells, short_shapes, fake_group, arch, name):
+    ref = reference_cells[f"{arch}:{name}"]
+    rec = dryrun.trace_cell(arch, name, fake_group,
+                            {"cfg_overrides": smoke_overrides(arch)})
+    mesh_shape = dict(zip(("data", "model"), MESH))
+    gap = stacked_moment_gap(arch, mesh_shape) if name == "train_t" else 0
+    assert rec["memory"]["argument_size_in_bytes"] == ref["args"] + gap
+    assert sum(rec["memory"]["argument_bytes_by_input"]) == \
+        rec["memory"]["argument_size_in_bytes"]
+    got = rec["cost"]["flops"]
+    assert rec["hlo_cost"]["flops"] == got
+    # within 5% once each term is taken out: the reference's XLA
+    # attention computes every (query, key) pair and the flash kernel the
+    # causal ones, a few percent at T 16; the port's mesh decode runs
+    # cross-attention over every head (``cross_decode_term``) and the
+    # recurrent mixers whole over ``model`` (``recurrent_mixer_term``)
+    term = recurrent_mixer_term(arch, name, mesh_shape)
+    if name == "decode_t":
+        term += cross_decode_term(arch, mesh_shape)
+    assert got - term == pytest.approx(ref["flops"], rel=0.05)
+
+
+# ================================================ (d) run_cell and the CLI
+def test_reference_run_cell_fails_on_jax_0_9(reference_cells):
+    """Shown, not fixed: the reference's production mesh has Explicit
+    axes on jax 0.9.0 (``jax.make_mesh``'s default), and its
+    ``with_sharding_constraint`` refers only to Auto axes."""
+    rec = reference_cells["run_cell"]
+    assert rec["status"] == "FAIL"
+    assert "with_sharding_constraint can only refer to Auto axes" \
+        in rec["error"]
+
+
+REF_KEYS = {"arch", "shape", "mesh", "tag", "opts", "params",
+            "active_params", "status", "cost", "memory", "collectives",
+            "hlo_cost", "n_devices"}
+
+
+def test_cli_writes_an_ok_record_and_a_skip(tmp_path, monkeypatch):
+    """The CLI on the (16, 16) production mesh, at SMOKE widths (its
+    configs swapped for the SMOKE ones) and a short shape."""
+    monkeypatch.setitem(port_common.SHAPES, "train_t",
+                        ShapeCfg("train_t", "train", 16, 16))
+    monkeypatch.setattr(dryrun, "get_config", lambda arch, **kw: get_config(
+        arch, smoke=True, **kw))
+    dryrun.main(["--arch", "phi3-mini-3.8b", "--shape", "train_t",
+                 "--out", str(tmp_path)])
+    dryrun.main(["--arch", "qwen2.5-3b", "--shape", "long_500k",
+                 "--out", str(tmp_path)])
+    assert not dist.is_initialized()
+    ok = json.loads((tmp_path / "phi3-mini-3.8b__train_t__pod16x16.json")
+                    .read_text())
+    assert ok["status"] == "OK", ok.get("traceback")
+    assert REF_KEYS <= set(ok) and "trace_s" in ok
+    assert ok["attention"] == "kernel" and ok["n_devices"] == 256
+    assert set(ok["memory"]) >= {"argument_size_in_bytes",
+                                 "output_size_in_bytes",
+                                 "alias_size_in_bytes", "temp_size_in_bytes"}
+    assert set(ok["hlo_cost"]) >= {"flops", "bytes", "transcendentals",
+                                   "collective_bytes", "wire_bytes"}
+    assert ok["cost"]["flops"] > 0 and ok["hlo_cost"]["wire_bytes"] > 0
+    # the moments updated in place are the outputs' aliases
+    assert ok["memory"]["alias_size_in_bytes"] > 0
+    skip = json.loads((tmp_path / "qwen2.5-3b__long_500k__pod16x16.json")
+                      .read_text())
+    assert skip["status"] == "SKIP"
+    assert "full-attention" in skip["reason"]
+    assert skip["params"] == get_config("qwen2.5-3b", smoke=True).param_count()

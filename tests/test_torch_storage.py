@@ -1,7 +1,8 @@
 """The port's copies of the storage stack against the reference.
 
 The port may not import ``repro``, so it carries whole copies of the
-jax-free storage modules its spill tier needs (``core/``, ``volume/``), of
+jax-free storage modules its spill tier needs (``core/``, with the
+virtual-time simulator ``core/sim.py``, and ``volume/``), of
 ``serve/kvpager.py``, of the training data pipeline (``data/``), of the
 checkpoints' block store (``ckpt/blockstore.py``) and of the cluster
 volume under it (``cluster/``).  A copy is the reference's text with the
@@ -20,7 +21,7 @@ import repro_torch.volume.volume as port_volume
 SRC = Path(__file__).resolve().parents[1] / "src"
 COPIES = ([f"core/{m}.py" for m in ("__init__", "bio", "btt", "cache",
                                      "device", "metrics", "pmem",
-                                     "policies", "transit")]
+                                     "policies", "sim", "transit")]
           + [f"volume/{m}.py" for m in ("__init__", "admission", "aio",
                                          "autotune", "evict_pool", "journal",
                                          "qos", "read_tier", "volume")]
