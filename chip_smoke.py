@@ -193,17 +193,28 @@ Phases, each ending in ``torch.cuda.synchronize()``:
             rtol 1e-4, parameters within ``ROW_TOL["bf16"]`` row by row,
             2 flash launches a step.
 21. dry run — after phase 20's process group is closed: the port's dry
-            run (``launch/dryrun.py``) of two production cells at full
+            run (``launch/dryrun.py``) of five production cells at full
             width, each on a fake process group that ``run_cell`` opens
-            and closes (phi3-mini-3.8b ``train_4k`` on (16, 16) and
-            moonshot-v1-16b-a3b ``decode_32k`` on (2, 16, 16)), every
-            record ``status: OK``, printing per device the counted FLOPs,
-            bytes, wire bytes, arguments and temporaries; then phase 17's
+            and closes (phi3-mini-3.8b ``train_4k`` on (16, 16),
+            moonshot-v1-16b-a3b ``decode_32k`` on (2, 16, 16), and on
+            (16, 16) recurrentgemma-9b ``train_4k``, xlstm-1.3b
+            ``decode_32k`` and llama-3.2-vision-11b ``decode_32k``, whose
+            recurrent mixers or decode cross-attention run split over
+            ``model``), every record ``status: OK``, printing per device
+            the counted FLOPs (beside ``dryrun_terms``: what still runs
+            whole over ``model`` and what ran whole before the split),
+            bytes, wire bytes, arguments, temporaries and the trace's
+            seconds; then phase 17's
             step traced on fake tensors at one device: the counted bytes
             of the parameters and AdamW state equal those phase 17 held
             on the card, and the counted peak and FLOPs are printed
             beside phase 17's measured peak and its bound's products.
             Nothing of it runs on the card.
+22. examples — every ``examples/<name>_torch.py`` but ``train_e2e``
+            once, each as a subprocess (``examples_phase``), its exit
+            code and seconds printed, a non-zero exit a failure;
+            ``serve_paged_torch.py`` on the card with the spill tier,
+            its flash, paged and both codec kernels' launches counted.
 
 In phases 10-16 every self-attention over a prompt and every
 cross-attention runs the flash kernel (one launch a layer), every decode
@@ -3403,7 +3414,60 @@ def mesh_train(torch, np) -> dict:
 # machine has its own torch, whose fake backend, DTensor and fake tensors
 # must trace them), and phase 17's step traced at world size 1 against
 # what phase 17 held and measured on the card
-DRYRUN_CELLS = [(PHI3, "train_4k", False), (MOONSHOT, "decode_32k", True)]
+DRYRUN_CELLS = [(PHI3, "train_4k", False), (MOONSHOT, "decode_32k", True),
+                (RGEMMA, "train_4k", False), (XLSTM, "decode_32k", False),
+                (VISION, "decode_32k", False)]
+
+
+def dryrun_terms(arch: str, shape_name: str, mesh_shape: dict) -> dict:
+    """FLOPs per device, from the config, of the work that ran whole over
+    ``model`` before the recurrent mixers and the decode's
+    cross-attention were split over it (``removed``) and of what still
+    runs whole (``kept``: the sLSTM's recurrence, 2 T H dh (dh + 2) a
+    batch row), each (tp - 1) / tp of it past the reference's partition
+    on a rank; ``tests/test_torch_dryrun.py`` holds the kept term at
+    SMOKE widths.  The removed terms: the mLSTM's products, 2 T d (5 d +
+    2 H), and its per-head core; the sLSTM's, 2 T d (3 d + 2 H), and its
+    recurrence; the RG-LRU's, 2 T (3 d R + 2 R^2); the decode's
+    cross-attention, 4 hd a query head and key.  A train step runs a
+    layer 4 times under remat (3 outside it)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import SHAPES
+    cfg, shape = get_config(arch), SHAPES[shape_name]
+    T = 1 if shape.kind == "decode" else shape.seq
+    tp = mesh_shape["model"]
+    rows = shape.batch // math.prod(n for k, n in mesh_shape.items()
+                                    if k != "model")
+    share = (1 - 1 / tp) * rows
+    d, H = cfg.d_model, cfg.n_heads
+    passes = 4 if shape.kind == "train" and cfg.remat != "none" else 1
+    kept = removed = 0.0
+    if cfg.family == "ssm":
+        dh = d // H
+        rec = 2.0 * T * H * dh * (dh + 2)
+        kept = share * (cfg.n_layers // 8) * passes * rec
+        if shape.kind == "decode":
+            core = H * (2 * dh + 2 * dh * dh)
+        else:
+            L = min(128, T)
+            core = T // L * H * (6 * L * L * dh + 2 * L * dh * dh + 2 * L * dh)
+            core += T // L * H * (2 * L * dh * dh + 2 * L * dh)
+        mlstm = 2.0 * T * d * (5 * d + 2 * H) + core
+        slstm = 2.0 * T * d * (3 * d + 2 * H) + rec
+        removed = share * (cfg.n_layers // 8) * passes * (7 * mlstm + slstm)
+    elif cfg.family == "hybrid":
+        R = cfg.lru_width or d
+        groups, rest = divmod(cfg.n_layers, 3)
+        per = 2.0 * T * (3 * d * R + 2 * R * R)
+        n = (passes * 2 * groups + 3 * min(rest, 2) if shape.kind == "train"
+             else 2 * groups + min(rest, 2))
+        removed = share * per * n
+    elif cfg.family in ("encdec", "vlm") and shape.kind == "decode":
+        n_cross = cfg.n_layers if cfg.family == "encdec" \
+            else cfg.n_layers // cfg.cross_every
+        s_x = cfg.enc_seq if cfg.family == "encdec" else cfg.n_img_tokens
+        removed = share * 4.0 * cfg.hd * H * s_x * n_cross
+    return {"kept": kept, "removed": removed}
 
 
 def dryrun_phase(torch, train: dict) -> dict:
@@ -3438,6 +3502,17 @@ def dryrun_phase(torch, train: dict) -> dict:
             res["cells"][cell] = {k: rec[k] for k in (
                 "status", "trace_s", "n_devices", "cost", "memory",
                 "collectives", "hlo_cost", "attention")}
+            terms = dryrun_terms(arch, shape, dict(zip(
+                ("pod", "data", "model")[-len(rec["mesh"].split("x")):],
+                map(int, rec["mesh"][len("pod"):].split("x")))))
+            res["cells"][cell]["terms"] = terms
+            if terms["kept"] or terms["removed"]:
+                log(f"dry run {cell}: {hc['flops'] / 1e12:.4f} TFLOP "
+                    f"counted; whole over model, by the config's "
+                    f"formulas: kept {terms['kept'] / 1e12:.4f} TFLOP (the "
+                    f"sLSTM's recurrence), removed "
+                    f"{terms['removed'] / 1e12:.4f} TFLOP (the mixers' or "
+                    f"the decode cross-attention's work, now split)")
             log(f"dry run {cell} (counted, per device of "
                 f"{rec['n_devices']}): {hc['flops'] / 1e12:.3f} TFLOP, "
                 f"{hc['bytes'] / 1e9:.2f} GB moved, "
@@ -3477,6 +3552,72 @@ def dryrun_phase(torch, train: dict) -> dict:
         f"{bound_flops / 1e12:.2f} TFLOP of products; "
         f"{hc['bytes'] / 1e9:.1f} GB moved, {hc['ops']} ops; traced in "
         f"{rec['trace_s']} s")
+    return res
+
+
+# phase 22: every ported example once, each a subprocess from a fresh
+# directory; serve_paged_torch.py on the card with the spill tier, so
+# that a page-out and a page-in both run the codec, its kernels' launches
+# counted in that process
+EXAMPLES = ("quickstart", "crash_recovery", "multi_tenant_volume",
+            "async_qd", "autotune_phase_change", "limping_shard",
+            "cluster_quickstart", "serve_paged")
+SERVE_EXAMPLE_ARGS = ("--spill-volume", "--host-pages", "1",
+                      "--suspend-every", "3")
+_COUNTED_RUN = """
+import json, runpy, sys
+from repro_torch.kernels import _build
+sys.argv = sys.argv[1:]
+_build.reset_launch_counts()
+runpy.run_path(sys.argv[0], run_name="__main__")
+print("launches " + json.dumps(_build.launch_counts()))
+"""
+
+
+def examples_phase() -> dict:
+    """Each of ``EXAMPLES`` (``examples/<name>_torch.py``) run once as a
+    subprocess under a 300 s limit: its exit code and seconds printed, a
+    non-zero exit a failure.  ``serve_paged_torch.py`` runs on the
+    card's default device with ``SERVE_EXAMPLE_ARGS``: its ``[serve]``
+    line must say cuda, and flash, paged attention and both codec
+    kernels must have launched."""
+    import os
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = {"examples": {}, "launches": {}}
+    for name in EXAMPLES:
+        path = ROOT / "examples" / f"{name}_torch.py"
+        cmd = [sys.executable, str(path)]
+        if name == "serve_paged":
+            cmd = [sys.executable, "-c", _COUNTED_RUN, str(path),
+                   *SERVE_EXAMPLE_ARGS]
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ex_") as cwd:
+            t0 = time.perf_counter()
+            run = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True,
+                                 text=True, timeout=300)
+            dt = time.perf_counter() - t0
+        log(f"example {name}_torch.py: exit {run.returncode} in {dt:.2f} s")
+        check(run.returncode == 0, f"example {name}_torch.py exited "
+              f"{run.returncode}:\n{run.stdout[-2000:]}\n{run.stderr[-3000:]}")
+        lines = run.stdout.splitlines()
+        res["examples"][name] = {"exit": run.returncode,
+                                 "seconds": round(dt, 2)}
+        if name != "serve_paged":
+            continue
+        counts = json.loads(next(ln for ln in lines
+                                 if ln.startswith("launches "))[9:])
+        serve = next(ln for ln in lines if ln.startswith("[serve]"))
+        log(f"example serve_paged_torch.py: {serve}; launches {counts}")
+        check(" on cuda" in serve, f"serve_paged_torch.py: {serve}")
+        got = kernel_launches(counts)
+        for k in ("paged_attention", "gather_quantize_crc",
+                  "scatter_dequantize_crc"):
+            check(got.get(k, 0) > 0, f"serve_paged_torch.py: {k} never "
+                  f"launched ({counts})")
+        check(counts.get("flash_attention", 0) > 0, f"serve_paged_torch.py:"
+              f" flash attention never launched ({counts})")
+        res["launches"] = counts
+        res["serve_line"] = serve
     return res
 
 
@@ -3552,6 +3693,7 @@ def main() -> int:
     paths["mesh_train"] = mesh_train(torch, np)
     close_mesh()
     paths["dryrun"] = dryrun_phase(torch, paths["train"])
+    paths["examples"] = examples_phase()
     parity = parity_smoke(torch, np)
     model_parity = parity_models(torch, np)
     train_parity = parity_train(torch, np)

@@ -127,6 +127,12 @@ def _unstack(like, arrays: dict | None, device, placements=None,
             return [build(v, parts, index + (i,),
                           None if pl is None else pl[i])
                     for i, v in enumerate(x)]
+        if isinstance(x, np.ndarray) and mesh is None:
+            # a numpy leaf of ``like`` comes back as a host numpy array
+            if arrays is None:
+                return np.empty(x.shape, x.dtype)
+            return np.array(np.asarray(arrays["/".join(parts)])[index],
+                            dtype=x.dtype)
         proto = torch.as_tensor(x)
         dev = proto.device if device is None else device
         if arrays is None:
@@ -262,7 +268,7 @@ class CheckpointEngine:
         layout (a bf16 leaf a host ``torch.bfloat16`` tensor).  ``like``:
         a tree of the port's giving the structure and dtypes; its leaves
         come back on ``device`` (None: each on its ``like`` leaf's
-        device).  ``placements`` (a tree in ``like``'s structure of
+        device), a numpy leaf's as a numpy array.  ``placements`` (a tree in ``like``'s structure of
         placement tuples, None for a leaf to keep whole) and ``mesh``:
         the leaves come back as DTensors of those placements, on rank 0
         while every other rank calls ``receive_restore``.

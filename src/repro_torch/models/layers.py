@@ -12,8 +12,10 @@ sequence where the heads do not divide: the reference's
 ``sharded_attention``), ``mesh_decode_attend`` over an S-sharded cache
 (the write on the shard that owns the slot, the paged kernel over each
 shard's slots, the shards merged by log-sum-exp) and ``moe_apply``
-(experts over ``model``, ZeRO-3 gathers over ``data``).  With no mesh
-every function is the single-device path.
+(experts over ``model``, ZeRO-3 gathers over ``data``).  The recurrent
+mixers' sharded bodies are ``local_map`` regions too, with the
+collectives of ``ModelShard``.  With no mesh every function is the
+single-device path.
 
 Parameter layout follows the reference, so converted JAX parameters drop
 in unchanged:
@@ -330,22 +332,32 @@ def _pl(ctx, spec, partial: tuple = ()):
     return pl
 
 
-def _local(fn, ctx, in_specs, out_specs, grad_partial=None):
+def _local(fn, ctx, in_specs, out_specs, grad_partial=None,
+           out_partial: tuple = ()):
     """``local_map`` of ``fn`` over ``ctx.mesh``: the DTensor inputs
     redistributed to ``in_specs`` (None for an input that is no DTensor),
-    the outputs of ``out_specs`` (a list for several).  ``grad_partial``:
+    the outputs of ``out_specs`` (a list for several; the first a partial
+    sum over the mesh axes named in ``out_partial``).  ``grad_partial``:
     per input, the mesh axes over which its gradient is a partial sum (an
-    input whole there whose ranks each use a part of it)."""
-    gp = None
-    if grad_partial is not None:
-        gp = tuple(_pl(ctx, s, part) for s, part in zip(in_specs,
-                                                          grad_partial))
-    outs = (tuple(_pl(ctx, s) for s in out_specs)
-            if isinstance(out_specs, list) else _pl(ctx, out_specs))
-    return local_map(fn, out_placements=outs,
-                     in_placements=tuple(_pl(ctx, s) for s in in_specs),
-                     in_grad_placements=gp, device_mesh=ctx.mesh,
-                     redistribute_inputs=True)
+    input whole there whose ranks each use a part of it).  An input that
+    is None passes as None."""
+    if isinstance(out_specs, list):
+        outs = tuple(_pl(ctx, s, out_partial if i == 0 else ())
+                     for i, s in enumerate(out_specs))
+    else:
+        outs = _pl(ctx, out_specs, out_partial)
+
+    def call(*args):
+        specs = [None if a is None else s for a, s in zip(args, in_specs)]
+        gp = None
+        if grad_partial is not None:
+            gp = tuple(_pl(ctx, s, part) for s, part in zip(specs,
+                                                              grad_partial))
+        return local_map(fn, out_placements=outs,
+                         in_placements=tuple(_pl(ctx, s) for s in specs),
+                         in_grad_placements=gp, device_mesh=ctx.mesh,
+                         redistribute_inputs=True)(*args)
+    return call
 
 
 def heads(t, n: int, hd: int, ctx=None):
@@ -357,6 +369,20 @@ def heads(t, n: int, hd: int, ctx=None):
     if on_mesh(ctx) and ctx.model_axis and n % ctx.size(ctx.model_axis):
         t = constrain(t, ctx, act_spec(ctx))
     return t.reshape(B, T, n, hd)
+
+
+def head_split(H: int, Hkv: int, ctx):
+    """This rank's kv heads where the H query heads divide the model axis
+    and K/V stay whole over it: (first kv head, count) of those its H / tp
+    query heads read, a whole number of kv heads or one kv head for
+    several ranks; None where neither holds."""
+    ax, tp = ctx.model_axis, ctx.size(ctx.model_axis)
+    if not ax or H % tp:
+        return None
+    H_l, n_rep = H // tp, H // Hkv
+    if H_l % n_rep and n_rep % H_l:
+        return None
+    return ctx.rank(ax) * H_l // n_rep, max(1, H_l // n_rep)
 
 
 def mesh_attention(q, k, v, ctx, *, causal: bool = True, window: int = 0):
@@ -376,7 +402,6 @@ def mesh_attention(q, k, v, ctx, *, causal: bool = True, window: int = 0):
     ax, tp, b = ctx.model_axis, ctx.size(ctx.model_axis), _bspec(ctx)
     B, T, H, hd = q.shape
     Hkv = k.shape[2]
-    n_rep = H // Hkv
     whole = (b, None, None, None)
     by_head = (b, None, ax, None)
     r = ctx.rank(ax)
@@ -388,11 +413,11 @@ def mesh_attention(q, k, v, ctx, *, causal: bool = True, window: int = 0):
                                window=window, q_offset=q_offset)
 
     if ax and H % tp == 0:
-        H_l = H // tp
         if Hkv % tp == 0:
             return _local(flash, ctx, (by_head,) * 3, by_head)(q, k, v)
-        if H_l % n_rep == 0 or n_rep % H_l == 0:
-            lo, n_kv = r * H_l // n_rep, max(1, H_l // n_rep)
+        split = head_split(H, Hkv, ctx)
+        if split is not None:
+            lo, n_kv = split
             return _local(lambda q_l, k_l, v_l: flash(
                 q_l, k_l[:, :, lo:lo + n_kv], v_l[:, :, lo:lo + n_kv]),
                 ctx, (by_head, whole, whole), by_head,
@@ -416,9 +441,11 @@ def _tmap(fn, tree):
 
 def whole_over_model(fn, ctx, x, p, *rest):
     """``fn(x, p, *rest)`` on each rank's local tensors, with its batch
-    rows and every parameter whole: the recurrent mixers (the mLSTM's
-    chunkwise form, the sLSTM's and the RG-LRU's scans, the causal conv),
-    whose reshapes and scans DTensor has no sharding rules for.  ``x`` and
+    rows and every parameter whole: a recurrent mixer on a mesh whose
+    model axis does not divide its channels (the RG-LRU's R, the xLSTM's
+    head width) or that has no model axis; where it divides, the mixer
+    runs split over ``model`` (``models/rglru.py`` ``rec_mixer_mesh``,
+    ``models/xlstm.py`` ``mlstm_mesh`` and ``slstm_mesh``).  ``x`` and
     the tensors of ``rest`` (states, or None) have the batch first and go
     to the activations' spec; the parameters of ``p`` go whole over the
     mesh (an all-gather of those sharded over ``model``), their gradient a
@@ -441,6 +468,71 @@ def whole_over_model(fn, ctx, x, p, *rest):
     return _tmap(lambda t: DTensor.from_local(
         t, mesh, placements(act_spec(ctx, t.dim()), mesh),
         run_check=False), out)
+
+
+# the autograd all-gather (torch 2.13 renames it)
+_GATHER = getattr(funcol, "all_gather_single_autograd", None) or \
+    funcol.all_gather_tensor_autograd
+
+
+class _SumOverModel(torch.autograd.Function):
+    """Each rank's partial sum over ``group``, whole on every rank.  Each
+    rank's use of the sum is its own part of the loss, so the gradient is
+    summed the same way."""
+
+    @staticmethod
+    def forward(ctx_, x, group):
+        ctx_.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx_, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx_.group)
+        return g, None
+
+
+@dataclass(frozen=True)
+class ModelShard:
+    """Inside a ``local_map`` region, this rank's place on the model axis
+    and its collectives there, with gradients: the recurrent mixers'
+    sharded bodies (``models/rglru.py``, ``models/xlstm.py``)."""
+    rank: int
+    size: int
+    group: object
+
+    def cols(self, n: int) -> slice:
+        """This rank's contiguous n / size of n channels."""
+        w = n // self.size
+        return slice(self.rank * w, (self.rank + 1) * w)
+
+    def gather(self, t, dim: int = -1):
+        """Every rank's ``t`` concatenated along ``dim`` in rank order (an
+        all-gather; its gradient a reduce-scatter)."""
+        t = t.movedim(dim, 0).contiguous()
+        return _GATHER(t, 0, self.group).movedim(0, dim)
+
+    def sum(self, *ts):
+        """The partial sums ``ts``, each summed over the ranks: one
+        all-reduce for all of them."""
+        flat = _SumOverModel.apply(torch.cat([t.reshape(-1) for t in ts]),
+                                   self.group)
+        return tuple(f.view_as(t) for f, t in zip(
+            flat.split_with_sizes([t.numel() for t in ts]), ts))
+
+
+def model_shard(ctx, n: int) -> ModelShard | None:
+    """The ``ModelShard`` of this rank where the mesh has a model axis and
+    it divides n, else None."""
+    if not on_mesh(ctx) or not ctx.model_axis:
+        return None
+    tp = ctx.size(ctx.model_axis)
+    if n % tp:
+        return None
+    return ModelShard(ctx.rank(ctx.model_axis), tp,
+                      ctx.group(ctx.model_axis))
 
 
 def fill_cache_shard(kv, k, v, positions, T: int, n: int, S: int, ctx) -> None:

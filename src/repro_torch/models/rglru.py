@@ -27,7 +27,9 @@ slots of a row being 0..min(pos, W - 1).  The decode step writes the new
 state IN PLACE and returns it.
 
 On a mesh (``ctx``) the parameters are DTensors: the recurrent mixer
-runs in ``layers.whole_over_model``, the attention in
+runs sharded over its channels (``rec_mixer_mesh``; whole on every rank
+of ``model``, ``layers.whole_over_model``, where R does not divide it),
+the attention in
 ``layers.mesh_attention`` and, in decode, ``layers.mesh_decode_attend``
 over the ring sharded on W; the state is a tree of DTensors of
 ``parallel.sharding.cache_spec_tree``'s placements.
@@ -42,12 +44,14 @@ import torch.nn.functional as F
 from repro_torch.kernels.ops import flash_attention
 from repro_torch.parallel.sharding import cache_spec_tree, distribute_tree
 from .common import ModelConfig, remat
-from .layers import (_normal, act_spec, attn_init, check_decode_positions,
+from .layers import (_local, _normal, act_spec, attn_init,
+                     check_decode_positions,
                      constrain, decode_pages, decode_update_and_attend,
                      embed, fill_cache_shard, init_norm, mesh_attention,
                      mesh_decode, mesh_decode_attend, mlp_apply, mlp_init,
-                     on_mesh, out_proj, prompt_positions, qkv_proj, rms_norm,
-                     rope, token_nll, whole_over_model)
+                     model_shard, ModelShard, on_mesh, out_proj,
+                     prompt_positions, qkv_proj, rms_norm, rope, token_nll,
+                     whole_over_model)
 
 PATTERN = ("rec", "rec", "attn")
 GROUP_KEYS = ("rec1", "rec2", "attn")    # a group's layers, by PATTERN
@@ -112,11 +116,14 @@ def linear_scan(a, b):
     return b
 
 
-def rg_lru(y, p, h0=None):
-    """y: (B,T,R) conv output. Returns (out (B,T,R) f32, h_last (B,R))."""
+def rg_lru(y, p, h0=None, y_in=None):
+    """y: (B,T,R) conv output. Returns (out (B,T,R) f32, h_last (B,R)).
+    ``y_in``: what the r and i gates' products read (default y); on a mesh
+    y is this rank's channels and ``y_in`` all of them."""
     y32 = y.float()
-    r = torch.sigmoid(y @ p["w_r"]).float()
-    i = torch.sigmoid(y @ p["w_i"]).float()
+    y_in = y if y_in is None else y_in
+    r = torch.sigmoid(y_in @ p["w_r"]).float()
+    i = torch.sigmoid(y_in @ p["w_i"]).float()
     log_a = -_C * F.softplus(p["lam"]) * r                 # (B,T,R), <= 0
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * y32)
@@ -141,6 +148,41 @@ def rec_mixer_apply(x, p, cfg: ModelConfig, state=None):
     h, h_last = rg_lru(y, p, None if state is None else state["h"])
     out = (h * gate).to(cfg.dtype) @ p["w_out"]
     return out, {"h": h_last, "tail": new_tail.to(cfg.dtype)}
+
+
+def rec_mixer_mesh(x, p, cfg: ModelConfig, state, ctx, sh: ModelShard):
+    """``rec_mixer_apply`` on a mesh, sharded over the channel axis R as
+    the reference's rules lay it out: each rank computes its R / tp
+    channels.  ``w_gate``, ``w_x``, ``conv_w``, ``w_r`` and ``w_i`` are
+    column-parallel, ``conv_b`` and ``lam`` whole (each rank takes its
+    slice), ``w_out`` row-parallel; the r and i gates read the conv output
+    whole over R (one all-gather).  The state's h and tail stay sharded
+    on R.  The output is a partial sum over ``model``, reduced at the
+    residual."""
+    ax, b = ctx.model_axis, act_spec(ctx)[0]
+    cols = sh.cols(cfg.lru_width or cfg.d_model)
+    dp = tuple(ctx.batch_axes)
+
+    def f(x_l, ln, w_gate, w_x, conv_w, conv_b, w_r, w_i, lam, w_out, h0,
+          tail):
+        xn = rms_norm(x_l, ln)
+        gate = F.gelu((xn @ w_gate).float(), approximate="tanh")
+        y, new_tail = _causal_conv(xn @ w_x, conv_w, conv_b[cols], tail)
+        h, h_last = rg_lru(y, {"w_r": w_r, "w_i": w_i, "lam": lam[cols]},
+                           h0, sh.gather(y))
+        return ((h * gate).to(cfg.dtype) @ w_out, h_last,
+                new_tail.to(cfg.dtype))
+
+    st = state or {"h": None, "tail": None}
+    col, whole, rep = (None, ax), (None,), (ax,) + dp
+    return _local(
+        f, ctx, ((b, None, None), whole, col, col, col, whole, col, col,
+                 whole, (ax, None), (b, ax), (b, None, ax)),
+        [(b, None, None), (b, ax), (b, None, ax)],
+        grad_partial=((ax,), rep, dp, dp, dp, rep, dp, dp, rep, dp, (),
+                      ()), out_partial=(ax,))(
+        x, p["ln"]["scale"], p["w_gate"], p["w_x"], p["conv_w"], p["conv_b"],
+        p["w_r"], p["w_i"], p["lam"], p["w_out"], st["h"], st["tail"])
 
 
 def attn_mixer_apply(x, p, cfg: ModelConfig, positions, cache=None,
@@ -173,7 +215,11 @@ def rg_layer_apply(x, p, kind, cfg, positions, state=None, slot=None,
                    pages=None, ctx=None):
     """-> (x, the recurrent layer's new state, or the attention layer's
     new keys and values)."""
-    if kind == "rec" and on_mesh(ctx):
+    sh = model_shard(ctx, cfg.lru_width or cfg.d_model)
+    if kind == "rec" and sh is not None:
+        out, h, tail = rec_mixer_mesh(x, p["rec"], cfg, state, ctx, sh)
+        mix, new = out, {"h": h, "tail": tail}
+    elif kind == "rec" and on_mesh(ctx):
         mix, new = whole_over_model(lambda x_, p_, st_: rec_mixer_apply(
             x_, p_, cfg, st_), ctx, x, p["rec"], state)
     elif kind == "rec":

@@ -49,7 +49,7 @@ from .common import ModelConfig, remat
 from repro_torch.parallel.sharding import cache_spec_tree, distribute_tree
 from .layers import (_local, act_spec, apply_norm, attn_init, embed,
                      check_decode_positions, constrain, decode_pages,
-                     fill_cache_shard,
+                     fill_cache_shard, head_split,
                      decode_update_and_attend, decode_attention, init_norm,
                      mesh_attention, mesh_decode, mesh_decode_attend,
                      mlp_apply, mlp_init, moe_apply, moe_init, on_mesh,
@@ -106,7 +106,11 @@ def cross_attention(x, p, cfg: ModelConfig, *, xk, xv, pages=None,
                     ctx=None):
     """Full attention of x over xk/xv: the flash kernel (non-causal, any
     T against S), or the paged kernel through ``pages`` in decode (on a
-    mesh, the pages of this rank's batch rows)."""
+    mesh, the pages of this rank's batch rows).  The mesh decode's cache
+    is whole over ``model`` (``cache_spec_tree``): each rank runs the
+    kernel on its query heads and the kv heads they read, sliced from
+    the cache with no collective (``layers.head_split``); where the heads
+    do not divide the axis, every rank runs every head."""
     B, T, _ = x.shape
     q = heads(x @ p["wq"], cfg.n_heads, cfg.hd, ctx)
     if not on_mesh(ctx):
@@ -116,9 +120,14 @@ def cross_attention(x, p, cfg: ModelConfig, *, xk, xv, pages=None,
         out = mesh_attention(q, xk, xv, ctx, causal=False)
     else:
         whole = act_spec(ctx, 4)
+        split = head_split(cfg.n_heads, cfg.n_kv_heads, ctx)
+        lo, n_kv = split or (0, cfg.n_kv_heads)
+        by_head = (whole if split is None
+                   else whole[:2] + (ctx.model_axis, None))
         out = _local(lambda q_l, k_l, v_l: decode_attention(
-            q_l.contiguous(), k_l, v_l, pages), ctx, (whole,) * 3,
-            whole)(q, xk, xv)
+            q_l.contiguous(), k_l[:, :, lo:lo + n_kv].contiguous(),
+            v_l[:, :, lo:lo + n_kv].contiguous(), pages), ctx,
+            (by_head, whole, whole), by_head)(q, xk, xv)
     return out_proj(out, p, ctx)
 
 
@@ -458,8 +467,13 @@ def lm_decode_step(params, cache, token, pos, cfg: ModelConfig, ctx=None):
     if cfg.family in ("encdec", "vlm"):
         crosses = _cross_caches(cache)
         S_x = cache["cross_k"].shape[2]
+        # on a mesh, the query heads of this rank over its kv heads
+        split = head_split(cfg.n_heads, cfg.n_kv_heads, ctx) \
+            if on_mesh(ctx) else None
+        x_rep = n_rep if split is None else \
+            cfg.n_heads // ctx.size(ctx.model_axis) // split[1]
         xpages = decode_pages(torch.full((B_rows,), S_x, device=dev), S_x,
-                              n_rep)
+                              x_rep)
     for (blk, has_cross), kv in zip(_blocks(params, cfg),
                                     _self_caches(cache, cfg)):
         xk, xv = next(crosses) if has_cross else (None, None)

@@ -17,11 +17,14 @@ the sLSTM is a loop over time.  Both are plain PyTorch: the reference runs
 them outside any Pallas kernel.  The decode step writes the new state into
 the state it was given, IN PLACE, and returns it.
 
-On a mesh (``ctx``) the parameters are DTensors, the projections around
-the mixers run under DTensor's propagation, and each mixer runs in
-``layers.whole_over_model`` (its batch rows, its parameters whole); the
-decode state is a tree of DTensors of
-``parallel.sharding.cache_spec_tree``'s placements.
+On a mesh (``ctx``) the parameters are DTensors and each mixer runs
+split over ``model`` in a ``local_map`` region (``mlstm_mesh``,
+``slstm_mesh``: the reference's column- and row-parallel products, the
+mLSTM's state split on its value and key channels as
+``parallel.sharding.cache_spec_tree`` places it, the sLSTM's recurrence
+whole), or in ``layers.whole_over_model`` where the model axis does not
+divide the head width; the decode state is a tree of DTensors of
+``cache_spec_tree``'s placements.
 """
 from __future__ import annotations
 
@@ -32,7 +35,8 @@ import torch.nn.functional as F
 
 from repro_torch.parallel.sharding import cache_spec_tree
 from .common import ModelConfig, remat
-from .layers import (_normal, act_spec, constrain, embed, init_norm, on_mesh,
+from .layers import (ModelShard, _local, _normal, act_spec, constrain,
+                     embed, init_norm, model_shard, on_mesh,
                      prompt_positions, rms_norm, token_nll,
                      whole_over_model)
 
@@ -89,8 +93,16 @@ def slstm_state(cfg: ModelConfig, B: int, device="cuda", lead=()) -> dict:
             "m": torch.full((*lead, B, H), NEG, **z)}
 
 
-def _mlstm_step(state, q, k, v, ipre, fpre):
-    """One recurrence step. q/k/v: (B,H,dh) f32; ipre/fpre: (B,H)."""
+def _whole(*ts):
+    """The partial sums of a rank that holds every channel: themselves."""
+    return ts
+
+
+def _mlstm_step(state, q, k, v, ipre, fpre, ks=slice(None), psum=_whole):
+    """One recurrence step. q/k/v: (B,H,dh) f32; ipre/fpre: (B,H).  On a
+    mesh v and C's rows are this rank's value channels, n its key
+    channels ``ks``, and ``psum`` sums the normaliser's dot over the
+    ranks."""
     C, n, m = state["C"], state["n"], state["m"]
     logf = F.logsigmoid(fpre)
     m_new = torch.maximum(logf + m, ipre)
@@ -98,14 +110,15 @@ def _mlstm_step(state, q, k, v, ipre, fpre):
     f_g = torch.exp(logf + m - m_new)
     C_new = f_g[..., None, None] * C + \
         i_g[..., None, None] * (v[..., :, None] * k[..., None, :])
-    n_new = f_g[..., None] * n + i_g[..., None] * k
-    denom = torch.maximum(torch.einsum("bhd,bhd->bh", n_new, q).abs(),
-                          torch.exp(-m_new))
+    n_new = f_g[..., None] * n + i_g[..., None] * k[..., ks]
+    dot, = psum(torch.einsum("bhd,bhd->bh", n_new, q[..., ks]))
+    denom = torch.maximum(dot.abs(), torch.exp(-m_new))
     h = torch.einsum("bhde,bhe->bhd", C_new, q) / denom[..., None]
     return {"C": C_new, "n": n_new, "m": m_new}, h
 
 
-def mlstm_chunkwise(q, k, v, ipre, fpre, s0, *, chunk: int):
+def mlstm_chunkwise(q, k, v, ipre, fpre, s0, *, chunk: int,
+                    ks=slice(None), psum=_whole):
     """Chunkwise-parallel mLSTM, the reference's form: one state carried
     per chunk, the intra-chunk work as einsums, the same stabiliser M and
     the same chunk-end state.  The reference's einsums take bf16 operands
@@ -113,7 +126,10 @@ def mlstm_chunkwise(q, k, v, ipre, fpre, s0, *, chunk: int):
     bf16 value exactly.
 
     q/k/v: (B,T,H,dh);  ipre/fpre: (B,T,H) f32;  s0: {C,n,m}.
-    Returns (h (B,T,H,dh) f32, final state)."""
+    Returns (h (B,T,H,dh) f32, final state).  On a mesh v, C's rows and
+    h are this rank's value channels, n its key channels ``ks``; the
+    scores and the normaliser's dots are summed over the ranks from
+    their key channels (``psum``, one all-reduce a chunk)."""
     B, T, H, dh = q.shape
     L = min(chunk, T)
     assert T % L == 0, (T, L)
@@ -138,15 +154,16 @@ def mlstm_chunkwise(q, k, v, ipre, fpre, s0, *, chunk: int):
         inter_w = torch.exp(m_in[..., None] - M)            # (B,H,L)
         D = torch.exp(g[..., None, :] - M[..., :, None])    # (B,H,Lq,Ls)
         D = torch.where(causal, D, 0.0)
-        scores = torch.einsum("bhld,bhsd->bhls", qb, kb)
+        qk, kk = qb[..., ks], kb[..., ks]
+        n_j = inter_w[..., None] * n_in[:, :, None, :] + \
+            torch.einsum("bhls,bhsd->bhld", D, kk)
+        scores, dot = psum(torch.einsum("bhld,bhsd->bhls", qk, kk),
+                           torch.einsum("bhld,bhld->bhl", qk, n_j))
         intra = torch.einsum("bhls,bhsd->bhld", scores * D, vb)
         h_num = inter_w[..., None] * torch.einsum(
             "bhde,bhle->bhld", C_in, qb) + intra
-        n_j = inter_w[..., None] * n_in[:, :, None, :] + \
-            torch.einsum("bhls,bhsd->bhld", D, kb)
         m_j = F_ + M
-        denom = torch.maximum(torch.einsum("bhld,bhld->bhl", qb, n_j).abs(),
-                              torch.exp(-m_j))
+        denom = torch.maximum(dot.abs(), torch.exp(-m_j))
         hs.append(h_num / denom[..., None])
         # ---- chunk-end state ----------------------------------------
         M_L, F_L = M[..., -1], F_[..., -1]
@@ -154,11 +171,29 @@ def mlstm_chunkwise(q, k, v, ipre, fpre, s0, *, chunk: int):
         decay = torch.exp(m_in - M_L)
         C_in = decay[..., None, None] * C_in + \
             torch.einsum("bhs,bhsd,bhse->bhde", w, vb, kb)
-        n_in = decay[..., None] * n_in + torch.einsum("bhs,bhsd->bhd", w, kb)
+        n_in = decay[..., None] * n_in + torch.einsum("bhs,bhsd->bhd", w, kk)
         m_in = F_L + M_L
     # (nc,B,H,L,dh) -> (B,T,H,dh)
-    h = torch.stack(hs).permute(1, 0, 3, 2, 4).reshape(B, T, H, dh)
+    h = torch.stack(hs).permute(1, 0, 3, 2, 4).reshape(B, T, H, -1)
     return h, {"C": C_in, "n": n_in, "m": m_in}
+
+
+def mlstm_core(q, k, v, ipre, fpre, s, chunk: int, ks=slice(None),
+               psum=_whole):
+    """The recurrence over q/k/v (B,T,H,dh) from the state ``s``: T > 1
+    takes the chunkwise form where T is a multiple of min(chunk, T), else
+    the step recurrence.  -> (h (B,T,H,dh) f32, the final state)."""
+    T = q.shape[1]
+    if T > 1 and T % min(chunk, T) == 0:
+        return mlstm_chunkwise(q, k, v, ipre, fpre, s, chunk=min(chunk, T),
+                               ks=ks, psum=psum)
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    hs = []
+    for t in range(T):
+        s, ht = _mlstm_step(s, q32[:, t], k32[:, t], v32[:, t], ipre[:, t],
+                            fpre[:, t], ks, psum)
+        hs.append(ht)
+    return torch.stack(hs, dim=1), s
 
 
 def mlstm_apply(x, p, cfg: ModelConfig, state=None, chunk: int = 128):
@@ -179,19 +214,68 @@ def mlstm_apply(x, p, cfg: ModelConfig, state=None, chunk: int = 128):
     gates = xn.float() @ p["wif"] + p["bif"]
     ipre, fpre = gates[..., :H], gates[..., H:]
     s = state if state is not None else mlstm_state(cfg, B, x.device)
-
-    if T > 1 and T % min(chunk, T) == 0:
-        h, s = mlstm_chunkwise(q, k, v, ipre, fpre, s, chunk=min(chunk, T))
-    else:
-        q32, k32, v32 = q.float(), k.float(), v.float()
-        hs = []
-        for t in range(T):
-            s, ht = _mlstm_step(s, q32[:, t], k32[:, t], v32[:, t],
-                                ipre[:, t], fpre[:, t])
-            hs.append(ht)
-        h = torch.stack(hs, dim=1)
+    h, s = mlstm_core(q, k, v, ipre, fpre, s, chunk)
     out = (h.reshape(B, T, D).to(cfg.dtype) * og) @ p["wout"]
     return out, s
+
+
+def _dims(x, cfg: ModelConfig, sh: ModelShard):
+    B, T, D = x.shape
+    H = cfg.n_heads
+    return B, T, D, H, D // H, sh.cols(D // H)
+
+
+def mlstm_mesh(x, p, cfg: ModelConfig, state, ctx, sh: ModelShard,
+               chunk: int = 128):
+    """``mlstm_apply`` on a mesh, split over ``model`` as the reference's
+    rules lay it out: ``wq``, ``wk``, ``wv``, ``wog`` (and ``wif`` where
+    2H divides the axis) column-parallel, ``wout`` row-parallel.  Each
+    rank holds, of every head, its dh / tp value channels (C's rows, as
+    ``cache_spec_tree`` shards the state) and its dh / tp key channels
+    (n's): q and k are gathered whole (C's columns and its query read
+    every key channel), v is sliced to this rank's value channels, and
+    the scores and the normaliser's dots are summed over the ranks from
+    each one's key channels.  No product runs whole.  h is gathered back
+    to the flat axis, where ``og`` and ``wout`` take this rank's rows;
+    the output is a partial sum over ``model``.  The stabiliser m is held
+    whole on every rank."""
+    ax, b = ctx.model_axis, act_spec(ctx)[0]
+    H = cfg.n_heads
+    wif_col = 2 * H % sh.size == 0 and 2 * H >= sh.size
+    dp = tuple(ctx.batch_axes)
+
+    def f(x_l, ln, wq, wk, wv, wog, wif, bif, wout, C, n, m):
+        B, T, D, H, dh, ks = _dims(x_l, cfg, sh)
+        xn = rms_norm(x_l, ln)
+        scale = torch.tensor(1.0 / math.sqrt(dh), dtype=cfg.dtype,
+                             device=x_l.device)
+        q = sh.gather(xn @ wq).reshape(B, T, H, dh) * scale
+        k = sh.gather(xn @ wk).reshape(B, T, H, dh) * scale
+        v = sh.gather(xn @ wv).reshape(B, T, H, dh)[..., ks]
+        og = torch.sigmoid((xn @ wog).float()).to(cfg.dtype)
+        gates = xn.float() @ wif
+        gates = (sh.gather(gates) if wif_col else gates) + bif
+        if C is None:
+            z = dict(dtype=torch.float32, device=x_l.device)
+            C = torch.zeros((B, H, dh // sh.size, dh), **z)
+            n = torch.zeros((B, H, dh // sh.size), **z)
+            m = torch.full((B, H), NEG, **z)
+        h, s = mlstm_core(q, k, v, gates[..., :H], gates[..., H:],
+                          {"C": C, "n": n, "m": m}, chunk, ks, sh.sum)
+        h = sh.gather(h.to(cfg.dtype)).reshape(B, T, D)[..., sh.cols(D)]
+        return (h * og) @ wout, s["C"], s["n"], s["m"]
+
+    st = state or {"C": None, "n": None, "m": None}
+    col, whole, rep = (None, ax), (None,), (ax,) + dp
+    return _local(
+        f, ctx, ((b, None, None), whole, col, col, col, col,
+                 col if wif_col else (None, None), whole, (ax, None),
+                 (b, None, ax, None), (b, None, ax), (b, None)),
+        [(b, None, None), (b, None, ax, None), (b, None, ax), (b, None)],
+        grad_partial=((ax,), rep, dp, dp, dp, dp, dp if wif_col else rep,
+                      rep, dp, (), (), ()), out_partial=(ax,))(
+        x, p["ln"]["scale"], p["wq"], p["wk"], p["wv"], p["wog"], p["wif"],
+        p["bif"], p["wout"], st["C"], st["n"], st["m"])
 
 
 def slstm_apply(x, p, cfg: ModelConfig, state=None):
@@ -206,6 +290,15 @@ def slstm_apply(x, p, cfg: ModelConfig, state=None):
     i_in = xn.float() @ p["wi"]
     f_in = xn.float() @ p["wf"] + p["bf"]
     s = state if state is not None else slstm_state(cfg, B, x.device)
+    hs, s = slstm_scan(z_in, o_in, i_in, f_in, p, s)
+    return hs.reshape(B, T, D).to(cfg.dtype) @ p["wout"], s
+
+
+def slstm_scan(z_in, o_in, i_in, f_in, p, s):
+    """The sLSTM's recurrence from the state ``s``, one step a token:
+    z_in/o_in (B,T,H,dh) f32, i_in/f_in (B,T,H) -> (h (B,T,H,dh), the
+    final state)."""
+    T, dh = z_in.shape[1], z_in.shape[-1]
     # (H, dh, dh + 2): rz, ri, rf side by side
     rec = torch.cat([p["rz"].float(), p["ri"], p["rf"]], dim=-1)
     c, n, h, m = s["c"], s["n"], s["h"], s["m"]
@@ -224,8 +317,56 @@ def slstm_apply(x, p, cfg: ModelConfig, state=None):
         h = torch.sigmoid(o_in[:, t]) * (c / torch.clamp(n, min=1e-6))
         m = m_new
         hs.append(h)
-    out = torch.stack(hs, dim=1).reshape(B, T, D).to(cfg.dtype) @ p["wout"]
-    return out, {"c": c, "n": n, "h": h, "m": m}
+    return torch.stack(hs, dim=1), {"c": c, "n": n, "h": h, "m": m}
+
+
+def slstm_mesh(x, p, cfg: ModelConfig, state, ctx, sh: ModelShard):
+    """``slstm_apply`` on a mesh: ``wz`` (and ``wi``/``wf`` where H
+    divides the axis) column-parallel and gathered whole, ``wo``
+    row-parallel (the reference's rules take it for an out-projection)
+    and summed over the ranks, ``wout`` row-parallel on this rank's rows
+    of h.  The recurrence
+    through ``rz``, which the reference's rules keep whole
+    (``parallel/sharding.py``'s ``_REPL_KEYS``), runs whole on every rank
+    of ``model``, its state gathered whole; the state goes back to
+    ``cache_spec_tree``'s shards where it is kept.  The output is a
+    partial sum over ``model``."""
+    ax, b = ctx.model_axis, act_spec(ctx)[0]
+    H = cfg.n_heads
+    gate_col = H % sh.size == 0 and H >= sh.size
+    dp = tuple(ctx.batch_axes)
+
+    def f(x_l, ln, wz, wo, wi, wf, rz, ri, rf, bf, wout, c, n, h, m):
+        B, T, D, H, dh, _ = _dims(x_l, cfg, sh)
+        xn = rms_norm(x_l, ln)
+        z_in = sh.gather(xn @ wz).reshape(B, T, H, dh).float()
+        o_in, = sh.sum(xn[..., sh.cols(D)] @ wo)
+        o_in = o_in.reshape(B, T, H, dh).float()
+        i_in, f_in = xn.float() @ wi, xn.float() @ wf
+        if gate_col:
+            i_in, f_in = sh.gather(i_in), sh.gather(f_in)
+        s = ({"c": c, "n": n, "h": h, "m": m} if c is not None
+             else slstm_state(cfg, B, x_l.device))
+        hs, s = slstm_scan(z_in, o_in, i_in, f_in + bf,
+                           {"rz": rz, "ri": ri, "rf": rf}, s)
+        hs = hs.reshape(B, T, D)[..., sh.cols(D)].to(cfg.dtype)
+        return hs @ wout, s["c"], s["n"], s["h"], s["m"]
+
+    st = state or {"c": None, "n": None, "h": None, "m": None}
+    col, rep = (None, ax), (ax,) + dp
+    gate = col if gate_col else (None, None)
+    whole3, state4 = (None,) * 3, (b, None, None)
+    return _local(
+        f, ctx, ((b, None, None), (None,), col, (ax, None), gate, gate,
+                 whole3, whole3, whole3, (None,), (ax, None), state4,
+                 state4, state4, (b, None)),
+        [(b, None, None), state4, state4, state4, (b, None)],
+        grad_partial=((ax,), rep, dp, dp, dp if gate_col else rep,
+                      dp if gate_col else rep, rep, rep, rep, rep, dp, (),
+                      (), (), ()), out_partial=(ax,))(
+        x, p["ln"]["scale"], p["wz"], p["wo"], p["wi"], p["wf"], p["rz"],
+        p["ri"], p["rf"], p["bf"], p["wout"], st["c"], st["n"], st["h"],
+        st["m"])
 
 
 # ------------------------------------------------------------- full model
@@ -261,12 +402,23 @@ def _on_cache_spec(st: dict, ctx) -> dict:
                    for k, v in st[part].items()} for part in st}
 
 
-def _mixer(fn, cfg: ModelConfig, ctx):
-    """``fn(x, p, cfg, state=...)``, on a mesh in ``whole_over_model``."""
+def _mixer(fn, mesh_fn, keys: tuple, cfg: ModelConfig, ctx):
+    """``fn(x, p, cfg, state=...)``; on a mesh whose model axis divides
+    the head width ``mesh_fn``, split over it (its new state's tensors
+    those of ``keys``, in order), else ``fn`` in ``whole_over_model``.
+    -> (out, new state)."""
     if not on_mesh(ctx):
         return lambda x, p, state=None: fn(x, p, cfg, state=state)
-    return lambda x, p, state=None: whole_over_model(
-        lambda x_, p_, st_: fn(x_, p_, cfg, state=st_), ctx, x, p, state)
+    sh = model_shard(ctx, cfg.d_model // cfg.n_heads)
+    if sh is None:
+        return lambda x, p, state=None: whole_over_model(
+            lambda x_, p_, st_: fn(x_, p_, cfg, state=st_), ctx, x, p, state)
+
+    def run(x, p, state=None):
+        out, *new = mesh_fn(x, p, cfg, state, ctx, sh)
+        # the partial sums reduced before the residual
+        return constrain(out, ctx, act_spec(ctx)), dict(zip(keys, new))
+    return run
 
 
 def _backbone(params, x, cfg: ModelConfig, state=None, collect=False,
@@ -276,7 +428,8 @@ def _backbone(params, x, cfg: ModelConfig, state=None, collect=False,
     ``collect``: return the final states, stacked in the reference's
     layout."""
 
-    mlstm, slstm = _mixer(mlstm_apply, cfg, ctx), _mixer(slstm_apply, cfg, ctx)
+    mlstm = _mixer(mlstm_apply, mlstm_mesh, ("C", "n", "m"), cfg, ctx)
+    slstm = _mixer(slstm_apply, slstm_mesh, ("c", "n", "h", "m"), cfg, ctx)
 
     def group(h, grp, st):
         ms = []

@@ -135,7 +135,10 @@ class PagedLM:
 
 
 class AsyncRequestLog:
-    """Durable request log riding a striped volume's async frontend.
+    """Durable request log riding a striped volume's async frontend, or a
+    cluster's (``cluster.make_cluster``: each record chain-replicated to
+    its chunk's members, an oversized record refused by the cluster's
+    chunk-bounded atomic write).
 
     Each retired request is one JSON record (a 4-byte little-endian
     length, then the text, padded to whole blocks), appended as a

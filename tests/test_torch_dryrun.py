@@ -18,6 +18,9 @@ on the CPU, against the reference.
       prefill and a decode cell at short shapes added to both packages'
       ``SHAPES`` (with pytest's monkeypatch here): argument bytes equal
       and FLOPs within the tolerances stated beside each term below;
+      the collectives' payloads per kind and the temporaries within the
+      tolerances stated after the terms read from the reference's HLO
+      (``scripts/reference_cells.py``);
   (d) the reference's own ``run_cell`` failing on jax 0.9.0 (its
       production mesh's Explicit axes; shown, not fixed), and the port's
       CLI writing an OK record with the reference's keys and a SKIP for a
@@ -291,37 +294,38 @@ CELLS = [(arch, name) for arch in ARCHS for name in SHORT]
 def reference_cells(tmp_path_factory):
     """The reference's ``build_cell`` for every cell on a (2, 4) mesh of
     forced host devices with Auto axes, lowered and compiled: argument
-    bytes from ``memory_analysis`` (``jax.jit`` with ``keep_unused=True``,
-    so an argument the step does not read, as the encoder's weights in a
-    decode, is counted as the port holds it) and ``HloCost``'s FLOPs.
-    Then its own ``run_cell``, which builds its production mesh."""
+    and temporary bytes from ``memory_analysis`` (``jax.jit`` with
+    ``keep_unused=True``, so an argument the step does not read, as the
+    encoder's weights in a decode, is counted as the port holds it),
+    ``HloCost``'s FLOPs and collectives, its all-reduce bytes at the
+    program's width and the bytes of the whole weights it gathers
+    (``scripts/reference_cells.py``'s ``compile_cell``).  Each cell again
+    in f32 (``{cell}:f32``).  Then its own ``run_cell``, which builds its
+    production mesh."""
     out = tmp_path_factory.mktemp("ref") / "cells.json"
     code = "import os\nos.environ['XLA_FLAGS'] = " \
         "'--xla_force_host_platform_device_count=8'\n" + textwrap.dedent(f"""
-    import functools, json, tempfile
-    import jax
-    from jax.sharding import AxisType
-    jax.jit = functools.partial(jax.jit, keep_unused=True)
+    import json, sys, tempfile
+    import jax.numpy as jnp
+    sys.path.insert(0, {str(ROOT / "scripts")!r})
+    from reference_cells import auto_mesh, compile_cell, keep_unused
+    keep_unused()
     from repro.launch import dryrun
-    from repro.launch.hlo_cost import HloCost
     from repro.models import SHAPES
     from repro.models.common import ShapeCfg
     for name, (kind, seq, batch) in {SHORT!r}.items():
         SHAPES[name] = ShapeCfg(name, kind, seq, batch)
-    mesh = jax.make_mesh({MESH!r}, ("data", "model"),
-                         axis_types=(AxisType.Auto,) * 2)
+    mesh = auto_mesh({MESH!r}, ("data", "model"))
     res = {{}}
     from repro.models.common import MoECfg
 
     def ref_overrides(ov):
         return dict(ov, moe=MoECfg(**ov["moe"])) if ov.get("moe") else ov
     for arch, name, ov in {[(a, n, _plain(smoke_overrides(a))) for a, n in CELLS]!r}:
-        fn, args = dryrun.build_cell(arch, name, mesh,
-                                     {{"cfg_overrides": ref_overrides(ov)}})
-        c = fn.lower(*args).compile()
-        res[arch + ":" + name] = {{
-            "args": c.memory_analysis().argument_size_in_bytes,
-            "flops": HloCost(c.as_text()).totals()["flops"]}}
+        ov = ref_overrides(ov)
+        res[arch + ":" + name] = compile_cell(arch, name, mesh, ov)
+        res[arch + ":" + name + ":f32"] = compile_cell(
+            arch, name, mesh, dict(ov, dtype=jnp.float32))
     # its production mesh (16, 16) shards a batch of 16 over ``data``
     SHAPES["decode_p"] = ShapeCfg("decode_p", "decode", 16, 16)
     ov = {_plain(smoke_overrides("internlm2-1.8b"))!r}
@@ -363,80 +367,34 @@ def stacked_moment_gap(arch: str, mesh_shape: dict) -> int:
     return sum(gap)
 
 
-def cross_decode_term(arch: str, mesh_shape: dict) -> float:
-    """FLOPs the port's mesh decode spends past the reference's on
-    cross-attention: its cache is whole over ``model``, so each rank runs
-    the paged kernel over every head (4 hd a head and key) where the
-    reference's partition splits the heads.  0 for the other families."""
-    cfg = get_config(arch, **smoke_overrides(arch))
-    if cfg.family not in ("encdec", "vlm"):
-        return 0.0
-    kind, seq, batch = SHORT["decode_t"]
-    n_cross = cfg.n_layers if cfg.family == "encdec" \
-        else cfg.n_layers // cfg.cross_every
-    s_x = cfg.enc_seq if cfg.family == "encdec" else cfg.n_img_tokens
-    tp = mesh_shape["model"]
-    return 4.0 * cfg.hd * cfg.n_heads * (batch // mesh_shape["data"]) * s_x \
-        * n_cross * (1 - 1 / tp)
-
-
 def recurrent_mixer_term(arch: str, name: str, mesh_shape: dict) -> float:
-    """FLOPs the port's mesh step spends past the reference's on the
-    recurrent mixers: each runs whole on every rank of ``model``
-    (``layers.whole_over_model``) where the reference's partition splits
-    it, so rank 0 counts (tp - 1) / tp of their products more.  Their
-    products, a batch row of T tokens (T 1 in a decode):
-
-      * mLSTM: q, k, v, the output gate and the out-projection (5 d^2)
-        and the input and forget gates (2 d H), 2 T d (5 d + 2 H); in a
-        prompt, per chunk of L and head, the scores, the weighted values
-        and the normaliser's keys (6 L^2 dh), the carried state's query
-        (2 L dh^2) and the normaliser's dot (2 L dh), and the chunk-end
-        state (2 L dh^2 + 2 L dh); in a decode step, per head, the
-        normaliser's dot (2 dh) and the state's query (2 dh^2);
-      * sLSTM: z, o and the out-projection (3 d^2) and the gates (2 d H),
-        2 T d (3 d + 2 H), and the recurrence, 2 T H dh (dh + 2);
-      * RG-LRU: the gate and input projections, its r and i gates and the
-        out-projection, 2 T (3 d R + 2 R^2); the conv and the scan are
-        elementwise.
-
-    A train step runs a layer's products 4 times under remat (forward,
-    recompute, two gradients) and 3 times outside it (recurrentgemma's
-    trailing layers).  The mLSTM's last chunk-end state reaches no loss
-    and gets no gradient, and its first chunk's carried state is zeros,
-    which get none either.  0 for the other families."""
+    """FLOPs the port's mesh step spends past the reference's on what its
+    recurrent mixers still run whole over ``model``: the sLSTM's
+    recurrence, h (B, H, dh) against ``rz``, ``ri`` and ``rf`` side by
+    side, 2 T H dh (dh + 2) a batch row (T 1 in a decode).  The reference
+    keeps those weights whole (``parallel/sharding.py``'s ``_REPL_KEYS``)
+    and its partition splits each step's product over the state's dh
+    shards, summing it with an all-reduce a step; the port runs the
+    recurrence whole on every rank of ``model`` from its inputs gathered
+    once (``models/xlstm.py`` ``slstm_mesh``), so rank 0 counts
+    (tp - 1) / tp of it more.  A train step runs it 4 times under remat
+    (forward, recompute, the gradients of h and of the weights).  The
+    mLSTM's and the RG-LRU's products all run split over ``model``
+    (``mlstm_mesh``, ``models/rglru.py`` ``rec_mixer_mesh``), and so does
+    the mesh decode's cross-attention (``models/transformer.py``
+    ``cross_attention``): they leave no term.  0 for the other
+    families."""
     cfg = get_config(arch, **smoke_overrides(arch))
-    if cfg.family not in ("ssm", "hybrid"):
+    if cfg.family != "ssm":
         return 0.0
     kind, T, batch = SHORT[name]
     T = 1 if kind == "decode" else T
     rows, tp = batch // mesh_shape["data"], mesh_shape["model"]
-    passes = 4 if cfg.remat != "none" else 3
-    d, H = cfg.d_model, cfg.n_heads
-    if cfg.family == "hybrid":
-        R = cfg.lru_width or d
-        groups, rest = divmod(cfg.n_layers, 3)
-        per_layer = 2.0 * T * (3 * d * R + 2 * R * R)
-        n = 2 * groups + min(rest, 2)        # (rec, rec, attn), then trailing
-        if kind == "train":
-            return (1 - 1 / tp) * rows * per_layer * (
-                passes * 2 * groups + 3 * min(rest, 2))
-        return (1 - 1 / tp) * rows * per_layer * n
-    dh = d // H
-    if kind == "decode":
-        m_core, m_end, m_init = H * (2 * dh + 2 * dh * dh), 0.0, 0.0
-    else:
-        L = min(128, T)
-        m_core = T // L * H * (6 * L * L * dh + 2 * L * dh * dh + 2 * L * dh)
-        m_end = H * (2 * L * dh * dh + 2 * L * dh)   # a chunk's end state
-        m_core += (T // L - 1) * m_end
-        m_init = H * 2 * L * dh * dh             # chunk 0's carried state
-    mlstm = 2.0 * T * d * (5 * d + 2 * H) + m_core + m_end
-    slstm = 2.0 * T * d * (3 * d + 2 * H) + 2.0 * T * H * dh * (dh + 2)
-    fwd = 7 * mlstm + slstm
-    if kind == "train":
-        fwd = passes * fwd - 7 * (2 * m_end + m_init)
-    return (1 - 1 / tp) * rows * (cfg.n_layers // 8) * fwd
+    H = cfg.n_heads
+    dh = cfg.d_model // H
+    passes = 4 if kind == "train" and cfg.remat != "none" else 1
+    per_layer = 2.0 * T * H * dh * (dh + 2)
+    return (1 - 1 / tp) * rows * (cfg.n_layers // 8) * passes * per_layer
 
 
 @pytest.mark.parametrize("arch,name", CELLS)
@@ -452,15 +410,93 @@ def test_dry_run_cell_against_the_reference_build_cell(
         rec["memory"]["argument_size_in_bytes"]
     got = rec["cost"]["flops"]
     assert rec["hlo_cost"]["flops"] == got
-    # within 5% once each term is taken out: the reference's XLA
+    # within 5% once the term is taken out: the reference's XLA
     # attention computes every (query, key) pair and the flash kernel the
-    # causal ones, a few percent at T 16; the port's mesh decode runs
-    # cross-attention over every head (``cross_decode_term``) and the
-    # recurrent mixers whole over ``model`` (``recurrent_mixer_term``)
+    # causal ones, a few percent at T 16; the port runs the sLSTM's
+    # recurrence whole over ``model`` (``recurrent_mixer_term``)
     term = recurrent_mixer_term(arch, name, mesh_shape)
-    if name == "decode_t":
-        term += cross_decode_term(arch, mesh_shape)
     assert got - term == pytest.approx(ref["flops"], rel=0.05)
+
+
+REDUCE = ("all-reduce", "reduce-scatter")
+MOVE = ("all-gather", "all-to-all", "collective-permute")
+# the port's temporaries against the reference's, bf16 cells: from 0.42
+# (llama-3.2-vision prefill) to 1.80 (xlstm train) at this change.  The
+# port's are eager's peak of live storage, each op's output held until
+# it is freed; the reference's XLA's buffer assignment after fusion, with
+# the CPU compile's f32 copies of bf16 values
+TEMP_FACTOR = 2.5
+
+
+def _bytes(colls: dict, kinds) -> float:
+    return sum(colls.get(k, {}).get("bytes", 0) for k in kinds)
+
+
+@pytest.mark.parametrize("arch,name", CELLS)
+def test_dry_run_collectives_and_temporaries_against_the_reference(
+        reference_cells, short_shapes, fake_group, arch, name):
+    """The collectives' payloads and the temporaries against the
+    reference's ``build_cell``.
+
+    * The dtype: the reference's program reduces bf16 partial sums in
+      bf16; XLA's CPU compiler promotes each such all-reduce to f32 (its
+      reducer ``*_promoted``), so its bf16 cells count twice their bytes,
+      and its f32 cells promote nothing.  The port reduces in the
+      program's dtype, and its bf16 all-reduces are no wider than the
+      reference's at the program's width (the term
+      ``ref["collectives"] - ref["program_all_reduce"]``).
+    * Per kind, on the f32 cells (no widths changed by the compiler),
+      all-reduce with reduce-scatter and all-gather with all-to-all and
+      collective-permute (the port, as DTensor, makes no all-to-all and
+      no permute where XLA moves shards with them):
+      the reductions (all-reduce, reduce-scatter) are at most the
+      reference's plus the whole weights XLA gathered (``weight_gathers``:
+      where XLA gathers a layer's weights and computes replicated, the
+      port reduces the products' partial sums), and at least half the
+      reference's (0.60, xlstm's train step, at this change: the port's
+      sLSTM runs its recurrence whole from one gather where the
+      reference reduces each step);
+      the data movement (all-gather, all-to-all, collective-permute),
+      the reference's without its weight gathers, within a factor of
+      2.5 either way (0.49, qwen2.5-3b's prefill, to 1.94, internlm2's
+      train step, at this change: DTensor gathers a column-parallel
+      product's gradient shards where XLA moves them with all-to-alls
+      and permutes, and XLA gathers activations where DTensor keeps them
+      sharded); and the total at most 1.15 x the reference's (at most
+      1.10 at this change).
+    * The temporaries (bf16 cells) within ``TEMP_FACTOR`` either way."""
+    ref, ref32 = reference_cells[f"{arch}:{name}"], \
+        reference_cells[f"{arch}:{name}:f32"]
+    ov = smoke_overrides(arch)
+    rec = dryrun.trace_cell(arch, name, fake_group, {"cfg_overrides": ov})
+    rec32 = dryrun.trace_cell(arch, name, fake_group, {
+        "cfg_overrides": dict(ov, dtype=torch.float32)})
+    got, got32 = rec["collectives"], rec32["collectives"]
+    # the dtype
+    promoted = ref["collectives"]["all-reduce"]["bytes"] - \
+        ref["program_all_reduce"]
+    assert promoted > 0
+    assert ref32["program_all_reduce"] == \
+        ref32["collectives"]["all-reduce"]["bytes"]
+    assert got["all-reduce"]["bytes"] < got32["all-reduce"]["bytes"]
+    # per kind, f32
+    wg = ref32["weight_gathers"]
+    ref_red, got_red = _bytes(ref32["collectives"], REDUCE), \
+        _bytes(got32, REDUCE)
+    ref_move = _bytes(ref32["collectives"], MOVE) - wg
+    got_move = _bytes(got32, MOVE)
+    print(f"{arch} {name}: reductions {got_red:.0f} against "
+          f"{ref_red:.0f} + weight gathers {wg:.0f}; movement "
+          f"{got_move:.0f} against {ref_move:.0f}; temporaries "
+          f"{rec['memory']['temp_size_in_bytes']} against {ref['temp']} "
+          f"(f32: {rec32['memory']['temp_size_in_bytes']} against "
+          f"{ref32['temp']})")
+    assert ref_red / 2 <= got_red <= 1.05 * (ref_red + wg)
+    assert ref_move / 2.5 <= got_move <= 2.5 * ref_move
+    assert got_red + got_move <= 1.15 * (ref_red + ref_move + wg)
+    # the temporaries
+    ratio = rec["memory"]["temp_size_in_bytes"] / ref["temp"]
+    assert 1 / TEMP_FACTOR <= ratio <= TEMP_FACTOR, ratio
 
 
 # ================================================ (d) run_cell and the CLI

@@ -3,7 +3,8 @@ neither JAX nor any module of the JAX package nor ``ml_dtypes``, no import
 statement of the port or of ``chip_smoke.py`` names any of them (not even
 one inside a function, which importing the module does not run), and
 neither calls PyTorch's fused attention or its compiler in place of a
-kernel of its own.
+kernel of its own.  The ported examples (``examples/*_torch.py``) name
+neither JAX nor the JAX package.
 ``chip_smoke.py`` names the fused attention in one function only, the one
 that times it as flash attention's ``library_ms``.  The entry points run
 on the card unless the caller asks for another device."""
@@ -12,6 +13,7 @@ import inspect
 import json
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -115,6 +117,17 @@ def test_no_import_of_jax_or_the_jax_package_at_any_depth(case):
             assert word not in source
         assert _forbidden_imports(source) == ["repro", "repro.kernels.ref",
                                               "jax", "ml_dtypes"]
+
+
+@pytest.mark.parametrize("path", sorted(
+    (ROOT / "examples").glob("*_torch.py")), ids=lambda p: p.name)
+def test_ported_examples_name_neither_jax_nor_the_jax_package(path):
+    """An example of the port imports neither JAX nor ``repro`` (nor
+    ``ml_dtypes``), and its text names neither as a word."""
+    source = path.read_text()
+    assert _forbidden_imports(source) == []
+    assert re.findall(r"\b(?:jax|repro)\b", source) == []
+    assert "repro_torch" in source
 
 
 def test_entry_points_default_to_the_card():

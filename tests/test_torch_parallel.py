@@ -53,6 +53,7 @@ ROW_TOL = 1e-4
 INTERNLM2, QWEN3_MOE = "internlm2-1.8b", "qwen3-moe-235b-a22b"
 DEEPSEEK, XLSTM, RGEMMA = ("deepseek-coder-33b", "xlstm-1.3b",
                            "recurrentgemma-9b")
+WHISPER, VISION = "whisper-large-v3", "llama-3.2-vision-11b"
 B, T = 4, 16
 
 
@@ -105,7 +106,55 @@ def _batch(cfg, seed: int = 0, b: int = B, t: int = T) -> dict:
 
 
 def _params(model):
-    return model.init(torch.Generator().manual_seed(0))
+    """Seed-0 parameters, every ``xgate`` at 0.5 (0 at init would leave
+    the cross-attention out of the output)."""
+    p = model.init(torch.Generator().manual_seed(0))
+
+    def gate(t):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                if k == "xgate":
+                    t[k] = torch.full_like(v, 0.5)
+                else:
+                    gate(v)
+        elif isinstance(t, list):
+            for v in t:
+                gate(v)
+    gate(p)
+    return p
+
+
+class _GradSpy(AdamW):
+    """AdamW that keeps, whole, the gradients each update is given."""
+
+    def update(self, grads, *a, **kw):
+        from repro_torch.parallel import full_tree
+        self.grads = full_tree(grads)
+        return super().update(grads, *a, **kw)
+
+
+def _decode(model, p, ctx=None, b: int = B, t: int = 6, n: int = 3):
+    """Greedy decode of n steps after a prompt of t tokens (with frames
+    or patches for the cross-attention families) -> the logits of the
+    prefill and of each step, whole."""
+    cfg = model.cfg
+    r = np.random.default_rng(1)
+    batch = {"tokens": r.integers(0, cfg.vocab, (b, t))}
+    if cfg.family == "encdec":
+        batch["frames"] = r.standard_normal(
+            (b, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    elif cfg.family == "vlm":
+        batch["image_embeds"] = r.standard_normal(
+            (b, cfg.n_img_tokens, cfg.d_model)).astype(np.float32)
+    whole = (lambda x: x.full_tensor()) if ctx is not None else \
+        (lambda x: x)
+    lg, cache = model.prefill(p, batch, s_max=t + n, ctx=ctx)
+    out = [whole(lg)]
+    for i in range(n):
+        lg, cache = model.decode_step(p, cache, out[-1].argmax(-1),
+                                      np.full(b, t + i), ctx=ctx)
+        out.append(whole(lg))
+    return torch.stack(out)
 
 
 def _leaves(tree):
@@ -128,6 +177,19 @@ def _assert_rows_close(got, exp, tol=ROW_TOL):
         err, size = (g - e).norm(dim=-1), e.norm(dim=-1)
         assert bool((err <= tol * size).all()), \
             float((err / size.clamp_min(1e-30)).max())
+
+
+def _assert_leaves_close(got, exp, tol=RTOL):
+    """Every leaf as one vector: ||got - exp|| <= tol ||exp||.  For
+    gradients, whose rows can be a single element near 0 (the sLSTM's
+    ``rf`` is (H, dh, 1)): summed from each rank's part on a mesh, such an
+    element keeps f32's absolute rounding but not its relative one."""
+    got, exp = _leaves(got), _leaves(exp)
+    assert len(got) == len(exp)
+    for g, e in zip(got, exp):
+        assert g.shape == e.shape
+        err = float((g.double() - e.double()).norm())
+        assert err <= tol * float(e.double().norm()), (tuple(e.shape), err)
 
 
 # ====================================================== (a) spec rules
@@ -371,12 +433,23 @@ def _model_worker(rank, world, rdv, out):
     lg, _ = model.prefill(p, {"tokens": _batch(model.cfg, t=15)["tokens"]},
                           ctx=ctx)
     res["seq_odd_prefill"] = lg.full_tensor()
-    # both recurrent families' forward on (2, 2)
+    # both recurrent families on (2, 2): the forward, a greedy decode
+    # after a prefill, and a train step's gradients
     for arch in (XLSTM, RGEMMA):
         model = build_model(_smoke(arch))
         ctx, p = on(model, mesh22)
-        res[f"fwd_{arch}"] = model.forward(p, _batch(model.cfg),
-                                           ctx=ctx).full_tensor()
+        batch = _batch(model.cfg)
+        res[f"fwd_{arch}"] = model.forward(p, batch, ctx=ctx).full_tensor()
+        res[f"dec_{arch}"] = _decode(model, p, ctx)
+        opt = _GradSpy()
+        _, _, m = make_train_step(model, opt, ctx=ctx)(p, opt.init(p), batch)
+        res[f"step_loss_{arch}"] = m["loss"]
+        res[f"grads_{arch}"] = opt.grads
+    # the cross-attention families' greedy decode on (2, 2)
+    for arch in (WHISPER, VISION):
+        model = build_model(_smoke(arch))
+        ctx, p = on(model, mesh22)
+        res[f"dec_{arch}"] = _decode(model, p, ctx)
     # internlm2's decode over a cache whose S is split 4 ways, (1, 4)
     model = build_model(_smoke(INTERNLM2))
     ctx, p = on(model, mesh14, 2)
@@ -445,9 +518,99 @@ def test_query_sharded_attention_equals_one_process(mesh_runs):
 
 @pytest.mark.parametrize("arch", [XLSTM, RGEMMA])
 def test_recurrent_forward_on_a_mesh_equals_one_process(mesh_runs, arch):
+    """The forward, a prefill and 3 decode steps (the state sharded on
+    its channels as ``cache_spec_tree`` places it), and one train step's
+    loss and gradients: the mixers split over ``model``.  The gradients
+    are held leaf by leaf (``_assert_leaves_close``): the sLSTM's
+    forget-gate gradients sum each rank's parts, which nearly cancel."""
+    from repro_torch.train import make_train_step
     model = build_model(_smoke(arch))
-    exp = model.forward(_params(model), _batch(model.cfg))
-    _assert_rows_close(mesh_runs[f"fwd_{arch}"], exp)
+    p, batch = _params(model), _batch(model.cfg)
+    _assert_rows_close(mesh_runs[f"fwd_{arch}"], model.forward(p, batch))
+    exp = _decode(model, p)
+    _assert_rows_close(mesh_runs[f"dec_{arch}"], exp)
+    assert torch.equal(mesh_runs[f"dec_{arch}"].argmax(-1), exp.argmax(-1))
+    opt = _GradSpy()
+    _, _, m = make_train_step(model, opt)(p, opt.init(p), batch)
+    np.testing.assert_allclose(float(mesh_runs[f"step_loss_{arch}"]),
+                               float(m["loss"]), rtol=RTOL)
+    _assert_leaves_close(mesh_runs[f"grads_{arch}"], opt.grads)
+
+
+@pytest.mark.parametrize("arch", [WHISPER, VISION])
+def test_cross_attention_decode_on_a_mesh_equals_one_process(mesh_runs,
+                                                             arch):
+    """The decode's cross-attention split by heads over ``model`` (its
+    cache whole there): the same logits and greedy tokens as one
+    process."""
+    model = build_model(_smoke(arch))
+    exp = _decode(model, _params(model))
+    _assert_rows_close(mesh_runs[f"dec_{arch}"], exp)
+    assert torch.equal(mesh_runs[f"dec_{arch}"].argmax(-1), exp.argmax(-1))
+
+
+def _mixer_flops(arch: str, fn_name: str, tp: int, on_mesh: bool) -> float:
+    """OpCost's FLOPs of one recurrent mixer over (2, 16, d), off a mesh
+    or on rank 0 of a fake (1, tp) mesh (nothing is computed: the
+    collectives of the ``fake`` backend move no bytes)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    import repro_torch.models.rglru as rg
+    import repro_torch.models.xlstm as xl
+    from repro_torch.launch.op_cost import OpCost
+    from repro_torch.models.layers import mesh_scope, model_shard
+    from repro_torch.parallel import distribute_tree, make_ctx, param_spec_tree
+    cfg = _smoke(arch)
+    p = _params(build_model(cfg))
+    p = p["tail0"]["rec"] if arch == RGEMMA else \
+        p["groups"][0]["m" if fn_name == "mlstm" else "s"]
+    if arch == XLSTM and fn_name == "mlstm":
+        p = p[0]
+    x = torch.randn(2, T, cfg.d_model)
+    off = {"rec": rg.rec_mixer_apply, "mlstm": xl.mlstm_apply,
+           "slstm": xl.slstm_apply}[fn_name]
+    if not on_mesh:
+        with OpCost() as c:
+            off(x, p, cfg)
+        return c.totals()["flops"]
+    mesh_fn = {"rec": rg.rec_mixer_mesh, "mlstm": xl.mlstm_mesh,
+               "slstm": xl.slstm_mesh}[fn_name]
+    dist.init_process_group("fake", rank=0, world_size=tp, store=FakeStore())
+    try:
+        mesh = init_device_mesh("cpu", (1, tp),
+                                mesh_dim_names=("data", "model"))
+        ctx = make_ctx(mesh, 2)
+        wide = cfg.lru_width or cfg.d_model if fn_name == "rec" \
+            else cfg.d_model // cfg.n_heads
+        sh = model_shard(ctx, wide)
+        assert sh is not None and sh.size == tp
+        p = distribute_tree({"p": p}, param_spec_tree({"p": p}, mesh),
+                            mesh)["p"]
+        with mesh_scope(ctx), OpCost() as c:
+            mesh_fn(x, p, cfg, None, ctx, sh)
+        return c.totals()["flops"]
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch,fn_name", [(RGEMMA, "rec"), (XLSTM, "mlstm"),
+                                          (XLSTM, "slstm")])
+def test_a_rank_computes_its_share_of_a_mixer(arch, fn_name):
+    """Rank 0 of a (1, 4) mesh counts 1/4 of the mixer's products off the
+    mesh.  The sLSTM also runs whole, on every rank, what the
+    reference's rules keep whole: its recurrence (2 T H dh (dh + 2) a
+    row) and its input and forget gates, whose (d, H) weights do not
+    split over 4 (2 T d 2H a row)."""
+    tp, cfg = 4, _smoke(arch)
+    off = _mixer_flops(arch, fn_name, tp, False)
+    got = _mixer_flops(arch, fn_name, tp, True)
+    whole = 0.0
+    if fn_name == "slstm":
+        d, H = cfg.d_model, cfg.n_heads
+        dh = d // H
+        assert H % tp
+        whole = 2 * (2.0 * T * H * dh * (dh + 2) + 2.0 * T * d * 2 * H)
+    assert got == pytest.approx((off - whole) / tp + whole, rel=1e-9)
 
 
 def test_decode_over_an_s_sharded_cache_equals_one_process(mesh_runs):

@@ -286,3 +286,33 @@ def test_autotune_step_of_a_real_volume_runs_every_n_ticks(volumes):
     assert vol.metrics.count["autotune_ticks"] == ticks // 3 > 0
     assert eng.metrics.count.get("autotune_moves", 0) == \
         vol.metrics.count.get("autotune_moves", 0)
+
+
+def test_async_request_log_over_cluster():
+    """``tests/test_cluster.py``'s case on the port's cluster: six records
+    appended and drained with no failure, both members of the first
+    record's chain holding the same bytes, and a record past the
+    cluster's chunk-bounded atomic write refused whole.  The port raises ``ValueError`` there, where the
+    reference's ``assert`` would vanish under ``python -O``."""
+    from repro_torch.cluster import make_cluster
+    cl = make_cluster(policy="caiti", n_lbas=256, aio_workers=2, n_nodes=4,
+                      replication_k=2, chunk_blocks=16, node_shards=2,
+                      stripe_blocks=4, journal_slots=8, journal_span=4)
+    try:
+        log = AsyncRequestLog(cl, base_lba=128, capacity_blocks=64)
+        for i in range(6):
+            log.append({"rid": i, "tokens": list(range(i))})
+        assert log.drain() == 0 and log.logged == 6
+        # records are chain-replicated: both members hold the first one
+        chain = cl._chain_for(128 // cl.cfg.chunk_blocks)
+        raws = [bytes(cl.nodes[ni].volume.read(128)) for ni in chain]
+        assert len(raws) == 2 and raws[0] == raws[1]
+        rec = json.loads(raws[0][4:4 + int.from_bytes(raws[0][:4],
+                                                       "little")])
+        assert rec == {"rid": 0, "tokens": []}
+        big = {"rid": 99, "pad": "x" * (cl.max_atomic_write_blocks()
+                                        * cl.block_size)}
+        with pytest.raises(ValueError, match="whole-object-atomic"):
+            log.append(big)
+    finally:
+        cl.close()
