@@ -3410,13 +3410,17 @@ def mesh_train(torch, np) -> dict:
 
 
 # ---------------------------------------------------- phase 21: the dry run
-# Two production cells at full width on fake process groups (the card's
+# Production cells at full width on fake process groups (the card's
 # machine has its own torch, whose fake backend, DTensor and fake tensors
 # must trace them), and phase 17's step traced at world size 1 against
-# what phase 17 held and measured on the card
+# what phase 17 held and measured on the card.  Each train cell's counted
+# arguments and temporaries must fit one card (``CARD_BYTES``): its loss
+# reduces over the vocab shards, where logits gathered whole over
+# ``model`` would not fit
 DRYRUN_CELLS = [(PHI3, "train_4k", False), (MOONSHOT, "decode_32k", True),
                 (RGEMMA, "train_4k", False), (XLSTM, "decode_32k", False),
-                (VISION, "decode_32k", False)]
+                (VISION, "decode_32k", False), (QWEN, "train_4k", False)]
+CARD_BYTES = 80e9
 
 
 def dryrun_terms(arch: str, shape_name: str, mesh_shape: dict) -> dict:
@@ -3472,8 +3476,9 @@ def dryrun_terms(arch: str, shape_name: str, mesh_shape: dict) -> dict:
 
 def dryrun_phase(torch, train: dict) -> dict:
     """(a) ``launch.dryrun.run_cell`` for each of ``DRYRUN_CELLS``: every
-    record ``status: OK``; prints per device the counted FLOPs, bytes,
-    wire bytes, argument and temporary bytes and the trace's seconds.
+    record ``status: OK``, a train cell's arguments + temporaries within
+    ``CARD_BYTES``; prints per device the counted FLOPs, bytes, wire
+    bytes, argument and temporary bytes and the trace's seconds.
     (b) ``trace_cell`` of phase 17's step (phi3-mini-3.8b FULL, 4 x 1024
     tokens, remat "dots", AdamW, one device) on fake tensors: the counted
     bytes of the parameters and the AdamW state must equal those phase 17
@@ -3523,6 +3528,15 @@ def dryrun_phase(torch, train: dict) -> dict:
                 f"{mem['output_size_in_bytes'] / 1e9:.3f} GB (aliased "
                 f"{mem['alias_size_in_bytes'] / 1e9:.3f}); traced in "
                 f"{rec['trace_s']} s")
+            if shape == "train_4k":
+                held = mem["argument_size_in_bytes"] + \
+                    mem["temp_size_in_bytes"]
+                check(held <= CARD_BYTES, f"dry run {cell}: arguments + "
+                      f"temporaries {held / 1e9:.3f} GB a device, past "
+                      f"the card's {CARD_BYTES / 1e9:.0f} GB")
+                log(f"dry run {cell}: arguments + temporaries "
+                    f"{held / 1e9:.3f} GB a device, within "
+                    f"{CARD_BYTES / 1e9:.0f} GB")
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     shape = ShapeCfg("train_phase17", "train", TRAIN["T"], TRAIN["B"])

@@ -120,17 +120,67 @@ def embed(table, tokens, ctx=None):
 
 def token_nll(logits, targets, ctx=None):
     """The next-token NLL at every position: logits (B, T, V), targets
-    (B, T) -> (B, T).  On a mesh (the logits whole over ``model``) each
-    rank takes its own batch rows in a ``local_map``: DTensor's backward
-    of the gold logit's gather would build a zero tensor of the global
-    (B, T, V) on every rank."""
+    (B, T) -> (B, T).  On a mesh whose model axis divides V the logits
+    stay split over ``model`` as the head's product leaves them, and each
+    rank reduces its vocab shard (``vocab_nll``), as the reference's
+    partitioned logsumexp does.  Elsewhere on a mesh (V that the axis
+    does not divide, or no model axis) each rank takes its own batch rows
+    whole in a ``local_map``: DTensor's backward of the gold logit's
+    gather would build a zero tensor of the global (B, T, V) on every
+    rank."""
     targets = torch.as_tensor(targets, device=logits.device)
     if on_mesh(ctx):
         b = _bspec(ctx)
+        targets = constrain(targets, ctx, (b, None))
+        sh = model_shard(ctx, logits.shape[-1])
+        if sh is not None:
+            return _local(lambda l, t: vocab_nll(l, t, sh), ctx,
+                          ((b, None, ctx.model_axis), (b, None)),
+                          (b, None))(logits, targets)
         return _local(token_nll, ctx, ((b, None, None), (b, None)),
-                      (b, None))(logits, constrain(targets, ctx, (b, None)))
+                      (b, None))(logits, targets)
     gold = logits.gather(-1, targets.long()[..., None])[..., 0]
     return torch.logsumexp(logits, dim=-1) - gold
+
+
+def vocab_nll(logits, targets, sh: ModelShard):
+    """Inside a ``local_map`` region: the NLL of targets (B_l, T) from this
+    rank's vocab shard of the logits (B_l, T, V / tp), in f32: each
+    rank's gold logit, 0 where the target lies in another rank's shard,
+    into ``_VocabNLL``."""
+    lg = logits.float()
+    V_l = lg.shape[-1]
+    t = targets.long() - sh.rank * V_l
+    mine = (t >= 0) & (t < V_l)
+    gold = lg.gather(-1, t.clamp(0, V_l - 1)[..., None])[..., 0]
+    return _VocabNLL.apply(lg, torch.where(mine, gold, 0.0), sh.group)
+
+
+class _VocabNLL(torch.autograd.Function):
+    """logsumexp over the vocab shards of ``group`` less the gold logit:
+    each rank's shard (B_l, T, V / tp) and gold part (B_l, T) -> the NLL
+    (B_l, T), whole on every rank.  ``torch.logsumexp``'s arithmetic: the
+    row max (an all-reduce MAX), the sum of exp(l - max) and the gold
+    parts (one all-reduce SUM), log + max; its gradient exp(l - lse),
+    recomputed from the logits, so no exponent is kept.  The NLL is whole
+    over ``model``, so each rank's gradient of it is already the whole
+    one: it passes to the gold part as it is, not summed over ranks
+    (which would multiply it by tp)."""
+
+    @staticmethod
+    def forward(ctx_, lg, gold, group):
+        m = lg.amax(dim=-1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        sums = torch.stack([torch.exp(lg - m[..., None]).sum(dim=-1), gold])
+        dist.all_reduce(sums, group=group)
+        lse = sums[0].log() + m
+        ctx_.save_for_backward(lg, lse)
+        return lse - sums[1]
+
+    @staticmethod
+    def backward(ctx_, g):
+        lg, lse = ctx_.saved_tensors
+        return g[..., None] * (lg - lse[..., None]).exp(), -g, None
 
 
 def check_decode_positions(pos, filled, S: int, ring: bool) -> None:
@@ -795,9 +845,9 @@ def moe_apply(x, p, moe_cfg, ctx=None):
         if fsdp is not None:
             # ZeRO-3 gather: this layer's expert shard, whole
             grp = ctx.group(fsdp)
-            wg = funcol.all_gather_tensor_autograd(wg, 2, grp)
-            wu = funcol.all_gather_tensor_autograd(wu, 2, grp)
-            wd = funcol.all_gather_tensor_autograd(wd, 1, grp)
+            wg = _GATHER(wg, 2, grp)
+            wu = _GATHER(wu, 2, grp)
+            wd = _GATHER(wd, 1, grp)
         Bl, Tl = xl.shape[:2]
         out = moe_local(xl.reshape(-1, D), router, wg, wu, wd, top_k=k,
                         capacity=moe_capacity(Bl * Tl, k, E, cf),

@@ -360,11 +360,9 @@ def rg_forward(params, batch, cfg: ModelConfig, ctx=None):
 
 def rg_loss(params, batch, cfg: ModelConfig, ctx=None):
     """Mean next-token NLL over every position (the reference's loss
-    takes no mask).  On a mesh the logits go whole over ``model`` first
-    (``transformer.lm_loss`` says why)."""
-    logits = constrain(rg_forward(params, batch, cfg, ctx), ctx,
-                       act_spec(ctx))
-    return token_nll(logits, batch["targets"], ctx).mean()
+    takes no mask)."""
+    return token_nll(rg_forward(params, batch, cfg, ctx), batch["targets"],
+                     ctx).mean()
 
 
 def rg_prefill(params, batch, cfg: ModelConfig, ctx=None):

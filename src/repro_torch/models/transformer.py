@@ -305,10 +305,7 @@ def lm_forward(params, batch, cfg: ModelConfig, ctx=None):
 # ------------------------------------------------------------- loss
 def lm_loss(params, batch, cfg: ModelConfig, ctx=None):
     """Mean next-token NLL (the forward value)."""
-    # DTensor has no rule for the gather of the gold logit from a
-    # vocab-sharded axis: the logits go whole over ``model`` first
-    logits = constrain(lm_forward(params, batch, cfg, ctx), ctx,
-                       act_spec(ctx))
+    logits = lm_forward(params, batch, cfg, ctx)
     nll = token_nll(logits, batch["targets"], ctx)
     mask = batch.get("loss_mask")
     if mask is None:

@@ -488,11 +488,9 @@ def xlstm_forward(params, batch, cfg: ModelConfig, ctx=None):
 
 def xlstm_loss(params, batch, cfg: ModelConfig, ctx=None):
     """Mean next-token NLL over every position (the reference's xLSTM loss
-    takes no mask).  On a mesh the logits go whole over ``model`` first
-    (``transformer.lm_loss`` says why)."""
-    logits = constrain(xlstm_forward(params, batch, cfg, ctx), ctx,
-                       act_spec(ctx))
-    return token_nll(logits, batch["targets"], ctx).mean()
+    takes no mask)."""
+    return token_nll(xlstm_forward(params, batch, cfg, ctx),
+                     batch["targets"], ctx).mean()
 
 
 def xlstm_prefill(params, batch, cfg: ModelConfig, ctx=None):

@@ -300,8 +300,9 @@ def reference_cells(tmp_path_factory):
     ``HloCost``'s FLOPs and collectives, its all-reduce bytes at the
     program's width and the bytes of the whole weights it gathers
     (``scripts/reference_cells.py``'s ``compile_cell``).  Each cell again
-    in f32 (``{cell}:f32``).  Then its own ``run_cell``, which builds its
-    production mesh."""
+    in f32 (``{cell}:f32``), and the ``VOCAB_ARCHS``' train cells at
+    ``WIDE_VOCAB`` (``{arch}:train_t:wide``).  Then its own ``run_cell``,
+    which builds its production mesh."""
     out = tmp_path_factory.mktemp("ref") / "cells.json"
     code = "import os\nos.environ['XLA_FLAGS'] = " \
         "'--xla_force_host_platform_device_count=8'\n" + textwrap.dedent(f"""
@@ -326,6 +327,10 @@ def reference_cells(tmp_path_factory):
         res[arch + ":" + name] = compile_cell(arch, name, mesh, ov)
         res[arch + ":" + name + ":f32"] = compile_cell(
             arch, name, mesh, dict(ov, dtype=jnp.float32))
+    for arch, ov in {[(a, _plain(smoke_overrides(a))) for a in VOCAB_ARCHS]!r}:
+        res[arch + ":train_t:wide"] = compile_cell(
+            arch, "train_t", mesh, dict(ref_overrides(ov),
+                                        vocab={WIDE_VOCAB!r}))
     # its production mesh (16, 16) shards a batch of 16 over ``data``
     SHAPES["decode_p"] = ShapeCfg("decode_p", "decode", 16, 16)
     ov = {_plain(smoke_overrides("internlm2-1.8b"))!r}
@@ -497,6 +502,43 @@ def test_dry_run_collectives_and_temporaries_against_the_reference(
     # the temporaries
     ratio = rec["memory"]["temp_size_in_bytes"] / ref["temp"]
     assert 1 / TEMP_FACTOR <= ratio <= TEMP_FACTOR, ratio
+
+
+# the loss's cells: SMOKE widths with a vocab that makes the logits the
+# largest of the train step's temporaries, (4, 16, 32768) f32 a rank
+VOCAB_ARCHS = ("internlm2-1.8b", "recurrentgemma-9b")
+WIDE_VOCAB = 32768
+
+
+@pytest.mark.parametrize("arch", VOCAB_ARCHS)
+def test_the_loss_reduces_over_the_vocab_shards_as_the_reference(
+        reference_cells, short_shapes, fake_group, arch):
+    """The train step at ``WIDE_VOCAB`` against the reference's
+    ``build_cell`` with the same overrides: the temporaries within
+    ``TEMP_FACTOR``, and the all-gathers grown from the SMOKE vocab (256)
+    by no more than the reference's grow.  The totals are not compared:
+    at SMOKE widths DTensor gathers up to 1.94 x the reference's for
+    reasons apart from the loss (the per-kind bounds above).  A loss
+    that gathers the logits whole over ``model`` holds (4, 16, 32768) f32
+    and its softmax: 3.8-4.1 x the reference's temporaries, and 10.4 MB
+    more all-gathers where the reference's grow by 4.2 MB."""
+    ov = smoke_overrides(arch)
+    ref, wide = reference_cells[f"{arch}:train_t"], \
+        reference_cells[f"{arch}:train_t:wide"]
+    got = dryrun.trace_cell(arch, "train_t", fake_group,
+                            {"cfg_overrides": ov})
+    got_wide = dryrun.trace_cell(arch, "train_t", fake_group, {
+        "cfg_overrides": dict(ov, vocab=WIDE_VOCAB)})
+    ratio = got_wide["memory"]["temp_size_in_bytes"] / wide["temp"]
+    grow = _bytes(got_wide["collectives"], ("all-gather",)) - \
+        _bytes(got["collectives"], ("all-gather",))
+    ref_grow = _bytes(wide["collectives"], ("all-gather",)) - \
+        _bytes(ref["collectives"], ("all-gather",))
+    print(f"{arch} at V {WIDE_VOCAB}: temporaries {ratio:.2f} x the "
+          f"reference's; all-gathers grown by {grow:.0f} against "
+          f"{ref_grow:.0f}")
+    assert 1 / TEMP_FACTOR <= ratio <= TEMP_FACTOR, ratio
+    assert grow <= ref_grow
 
 
 # ================================================ (d) run_cell and the CLI

@@ -41,6 +41,8 @@ import pytest
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+from torch._subclasses.fake_tensor import is_fake
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.kernels.ref import flash_attention_ref, paged_attention_ref
@@ -378,6 +380,47 @@ def test_the_reference_ring_receives_identical_copies(reference_ring):
 
 
 # ============================================ (c) N ranks equal one process
+# (name, arch, mesh, config overrides) of the vocab-parallel loss's cases
+VOCAB_CASES = [("vocab14", INTERNLM2, "14", {}),
+               ("vocab22", INTERNLM2, "22", {}),
+               ("tied14", INTERNLM2, "14", {"tie_embeddings": True}),
+               ("tied22", INTERNLM2, "22", {"tie_embeddings": True}),
+               ("rg14", RGEMMA, "14", {}), ("xl14", XLSTM, "14", {}),
+               ("v250", INTERNLM2, "14", {"vocab": 250})]
+
+
+class _Widest(TorchDispatchMode):
+    """The widest last axis of any 3-D tensor an op returns on this rank
+    (DTensor ops pass down to their local ops), forward and backward.
+    The fake tensors of DTensor's shape propagation hold no memory and
+    are not counted."""
+
+    def __init__(self):
+        super().__init__()
+        self.widest = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        for t in (out if isinstance(out, (tuple, list)) else (out,)):
+            if isinstance(t, torch.Tensor) and t.dim() == 3 \
+                    and not is_fake(t):
+                self.widest = max(self.widest, t.shape[-1])
+        return out
+
+
+def _nll_inputs(b: int = 2, t: int = 8, v: int = 256):
+    """Logits (b, t, v) f32 with rows scaled past exp's f32 range, targets
+    in every quarter of the vocab, and weights for the NLL's sum."""
+    r = np.random.default_rng(3)
+    lg = r.standard_normal((b, t, v)).astype(np.float32) * np.float32(40.0)
+    tg = r.integers(0, v, (b, t))
+    tg[0, :4] = np.arange(4) * (v // 4) + 1
+    return lg, tg, r.standard_normal((b, t)).astype(np.float32)
+
+
 def _model_worker(rank, world, rdv, out):
     import repro_torch.models.layers as layers
     from repro_torch.launch.mesh import make_local_mesh
@@ -450,6 +493,34 @@ def _model_worker(rank, world, rdv, out):
         model = build_model(_smoke(arch))
         ctx, p = on(model, mesh22)
         res[f"dec_{arch}"] = _decode(model, p, ctx)
+    # the vocab-parallel loss: one train step's loss and gradients on
+    # (1, 4) and (2, 2), the head untied and tied (``embed.T``), the
+    # recurrent families on (1, 4) (on (2, 2) above), a vocab of 250 that
+    # 4 does not divide; and the widest 3-D tensor a rank holds meanwhile
+    for name, arch, mesh, kw in VOCAB_CASES:
+        model = build_model(_smoke(arch, **kw))
+        ctx, p = on(model, {"14": mesh14, "22": mesh22}[mesh])
+        opt = _GradSpy()
+        with _Widest() as w:
+            _, _, m = make_train_step(model, opt, ctx=ctx)(
+                p, opt.init(p), _batch(model.cfg))
+        res[f"{name}_loss"] = m["loss"]
+        res[f"{name}_grads"] = opt.grads
+        res[f"{name}_widest"] = w.widest
+    # ``token_nll`` alone on (1, 4): logits split over the vocab (the
+    # rows past +-88 overflow exp without the max), weighted NLL's
+    # gradient
+    from repro_torch.models.layers import token_nll
+    lg, tg, wt = _nll_inputs()
+    ctx = make_ctx(mesh14, lg.shape[0])
+    x = distribute_tree({"x": torch.from_numpy(lg)}, {"x": (None, None,
+                                                            "model")},
+                        mesh14)["x"].requires_grad_(True)
+    nll = token_nll(x, tg, ctx).full_tensor()
+    (nll * torch.from_numpy(wt)).sum().backward()
+    res["nll_placements"] = [str(q) for q in x.placements]
+    res["nll"] = nll.detach()
+    res["nll_grad"] = x.grad.full_tensor()
     # internlm2's decode over a cache whose S is split 4 ways, (1, 4)
     model = build_model(_smoke(INTERNLM2))
     ctx, p = on(model, mesh14, 2)
@@ -487,6 +558,93 @@ def test_dense_loss_and_train_step_on_a_mesh_equal_one_process(mesh_runs):
     np.testing.assert_allclose(float(mesh_runs["dense_step_loss"]),
                                float(m["loss"]), rtol=RTOL)
     _assert_rows_close(mesh_runs["dense_step_params"], p)
+
+
+@pytest.mark.parametrize("name,arch,mesh,kw", VOCAB_CASES,
+                         ids=[c[0] for c in VOCAB_CASES])
+def test_vocab_parallel_loss_and_gradients_equal_one_process(
+        mesh_runs, name, arch, mesh, kw):
+    """One train step's loss and every parameter's gradient (the
+    embedding's and the head's included) against one process, within
+    rtol 1e-4.  Where the model axis divides V no rank holds a tensor as
+    wide as the vocab: its widest 3-D tensor is its shard of the logits
+    or narrower.  V = 250 over 4 takes the whole path (the logits whole
+    over ``model``)."""
+    from repro_torch.train import make_train_step
+    model = build_model(_smoke(arch, **kw))
+    p, batch = _params(model), _batch(model.cfg)
+    opt = _GradSpy()
+    _, _, m = make_train_step(model, opt)(p, opt.init(p), batch)
+    np.testing.assert_allclose(float(mesh_runs[f"{name}_loss"]),
+                               float(m["loss"]), rtol=RTOL)
+    _assert_leaves_close(mesh_runs[f"{name}_grads"], opt.grads)
+    V, tp = model.cfg.vocab, int(mesh[1])
+    if V % tp:
+        assert mesh_runs[f"{name}_widest"] == V
+    else:
+        assert mesh_runs[f"{name}_widest"] < V
+
+
+def test_token_nll_over_vocab_shards_equals_the_reference_arithmetic(
+        mesh_runs):
+    """``token_nll`` of logits split over the vocab on (1, 4), and the
+    gradient of a weighted sum of it, against the reference's
+    ``lm_loss`` arithmetic (``jax.nn.logsumexp`` less
+    ``take_along_axis``) on the same numpy inputs."""
+    import jax
+    import jax.numpy as jnp
+    lg, tg, wt = _nll_inputs()
+
+    def nll(x):
+        return jax.nn.logsumexp(x, axis=-1) - jnp.take_along_axis(
+            x, jnp.asarray(tg)[..., None], axis=-1)[..., 0]
+    exp = np.asarray(nll(jnp.asarray(lg)))
+    grad = np.asarray(jax.grad(lambda x: (nll(x) * wt).sum())(
+        jnp.asarray(lg)))
+    assert mesh_runs["nll_placements"] == ["R", "S(2)"]
+    np.testing.assert_allclose(mesh_runs["nll"].numpy(), exp, rtol=RTOL)
+    np.testing.assert_allclose(mesh_runs["nll_grad"].numpy(), grad,
+                               rtol=RTOL, atol=RTOL * np.abs(grad).max())
+
+
+def test_one_rank_mesh_train_steps_equal_off_mesh_bit_for_bit(tmp_path):
+    """phi3 SMOKE bf16, two train steps on a one-rank mesh (a model axis
+    of 1: the loss runs ``vocab_nll`` over one shard) against two off it:
+    the same losses and parameters bit for bit, as chip_smoke's phase 20
+    holds on the card.  The NLL's arithmetic is ``torch.logsumexp``'s;
+    any other order of the same sums moves bf16 parameters after AdamW's
+    normalised steps."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import tree_map
+    from repro_torch.parallel import (distribute_tree, full_tree, make_ctx,
+                                      param_spec_tree)
+    from repro_torch.train import make_train_step
+    cfg = get_config("phi3-mini-3.8b", smoke=True, dtype=torch.bfloat16)
+    model = build_model(cfg)
+    p = model.init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    batches = [{k: torch.randint(0, cfg.vocab, (B, 4 * T), generator=g)
+                for k in ("tokens", "targets")} for _ in range(2)]
+    opt = AdamW()
+    p_off = tree_map(torch.clone, p)
+    s_off = opt.init(p_off)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh(1, "cpu")
+        pd = distribute_tree(p, param_spec_tree(p, mesh), mesh)
+        sd = opt.init(pd)
+        off = make_train_step(model, opt)
+        on = make_train_step(model, opt, ctx=make_ctx(mesh, B))
+        for b in batches:
+            p_off, s_off, m_off = off(p_off, s_off, b)
+            pd, sd, m_on = on(pd, sd, b)
+            assert float(m_on["loss"]) == float(m_off["loss"])
+        got = full_tree(pd)
+    finally:
+        dist.destroy_process_group()
+    for a, e in zip(_leaves(got), _leaves(p_off)):
+        assert torch.equal(a, e)
 
 
 def test_moe_with_zero3_experts_on_a_mesh_equals_one_process(mesh_runs):
