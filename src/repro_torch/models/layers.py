@@ -35,10 +35,9 @@ from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
-import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 from torch._subclasses.fake_tensor import is_fake
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import (implicit_replication,
                                                    local_map)
 
@@ -127,20 +126,66 @@ def token_nll(logits, targets, ctx=None):
     does not divide, or no model axis) each rank takes its own batch rows
     whole in a ``local_map``: DTensor's backward of the gold logit's
     gather would build a zero tensor of the global (B, T, V) on every
-    rank."""
+    rank.  Logits split on T over ``model`` (the sequence-parallel
+    forward's, whose head is whole over ``model``) stay so: each rank
+    takes its own rows.  A whole vocab goes through ``whole_nll``."""
     targets = torch.as_tensor(targets, device=logits.device)
     if on_mesh(ctx):
         b = _bspec(ctx)
+        if on_rows(logits, ctx):
+            rows = row_spec(ctx, 2)
+            return _local(whole_nll, ctx, (rows + (None,), rows), rows)(
+                logits, constrain(targets, ctx, rows))
         targets = constrain(targets, ctx, (b, None))
         sh = model_shard(ctx, logits.shape[-1])
         if sh is not None:
             return _local(lambda l, t: vocab_nll(l, t, sh), ctx,
                           ((b, None, ctx.model_axis), (b, None)),
                           (b, None))(logits, targets)
-        return _local(token_nll, ctx, ((b, None, None), (b, None)),
+        return _local(whole_nll, ctx, ((b, None, None), (b, None)),
                       (b, None))(logits, targets)
-    gold = logits.gather(-1, targets.long()[..., None])[..., 0]
-    return torch.logsumexp(logits, dim=-1) - gold
+    return whole_nll(logits, targets)
+
+
+# the logits' elements a chunk of ``whole_nll``'s rows spans (64 MB in f32)
+NLL_CHUNK = 1 << 24
+
+
+def whole_nll(logits, targets):
+    """logsumexp over the whole vocab less the gold logit: logits (..., V),
+    targets (...) -> (...), by ``_WholeNLL`` over chunks of
+    ``NLL_CHUNK`` elements' worth of rows (at least one row)."""
+    return _WholeNLL.apply(logits, targets.long(),
+                           max(1, NLL_CHUNK // logits.shape[-1]))
+
+
+class _WholeNLL(torch.autograd.Function):
+    """``torch.logsumexp(l, -1) - l[target]`` and the gradient autograd
+    gives it, g exp(l - lse) less g at the target, taken over chunks of
+    rows: it keeps the logits and the log-sum-exp only and recomputes each
+    chunk's exponent in the backward, so at most one chunk's exponent is
+    live where the eager expression holds the whole (..., V) one.
+    ``_VocabNLL`` without the collectives."""
+
+    @staticmethod
+    def forward(ctx_, lg, t, rows):
+        flat = lg.reshape(-1, lg.shape[-1])
+        lse = torch.cat([torch.logsumexp(c, dim=-1)
+                         for c in flat.split(rows)])
+        ctx_.save_for_backward(lg, t, lse)
+        ctx_.rows = rows
+        return (lse - flat.gather(-1, t.reshape(-1, 1))[:, 0]).view(t.shape)
+
+    @staticmethod
+    def backward(ctx_, g):
+        lg, t, lse = ctx_.saved_tensors
+        flat, g = lg.reshape(-1, lg.shape[-1]), g.reshape(-1, 1)
+        grad = torch.empty_like(flat)
+        for i in range(0, flat.shape[0], ctx_.rows):
+            s = slice(i, i + ctx_.rows)
+            torch.mul(g[s], (flat[s] - lse[s, None]).exp(), out=grad[s])
+        grad.scatter_add_(-1, t.reshape(-1, 1), -g)
+        return grad.view_as(lg), None, None
 
 
 def vocab_nll(logits, targets, sh: ModelShard):
@@ -329,6 +374,34 @@ def act_spec(ctx, nd: int = 3) -> tuple:
     return (_bspec(ctx),) + (None,) * (nd - 1)
 
 
+def row_spec(ctx, nd: int = 3) -> tuple:
+    """The sequence-parallel activations' spec: the batch over the DP
+    axes, the positions (dim 1) over ``model``, the rest whole."""
+    return (_bspec(ctx), ctx.model_axis) + (None,) * (nd - 2)
+
+
+def sequence_parallel(cfg, T: int, ctx) -> bool:
+    """Whether a mesh training forward over T positions runs its blocks
+    sequence-parallel (``transformer.block_rows``): a model axis of more
+    than one rank that the heads do not divide and T does, the condition
+    of ``mesh_attention``'s query-sharded branch, which the reference's
+    partition carries on through the block.  A MoE block keeps the
+    tensor-parallel layout: its experts over ``model`` take every token."""
+    if not on_mesh(ctx) or not ctx.model_axis or cfg.moe is not None:
+        return False
+    tp = ctx.size(ctx.model_axis)
+    return cfg.n_heads % tp != 0 and T % tp == 0
+
+
+def on_rows(t, ctx) -> bool:
+    """Whether ``t`` is a DTensor split on dim 1 over ``model``: the
+    sequence-parallel forward's residual or logits."""
+    if not isinstance(t, DTensor) or not on_mesh(ctx) or not ctx.model_axis:
+        return False
+    i = ctx.mesh.mesh_dim_names.index(ctx.model_axis)
+    return t.placements[i] == Shard(1)
+
+
 class _Constrain(torch.autograd.Function):
     """A DTensor redistributed to the placements ``pl``; its gradient
     goes back to the input's placements (a partial sum's as whole), and a
@@ -481,6 +554,18 @@ def mesh_attention(q, k, v, ctx, *, causal: bool = True, window: int = 0):
     return _local(flash, ctx, (whole,) * 3, whole)(q, k, v)
 
 
+def rows_attention(q, k, v, sh: ModelShard, *, causal: bool = True,
+                   window: int = 0):
+    """Inside a sequence-parallel block (``transformer.block_rows``): the
+    flash kernel over this rank's rows of the queries, q (B_l, T / tp, H,
+    hd), against the keys and values of every rank's rows, k and v (B_l,
+    T / tp, Hkv, hd) gathered over T (an all-gather; their gradients a
+    reduce-scatter).  ``q_offset`` is the rows' first position."""
+    return flash_attention(q, sh.gather(k, 1), sh.gather(v, 1),
+                           causal=causal, window=window,
+                           q_offset=sh.rank * q.shape[1])
+
+
 def _tmap(fn, tree):
     if isinstance(tree, dict):
         return {k: _tmap(fn, v) for k, v in tree.items()}
@@ -520,9 +605,43 @@ def whole_over_model(fn, ctx, x, p, *rest):
         run_check=False), out)
 
 
-# the autograd all-gather (torch 2.13 renames it)
-_GATHER = getattr(funcol, "all_gather_single_autograd", None) or \
-    funcol.all_gather_tensor_autograd
+class _WholeOverModel(torch.autograd.Function):
+    """A DTensor parameter gathered whole over mesh dim ``i`` (the model
+    axis; an all-gather where it is split there).  Each rank uses it on
+    its own rows, so its gradient arrives a partial sum there: it is
+    all-reduced, then cut back to the parameter's shard, as the
+    reference's partition reduces a weight it gathered whole (a
+    reduce-scatter would move 1 / tp of the bytes: ROADMAP, Parked)."""
+
+    @staticmethod
+    def forward(ctx_, w, mesh, i):
+        ctx_.mesh, ctx_.i, ctx_.src = mesh, i, w.placements[i]
+        pl = list(w.placements)
+        pl[i] = Replicate()
+        return w.view_as(w) if tuple(pl) == tuple(w.placements) \
+            else w.redistribute(mesh, pl)
+
+    @staticmethod
+    def backward(ctx_, g):
+        pl = list(g.placements)
+        pl[ctx_.i] = Replicate()
+        g = g.redistribute(ctx_.mesh, pl)
+        pl[ctx_.i] = ctx_.src
+        return g.redistribute(ctx_.mesh, pl), None, None
+
+
+def whole_params(p, ctx):
+    """The DTensor parameters of the tree ``p`` as local tensors whole over
+    ``model`` (``_WholeOverModel``), for a rank that applies them to its
+    own rows of the batch's rows: their gradients are partial sums over
+    ``model`` and the DP axes.  The parameters of a block with no MoE are
+    split over ``model`` only."""
+    mesh = ctx.mesh
+    i = mesh.mesh_dim_names.index(ctx.model_axis)
+    grad = [Partial() if n in ctx.batch_axes or n == ctx.model_axis
+            else Replicate() for n in mesh.mesh_dim_names]
+    return _tmap(lambda t: _WholeOverModel.apply(t, mesh, i).to_local(
+        grad_placements=grad) if isinstance(t, DTensor) else t, p)
 
 
 class _SumOverModel(torch.autograd.Function):
@@ -544,6 +663,36 @@ class _SumOverModel(torch.autograd.Function):
         return g, None
 
 
+class _AllGather(torch.autograd.Function):
+    """Every rank's ``t`` concatenated along dim 0 over ``group``, in rank
+    order; its gradient each rank's part of the gradients' sum (a
+    reduce-scatter).  The functional collectives' autograd gather, with
+    the gradient made contiguous first: a gather along another dim
+    (``all_gather``) receives a strided one, which torch 2.11's
+    reduce-scatter refuses ("Expected input.is_contiguous()"; 2.13 makes
+    it contiguous itself)."""
+
+    @staticmethod
+    def forward(ctx_, t, group):
+        ctx_.n, ctx_.name = group.size(), group.group_name
+        c10d = torch.ops._c10d_functional
+        return c10d.wait_tensor(c10d.all_gather_into_tensor(t, ctx_.n,
+                                                            ctx_.name))
+
+    @staticmethod
+    def backward(ctx_, g):
+        c10d = torch.ops._c10d_functional
+        return c10d.wait_tensor(c10d.reduce_scatter_tensor(
+            g.contiguous(), "sum", ctx_.n, ctx_.name)), None
+
+
+def all_gather(t, dim: int, group):
+    """Every rank's ``t`` concatenated along ``dim`` over ``group`` in rank
+    order (an all-gather; its gradient a reduce-scatter)."""
+    t = t.movedim(dim, 0).contiguous()
+    return _AllGather.apply(t, group).movedim(0, dim)
+
+
 @dataclass(frozen=True)
 class ModelShard:
     """Inside a ``local_map`` region, this rank's place on the model axis
@@ -561,8 +710,7 @@ class ModelShard:
     def gather(self, t, dim: int = -1):
         """Every rank's ``t`` concatenated along ``dim`` in rank order (an
         all-gather; its gradient a reduce-scatter)."""
-        t = t.movedim(dim, 0).contiguous()
-        return _GATHER(t, 0, self.group).movedim(0, dim)
+        return all_gather(t, dim, self.group)
 
     def sum(self, *ts):
         """The partial sums ``ts``, each summed over the ranks: one
@@ -845,9 +993,9 @@ def moe_apply(x, p, moe_cfg, ctx=None):
         if fsdp is not None:
             # ZeRO-3 gather: this layer's expert shard, whole
             grp = ctx.group(fsdp)
-            wg = _GATHER(wg, 2, grp)
-            wu = _GATHER(wu, 2, grp)
-            wd = _GATHER(wd, 1, grp)
+            wg = all_gather(wg, 2, grp)
+            wu = all_gather(wu, 2, grp)
+            wd = all_gather(wd, 1, grp)
         Bl, Tl = xl.shape[:2]
         out = moe_local(xl.reshape(-1, D), router, wg, wu, wd, top_k=k,
                         capacity=moe_capacity(Bl * Tl, k, E, cf),

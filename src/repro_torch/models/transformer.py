@@ -42,19 +42,22 @@ import math
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial
 
 from repro_torch.kernels.ops import flash_attention
 from .common import ModelConfig, remat
-from repro_torch.parallel.sharding import cache_spec_tree, distribute_tree
+from repro_torch.parallel.sharding import (cache_spec_tree, distribute_tree,
+                                           placements)
 from .layers import (_local, act_spec, apply_norm, attn_init, embed,
                      check_decode_positions, constrain, decode_pages,
                      fill_cache_shard, head_split,
                      decode_update_and_attend, decode_attention, init_norm,
                      mesh_attention, mesh_decode, mesh_decode_attend,
-                     mlp_apply, mlp_init, moe_apply, moe_init, on_mesh,
-                     out_proj, prompt_positions, qkv_proj, rope,
-                     sinusoidal_pos, token_nll, heads)
+                     mlp_apply, mlp_init, model_shard, moe_apply, moe_init,
+                     on_mesh, out_proj, prompt_positions, qkv_proj, rope,
+                     row_spec, rows_attention, sequence_parallel,
+                     sinusoidal_pos, token_nll,
+                     heads, whole_params)
 
 
 # =========================================================== block def/init
@@ -79,12 +82,15 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, *,
 
 def self_attention(x, p, cfg: ModelConfig, *, positions, causal=True,
                    window=0, cache=None, slot=None, pos=None, pages=None,
-                   ctx=None):
+                   rows=None, ctx=None):
     """Returns (attn_out, k, v), k and v being this call's new keys and
     values.  With ``cache`` (one layer's ``{"k", "v", "pos"}``), x is the
     single new token (B, 1, D) at positions ``pos``: its K/V go into the
     cache at ``slot`` and it attends over the cache through ``pages`` (on
-    a mesh, a ``layers.MeshDecode``)."""
+    a mesh, a ``layers.MeshDecode``).  With ``rows`` (a
+    ``layers.ModelShard``), x is this rank's rows of a sequence-parallel
+    block (``block_rows``): they attend over every rank's keys and
+    values (``layers.rows_attention``)."""
     q, k, v = qkv_proj(x, p, cfg.n_heads, cfg.n_kv_heads, cfg.hd, ctx)
     if cfg.pos == "rope":
         q = rope(q, positions, cfg.rope_theta)
@@ -97,6 +103,8 @@ def self_attention(x, p, cfg: ModelConfig, *, positions, causal=True,
                                        cache["pos"], k, v, slot, pages, pos)
     elif on_mesh(ctx):
         out = mesh_attention(q, k, v, ctx, causal=causal, window=window)
+    elif rows is not None:
+        out = rows_attention(q, k, v, rows, causal=causal, window=window)
     else:
         out = flash_attention(q, k, v, causal=causal, window=window)
     return out_proj(out, p, ctx), k, v
@@ -139,12 +147,13 @@ def cross_kv(enc_out, p, cfg: ModelConfig, ctx=None):
 
 def block_apply(x, p, cfg: ModelConfig, *, positions, causal=True, window=0,
                 cache=None, slot=None, pos=None, pages=None, xk=None,
-                xv=None, xpages=None, ctx=None):
-    """Returns (x, (k, v)) with the self-attention's new keys and values."""
+                xv=None, xpages=None, rows=None, ctx=None):
+    """Returns (x, (k, v)) with the self-attention's new keys and values
+    (``rows``: ``self_attention``'s)."""
     a, k, v = self_attention(
         apply_norm(x, p["ln1"], cfg.norm), p["attn"], cfg,
         positions=positions, causal=causal, window=window, cache=cache,
-        slot=slot, pos=pos, pages=pages, ctx=ctx)
+        slot=slot, pos=pos, pages=pages, rows=rows, ctx=ctx)
     # on a mesh the row-parallel out-projection's partial sums are reduced
     # here, before the residual: left partial, DTensor would carry them
     # through the norm and gather the next product's weights whole
@@ -160,6 +169,39 @@ def block_apply(x, p, cfg: ModelConfig, *, positions, causal=True, window=0,
     else:
         x = x + mlp_apply(h, p["mlp"], cfg.act)
     return constrain(x, ctx, act_spec(ctx)), (k, v)
+
+
+def block_rows(x, p, cfg: ModelConfig, *, positions, window=0, xk=None,
+               xv=None, ctx):
+    """``block_apply`` in the mesh training forward where it runs
+    sequence-parallel (``layers.sequence_parallel``): the reference's
+    ``sharded_attention`` with the query sequence over ``model``, carried
+    on through the block as GSPMD's partition carries it.  The residual x
+    (B, T, D) is split on T over ``model`` on the way in and out
+    (``layers.row_spec``).  Each rank runs ``block_apply``'s off-mesh
+    body on its T / tp rows with the weights gathered whole over
+    ``model`` (``layers.whole_params``): the norms, q, k and v, the
+    out-projection and the MLP on the rows, K and V gathered over T for
+    the flash kernel (``rows=``), the cross-attention over xk / xv (its
+    source, whole over ``model``).  No activation is reduced: each
+    weight's gradient is a partial sum over ``model``, all-reduced and
+    cut back to the rank's shard."""
+    grad_kv = [Partial() if n == ctx.model_axis else pl for n, pl in zip(
+        ctx.mesh.mesh_dim_names, placements(act_spec(ctx, 4), ctx.mesh))]
+
+    def local(t, spec, grad=None):
+        return None if t is None else constrain(t, ctx, spec).to_local(
+            grad_placements=grad)
+
+    h, _ = block_apply(
+        local(x, row_spec(ctx)), whole_params(p, ctx), cfg,
+        positions=local(positions, row_spec(ctx, 2)), window=window,
+        xk=local(xk, act_spec(ctx, 4), grad_kv),
+        xv=local(xv, act_spec(ctx, 4), grad_kv),
+        rows=model_shard(ctx, x.shape[1]))
+    return DTensor.from_local(h, ctx.mesh, placements(row_spec(ctx),
+                                                      ctx.mesh),
+                              run_check=False)
 
 
 # ============================================================= LM (decoder)
@@ -201,7 +243,11 @@ def _device(params) -> torch.device:
 def _embed_in(params, tokens, positions, cfg: ModelConfig, ctx=None):
     x = embed(params["embed"], tokens, ctx)
     if cfg.pos == "sinusoidal":
-        x = x + sinusoidal_pos(positions, cfg.d_model, cfg.dtype)
+        # a vocab-split table's rows arrive as a masked partial sum: it is
+        # reduced before the add (torch 2.11's DTensor fails to split the
+        # positions into a second masked partial)
+        x = constrain(x, ctx, act_spec(ctx)) + sinusoidal_pos(
+            positions, cfg.d_model, cfg.dtype)
     return x
 
 
@@ -209,6 +255,18 @@ def _unembed(params, x, cfg: ModelConfig):
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
     logits = x @ w
     return logits.float() if cfg.logits_f32 else logits
+
+
+def _unembed_rows(params, x, cfg: ModelConfig, ctx):
+    """``_unembed`` of the sequence-parallel rows x (B, T, D), split on T
+    over ``model``, by a head whole over ``model``: each rank's logits of
+    its own rows with the head gathered whole (``layers.whole_params``),
+    split on T as x is."""
+    w = params["embed"].T if cfg.tie_embeddings else params["head"]
+    logits = x.to_local() @ whole_params(w, ctx)
+    logits = logits.float() if cfg.logits_f32 else logits
+    return DTensor.from_local(logits, ctx.mesh, x.placements,
+                              run_check=False)
 
 
 def _encoder_apply(params, frames, cfg: ModelConfig, mode: str = "none",
@@ -281,24 +339,39 @@ def lm_forward(params, batch, cfg: ModelConfig, ctx=None):
     """Full-sequence forward -> logits (B, T, V). batch carries 'tokens' and
     family extras ('frames' for encdec, 'image_embeds' for vlm).  Each
     step of the reference's layer scan (a block; a vlm group) runs under
-    ``remat(cfg.remat)``, as the reference's does."""
+    ``remat(cfg.remat)``, as the reference's does.  On a mesh where
+    ``layers.sequence_parallel`` holds, the blocks and the final norm run
+    on each rank's rows (``block_rows``), and so does the head where it is
+    whole over ``model``; a head split over the vocab takes the rows
+    gathered over T."""
     tokens, positions = prompt_positions(batch["tokens"], _device(params))
-    x = constrain(_embed_in(params, tokens, positions, cfg, ctx), ctx,
-                  act_spec(ctx))
+    rows = sequence_parallel(cfg, tokens.shape[1], ctx)
+    # every row's positions are 0..T-1: sinusoidal positions of one row
+    # broadcast over the batch, not (B, T, D) in f32 on every rank
+    x = constrain(_embed_in(params, tokens, positions[:1], cfg, ctx), ctx,
+                  row_spec(ctx) if rows else act_spec(ctx))
     src = _cross_source(params, batch, cfg, cfg.remat, ctx)
 
     def scan_step(h, blocks):
         for blk, has_cross in blocks:
             xk, xv = (cross_kv(src, blk["xattn"], cfg, ctx) if has_cross
                       else (None, None))
-            h, _ = block_apply(h, blk, cfg, positions=positions,
-                               window=_window(cfg), xk=xk, xv=xv, ctx=ctx)
+            kw = dict(positions=positions, window=_window(cfg), xk=xk,
+                      xv=xv, ctx=ctx)
+            if rows:
+                h = block_rows(h, blk, cfg, **kw)
+            else:
+                h, _ = block_apply(h, blk, cfg, **kw)
         return h
 
     scan_step = remat(scan_step, cfg.remat)
     for blocks in _scan_steps(params, cfg):
         x = scan_step(x, blocks)
     x = apply_norm(x, params["final_norm"], cfg.norm)
+    if rows and model_shard(ctx, cfg.vocab) is None:
+        return _unembed_rows(params, x, cfg, ctx)
+    if rows:
+        x = constrain(x, ctx, act_spec(ctx))
     return _unembed(params, x, cfg)
 
 

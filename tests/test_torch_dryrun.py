@@ -20,7 +20,11 @@ on the CPU, against the reference.
       and FLOPs within the tolerances stated beside each term below;
       the collectives' payloads per kind and the temporaries within the
       tolerances stated after the terms read from the reference's HLO
-      (``scripts/reference_cells.py``);
+      (``scripts/reference_cells.py``); the loss's temporaries at a
+      vocab the model axis divides and at one it does not; a head-split
+      cell frozen at its counts; deepseek-coder-33b's and
+      whisper-large-v3's ``train_4k`` at full widths on (16, 16), cut in
+      depth, where their blocks run sequence-parallel;
   (d) the reference's own ``run_cell`` failing on jax 0.9.0 (its
       production mesh's Explicit axes; shown, not fixed), and the port's
       CLI writing an OK record with the reference's keys and a SKIP for a
@@ -301,7 +305,8 @@ def reference_cells(tmp_path_factory):
     program's width and the bytes of the whole weights it gathers
     (``scripts/reference_cells.py``'s ``compile_cell``).  Each cell again
     in f32 (``{cell}:f32``), and the ``VOCAB_ARCHS``' train cells at
-    ``WIDE_VOCAB`` (``{arch}:train_t:wide``).  Then its own ``run_cell``,
+    ``WIDE_VOCAB`` (``{arch}:train_t:wide``) and ``ODD_VOCAB``
+    (``{arch}:train_t:odd``).  Then its own ``run_cell``,
     which builds its production mesh."""
     out = tmp_path_factory.mktemp("ref") / "cells.json"
     code = "import os\nos.environ['XLA_FLAGS'] = " \
@@ -331,6 +336,9 @@ def reference_cells(tmp_path_factory):
         res[arch + ":train_t:wide"] = compile_cell(
             arch, "train_t", mesh, dict(ref_overrides(ov),
                                         vocab={WIDE_VOCAB!r}))
+        res[arch + ":train_t:odd"] = compile_cell(
+            arch, "train_t", mesh, dict(ref_overrides(ov),
+                                        vocab={ODD_VOCAB!r}))
     # its production mesh (16, 16) shards a batch of 16 over ``data``
     SHAPES["decode_p"] = ShapeCfg("decode_p", "decode", 16, 16)
     ov = {_plain(smoke_overrides("internlm2-1.8b"))!r}
@@ -508,6 +516,9 @@ def test_dry_run_collectives_and_temporaries_against_the_reference(
 # largest of the train step's temporaries, (4, 16, 32768) f32 a rank
 VOCAB_ARCHS = ("internlm2-1.8b", "recurrentgemma-9b")
 WIDE_VOCAB = 32768
+# a vocab that the model axis does not divide: the logits whole over
+# ``model``, their NLL the chunked ``layers.whole_nll``
+ODD_VOCAB = 32767
 
 
 @pytest.mark.parametrize("arch", VOCAB_ARCHS)
@@ -539,6 +550,129 @@ def test_the_loss_reduces_over_the_vocab_shards_as_the_reference(
           f"{ref_grow:.0f}")
     assert 1 / TEMP_FACTOR <= ratio <= TEMP_FACTOR, ratio
     assert grow <= ref_grow
+
+
+@pytest.mark.parametrize("arch", VOCAB_ARCHS)
+def test_the_whole_vocab_loss_against_the_reference(
+        reference_cells, short_shapes, fake_group, arch):
+    """The train step at ``ODD_VOCAB``, which 4 does not divide, against
+    the reference's ``build_cell`` with the same overrides: the
+    temporaries within ``TEMP_FACTOR`` (1.94 and 1.92 at this change; at
+    these shapes the whole-vocab weights' AdamW update, not the NLL,
+    holds the peak)."""
+    ov = dict(smoke_overrides(arch), vocab=ODD_VOCAB)
+    ref = reference_cells[f"{arch}:train_t:odd"]
+    got = dryrun.trace_cell(arch, "train_t", fake_group,
+                            {"cfg_overrides": ov})
+    ratio = got["memory"]["temp_size_in_bytes"] / ref["temp"]
+    print(f"{arch} at V {ODD_VOCAB}: temporaries {ratio:.2f} x the "
+          f"reference's")
+    assert 1 / TEMP_FACTOR <= ratio <= TEMP_FACTOR, ratio
+
+
+# a head-split cell (phi3-mini-3.8b SMOKE ``train_t``, bf16, on (2, 4)) as
+# the parent of the sequence-parallel blocks counted it: they change no
+# cell whose heads divide the model axis
+PHI3_TRAIN_T = {"temp_size_in_bytes": 408456, "flops": 9969664.0,
+                "bytes accessed": 12863646.0, "transcendentals": 52516.0,
+                "all-reduce": (43, 183564.0), "all-gather": (21, 58624.0),
+                "ops": 1335}
+
+
+def test_a_head_split_cell_counts_what_it_counted(short_shapes, fake_group):
+    rec = dryrun.trace_cell("phi3-mini-3.8b", "train_t", fake_group,
+                            {"cfg_overrides": smoke_overrides(
+                                "phi3-mini-3.8b")})
+    got = {"temp_size_in_bytes": rec["memory"]["temp_size_in_bytes"],
+           **rec["cost"], "ops": rec["hlo_cost"]["ops"],
+           **{k: (v["count"], v["bytes"])
+              for k, v in rec["collectives"].items()
+              if isinstance(v, dict) and v["count"]}}
+    assert got == PHI3_TRAIN_T
+
+
+@pytest.fixture
+def fake_pod():
+    """The (16, 16) production mesh on a fake group of 256 ranks."""
+    dist.init_process_group("fake", rank=0, world_size=256,
+                            store=FakeStore())
+    try:
+        yield make_production_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_a_sequence_parallel_layer_holds_what_the_reference_holds(
+        fake_pod):
+    """deepseek-coder-33b ``train_4k`` at full widths on (16, 16), 2 and 4
+    layers: its 56 heads do not divide 16, so each block runs on its
+    rank's 256 rows (``transformer.block_rows``).  The temporaries grow
+    by at most 1.2 GB a layer, the reference's 1.15 (its saved values at
+    the rows' size, 0.51 GB, and stacked f32 gradients); 0.65 at this
+    change, 3.29 where the blocks went back to the tensor-parallel layout
+    after the attention (the layer input and the out-projections'
+    partial sums kept whole over ``model``)."""
+    temps, flops = {}, {}
+    for n in (2, 4):
+        rec = dryrun.trace_cell("deepseek-coder-33b", "train_4k", fake_pod,
+                                {"cfg_overrides": {"n_layers": n}})
+        temps[n] = rec["memory"]["temp_size_in_bytes"]
+        flops[n] = rec["cost"]["flops"]
+    per_layer = (temps[4] - temps[2]) / 2
+    print(f"deepseek-coder-33b train_4k: {per_layer / 1e9:.3f} GB a layer")
+    assert 0 < per_layer <= 1.2e9
+
+
+def test_sequence_parallel_rows_take_their_own_logits(fake_pod):
+    """whisper-large-v3 ``train_4k`` at full widths on (16, 16), 2 decoder
+    and 2 encoder layers: its 20 heads do not divide 16 and 16 does not
+    divide its vocab of 51866, so the head is whole over ``model`` and
+    each rank takes the logits and NLL of its own 256 rows.  The
+    temporaries stay under one rank's whole-sequence logits in f32
+    (16, 4096, 51866), which the whole-vocab loss held with their
+    exponent (58.35 GB before this change, 11.01 at it)."""
+    rec = dryrun.trace_cell("whisper-large-v3", "train_4k", fake_pod,
+                            {"cfg_overrides": {"n_layers": 2,
+                                               "enc_layers": 2}})
+    assert rec["memory"]["temp_size_in_bytes"] < 16 * 4096 * 51866 * 4
+
+
+def test_the_breakdown_script_counts_what_the_dry_run_counts():
+    """``scripts/dryrun_breakdown.py`` (``PERF.md``'s term-by-term
+    collectives and live storages at the peak) on deepseek-coder-33b
+    ``train_4k`` at SMOKE widths on (16, 16), sequence-parallel: its
+    record equals ``trace_cell``'s with the plain ``OpCost``, its
+    collectives by shape sum to the record's per kind, and the storages
+    it lists at the peak, each with the op that made it, sum to the
+    temporaries."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "dryrun_breakdown", ROOT / "scripts" / "dryrun_breakdown.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    over = smoke_overrides("deepseek-coder-33b")
+    rec, bd = script.breakdown("deepseek-coder-33b", "train_4k", False,
+                               over)
+    assert dryrun.OpCost is OpCost
+    dist.init_process_group("fake", rank=0, world_size=256,
+                            store=FakeStore())
+    try:
+        plain = dryrun.trace_cell("deepseek-coder-33b", "train_4k",
+                                  make_production_mesh(),
+                                  {"cfg_overrides": over})
+    finally:
+        dist.destroy_process_group()
+    rec.pop("trace_s"), plain.pop("trace_s")
+    assert rec == plain
+    for kind, v in rec["collectives"].items():
+        if isinstance(v, dict):
+            ents = [e for (k, _, _), e in bd.by_shape.items() if k == kind]
+            assert sum(c for c, _ in ents) == v["count"], kind
+            assert sum(b for _, b in ents) == v["bytes"], kind
+    assert rec["collectives"]["all-gather"]["count"] > 0
+    assert sum(n for n, _ in bd.at_peak) == \
+        rec["memory"]["temp_size_in_bytes"]
+    assert all(made is not None for _, made in bd.at_peak)
 
 
 # ================================================ (d) run_cell and the CLI

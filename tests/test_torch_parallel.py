@@ -11,14 +11,16 @@ process.
       forced host devices within 1e-6, and the reference's ring receives
       identical copies;
   (c) N ranks equal one process: losses, a train step, MoE with ZeRO-3
-      experts, the query-sharded attention, the S-sharded decode and both
-      recurrent families, within rtol 1e-4 (parameters row by row);
+      experts, the query-sharded attention, the sequence-parallel train
+      step on (2, 4), the S-sharded decode and both recurrent families,
+      within rtol 1e-4 (parameters row by row);
   (d) the elastic restore: a checkpoint saved on (2, 2) restores bit for
       bit onto (4, 1) and (1, 4), each rank holding its shards and one
       whole leaf at a time, and a ``Trainer`` resumed on a resized
       mesh continues the single-process losses;
   (e) the new kernel arguments' plain versions: the paged attention's
-      log-sum-exp, flash attention's ``q_offset``.
+      log-sum-exp, flash attention's ``q_offset``; the chunked
+      whole-vocab NLL against ``torch.logsumexp``.
 
 Multi-rank cases start their ranks with ``torch.multiprocessing`` on the
 gloo backend (a ``file://`` rendezvous under ``tmp_path``, one intra-op
@@ -102,9 +104,14 @@ def _no_drop(cfg):
 
 
 def _batch(cfg, seed: int = 0, b: int = B, t: int = T) -> dict:
+    """Tokens and targets (b, t), and whisper's frames."""
     r = np.random.default_rng(seed)
-    return {"tokens": r.integers(0, cfg.vocab, (b, t)),
-            "targets": r.integers(0, cfg.vocab, (b, t))}
+    batch = {"tokens": r.integers(0, cfg.vocab, (b, t)),
+             "targets": r.integers(0, cfg.vocab, (b, t))}
+    if cfg.family == "encdec":
+        batch["frames"] = r.standard_normal(
+            (b, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    return batch
 
 
 def _params(model):
@@ -467,11 +474,19 @@ def _model_worker(rank, world, rdv, out):
     try:
         res["seq_loss"] = model.loss(p, _batch(model.cfg),
                                      ctx=ctx).full_tensor()
+        n = len(offsets)
+        # a prompt of T rows: prefill keeps the tensor-parallel blocks,
+        # their attention query-sharded (``mesh_attention``'s by-row
+        # branch)
+        lg, _ = model.prefill(p, {"tokens": _batch(model.cfg)["tokens"]},
+                              ctx=ctx)
+        res["seq_prefill"] = lg.full_tensor()
     finally:
         layers.flash_attention = flash
     every = [None] * world
-    dist.all_gather_object(every, offsets)
-    res["seq_offsets"] = every
+    dist.all_gather_object(every, (offsets[:n], offsets[n:]))
+    res["seq_offsets"] = [o for o, _ in every]
+    res["seq_prefill_offsets"] = [o for _, o in every]
     # an odd prompt (15 rows, no split over 2): every head on every rank
     lg, _ = model.prefill(p, {"tokens": _batch(model.cfg, t=15)["tokens"]},
                           ctx=ctx)
@@ -672,6 +687,97 @@ def test_query_sharded_attention_equals_one_process(mesh_runs):
                                rtol=RTOL)
     lg, _ = model.prefill(p, {"tokens": _batch(model.cfg, t=15)["tokens"]})
     _assert_rows_close(mesh_runs["seq_odd_prefill"], lg)
+
+
+def test_query_sharded_prefill_equals_one_process(mesh_runs):
+    """deepseek SMOKE's prefill of T rows on (2, 2): each block's attention
+    takes the query rows of its model rank (``mesh_attention``'s by-row
+    branch, one flash launch a layer at ``q_offset`` rank * T / 2) and
+    the logits equal one process's."""
+    cfg = _smoke(DEEPSEEK)
+    for rank, offsets in enumerate(mesh_runs["seq_prefill_offsets"]):
+        assert offsets == [rank % 2 * T // 2] * cfg.n_layers, offsets
+    model = build_model(cfg)
+    lg, _ = model.prefill(_params(model),
+                          {"tokens": _batch(model.cfg)["tokens"]})
+    _assert_rows_close(mesh_runs["seq_prefill"], lg)
+
+
+# (name, arch, config overrides) of the sequence-parallel train step on
+# (2, 4): deepseek's 7 heads; whisper at 6 heads (its decoder's blocks
+# with cross-attention) and a vocab of 250 that 4 does not divide (the
+# head whole over ``model``, each rank's own rows' logits and NLL)
+SEQ_CASES = [("deepseek", DEEPSEEK, {}),
+             ("whisper", WHISPER, {"n_heads": 6, "n_kv_heads": 6,
+                                   "head_dim": 16, "vocab": 250})]
+
+
+def _seq_worker(rank, world, rdv, out):
+    import repro_torch.models.transformer as transformer
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel import (distribute_tree, full_tree, make_ctx,
+                                      param_spec_tree)
+    from repro_torch.train import make_train_step
+    _init(rank, world, rdv)
+    mesh = make_local_mesh(4, "cpu")
+    res, block_rows = {}, transformer.block_rows
+    for name, arch, kw in SEQ_CASES:
+        model = build_model(_smoke(arch, **kw))
+        p = _params(model)
+        p = distribute_tree(p, param_spec_tree(p, mesh), mesh)
+        residual = []
+
+        def spy(*a, **k):
+            y = block_rows(*a, **k)
+            residual.append([str(x) for x in y.placements])
+            return y
+        transformer.block_rows = spy
+        try:
+            opt = _GradSpy()
+            p, _, m = make_train_step(model, opt, ctx=make_ctx(mesh, B))(
+                p, opt.init(p), _batch(model.cfg))
+        finally:
+            transformer.block_rows = block_rows
+        res[f"{name}_loss"] = m["loss"]
+        res[f"{name}_grads"] = opt.grads
+        res[f"{name}_params"] = full_tree(p)
+        res[f"{name}_residual"] = residual
+    if rank == 0:
+        torch.save(res, f"{out}/seq.pt")
+    dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def seq_runs(tmp_path_factory):
+    out = tmp_path_factory.mktemp("seq")
+    _spawn(_seq_worker, 8, out, timeout=150)
+    return torch.load(out / "seq.pt")
+
+
+@pytest.mark.parametrize("name,arch,kw", SEQ_CASES,
+                         ids=[c[0] for c in SEQ_CASES])
+def test_sequence_parallel_train_step_equals_one_process(seq_runs, name,
+                                                         arch, kw):
+    """One train step on (2, 4) where the heads do not divide the model
+    axis: every block runs on its rank's rows (``block_rows``), its
+    output, the residual, split over the batch and T, (S(0), S(1)) (the
+    recompute under remat "dots" may stop early, inside the block); the
+    loss, every gradient and the AdamW-updated parameters against one
+    process."""
+    from repro_torch.train import make_train_step
+    model = build_model(_smoke(arch, **kw))
+    cfg = model.cfg
+    assert cfg.n_heads % 4 and T % 4 == 0
+    residual = seq_runs[f"{name}_residual"]
+    assert len(residual) >= cfg.n_layers
+    assert {tuple(r) for r in residual} == {("S(0)", "S(1)")}
+    p, batch = _params(model), _batch(cfg)
+    opt = _GradSpy()
+    p, _, m = make_train_step(model, opt)(p, opt.init(p), batch)
+    np.testing.assert_allclose(float(seq_runs[f"{name}_loss"]),
+                               float(m["loss"]), rtol=RTOL)
+    _assert_leaves_close(seq_runs[f"{name}_grads"], opt.grads)
+    _assert_rows_close(seq_runs[f"{name}_params"], p)
 
 
 @pytest.mark.parametrize("arch", [XLSTM, RGEMMA])
@@ -996,3 +1102,30 @@ def test_flash_plain_q_offset_equals_the_reference_shifted(causal, window):
                                    atol=1e-5)
         torch.testing.assert_close(got, whole[:, off:off + t], rtol=1e-5,
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize("rows", [0, 7])
+def test_the_chunked_whole_vocab_nll_equals_logsumexp_less_gold(
+        rows, monkeypatch):
+    """``layers.whole_nll`` at a vocab of 32767 over 3 x 50 rows, in chunks
+    that divide neither (the default ``NLL_CHUNK``, 512 rows, and one of
+    7 rows' elements, ``rows``): its value and the gradient of a weighted
+    sum of it against ``torch.logsumexp(l) - l[target]`` and its
+    autograd, within rtol 1e-6 in f32 (logits scaled past exp's f32
+    range)."""
+    from repro_torch.models import layers
+    V = 32767
+    if rows:
+        monkeypatch.setattr(layers, "NLL_CHUNK", rows * V)
+    lg, tg, wt = (torch.from_numpy(a) for a in _nll_inputs(3, 50, V))
+    assert 150 % (layers.NLL_CHUNK // V)
+    got_x = lg.clone().requires_grad_(True)
+    got = layers.whole_nll(got_x, tg)
+    (got * wt).sum().backward()
+    exp_x = lg.clone().requires_grad_(True)
+    exp = torch.logsumexp(exp_x, dim=-1) - exp_x.gather(
+        -1, tg[..., None])[..., 0]
+    (exp * wt).sum().backward()
+    torch.testing.assert_close(got, exp, rtol=1e-6, atol=0)
+    torch.testing.assert_close(got_x.grad, exp_x.grad, rtol=1e-6,
+                               atol=1e-6 * float(exp_x.grad.abs().max()))
