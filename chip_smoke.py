@@ -3418,16 +3418,24 @@ def mesh_train(torch, np) -> dict:
 # reduces over the vocab shards, where logits gathered whole over
 # ``model`` would not fit.  deepseek's 56 heads do not divide 16: its
 # blocks run sequence-parallel, and its temporaries are held to the
-# reference's (``REFERENCE_TEMPS``), and to the card where they fit
+# reference's (``REFERENCE_TEMPS``), and to the card where they fit.  A
+# prefill cell's arguments and temporaries must fit the card too, each
+# rank allocating only its shard of the cache, and its temporaries less
+# its outputs (the cache, which the reference counts as output bytes)
+# must stay within ``TEMP_FACTOR`` of the reference's temporaries
 DRYRUN_CELLS = [(PHI3, "train_4k", False), (MOONSHOT, "decode_32k", True),
                 (RGEMMA, "train_4k", False), (XLSTM, "decode_32k", False),
                 (VISION, "decode_32k", False), (QWEN, "train_4k", False),
-                (DEEPSEEK, "train_4k", False)]
+                (DEEPSEEK, "train_4k", False), (PHI3, "prefill_32k", False),
+                (DEEPSEEK, "prefill_32k", False)]
 CARD_BYTES = 80e9
 # the reference's temporaries per device on (16, 16), counted by
 # ``scripts/reference_cells.py`` (its ``build_cell`` compiled on the CPU,
 # jax 0.9.0)
-REFERENCE_TEMPS = {(DEEPSEEK, "train_4k"): 95.674e9}
+REFERENCE_TEMPS = {(DEEPSEEK, "train_4k"): 95.674e9,
+                   (PHI3, "prefill_32k"): 3.688366856e9,
+                   (DEEPSEEK, "prefill_32k"): 14.13829532e9}
+TEMP_FACTOR = 2.5
 
 
 def dryrun_terms(arch: str, shape_name: str, mesh_shape: dict) -> dict:
@@ -3483,9 +3491,11 @@ def dryrun_terms(arch: str, shape_name: str, mesh_shape: dict) -> dict:
 
 def dryrun_phase(torch, train: dict) -> dict:
     """(a) ``launch.dryrun.run_cell`` for each of ``DRYRUN_CELLS``: every
-    record ``status: OK``, a train cell's arguments + temporaries within
-    ``CARD_BYTES``; prints per device the counted FLOPs, bytes, wire
-    bytes, argument and temporary bytes and the trace's seconds.
+    record ``status: OK``, a train or prefill cell's arguments +
+    temporaries within ``CARD_BYTES``, a prefill cell's temporaries less
+    its outputs within ``TEMP_FACTOR`` of the reference's; prints per
+    device the counted FLOPs, bytes, wire bytes, argument, output and
+    temporary bytes and the trace's seconds.
     (b) ``trace_cell`` of phase 17's step (phi3-mini-3.8b FULL, 4 x 1024
     tokens, remat "dots", AdamW, one device) on fake tensors: the counted
     bytes of the parameters and the AdamW state must equal those phase 17
@@ -3535,10 +3545,26 @@ def dryrun_phase(torch, train: dict) -> dict:
                 f"{mem['output_size_in_bytes'] / 1e9:.3f} GB (aliased "
                 f"{mem['alias_size_in_bytes'] / 1e9:.3f}); traced in "
                 f"{rec['trace_s']} s")
-            if shape == "train_4k":
-                temps = mem["temp_size_in_bytes"]
-                held = mem["argument_size_in_bytes"] + temps
-                ref = REFERENCE_TEMPS.get((arch, shape))
+            temps = mem["temp_size_in_bytes"]
+            held = mem["argument_size_in_bytes"] + temps
+            ref = REFERENCE_TEMPS.get((arch, shape))
+            if shape == "prefill_32k":
+                outs = mem["output_size_in_bytes"]
+                check(held <= CARD_BYTES, f"dry run {cell}: arguments + "
+                      f"temporaries {held / 1e9:.3f} GB a device, past "
+                      f"the card's {CARD_BYTES / 1e9:.0f} GB")
+                check(temps - outs <= TEMP_FACTOR * ref, f"dry run {cell}: "
+                      f"temporaries less outputs {(temps - outs) / 1e9:.3f}"
+                      f" GB a device, past {TEMP_FACTOR} x the reference's "
+                      f"{ref / 1e9:.3f} GB")
+                log(f"dry run {cell}: arguments + temporaries "
+                    f"{held / 1e9:.3f} GB a device, within "
+                    f"{CARD_BYTES / 1e9:.0f} GB; temporaries "
+                    f"{temps / 1e9:.3f} GB, of which outputs (the cache "
+                    f"and the logits) {outs / 1e9:.3f} GB; less the "
+                    f"outputs {(temps - outs) / ref:.2f} x the "
+                    f"reference's {ref / 1e9:.3f} GB")
+            elif shape == "train_4k":
                 if ref is not None:
                     check(temps <= ref, f"dry run {cell}: temporaries "
                           f"{temps / 1e9:.3f} GB a device, past the "

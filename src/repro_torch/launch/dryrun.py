@@ -36,7 +36,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import pathlib
 import time
 import traceback
@@ -44,7 +43,6 @@ import traceback
 import torch
 import torch.distributed as dist
 from torch._subclasses.fake_tensor import FakeTensorMode
-from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.launch.mesh import make_production_mesh
@@ -52,7 +50,8 @@ from repro_torch.launch.op_cost import COLLECTIVE_KINDS, OpCost
 from repro_torch.models import SHAPES, build_model, shape_applicable
 from repro_torch.optim import AdamW
 from repro_torch.optim.adamw import AdamWState
-from repro_torch.parallel import (batch_spec_tree, cache_spec_tree, make_ctx,
+from repro_torch.parallel import (batch_spec_tree, cache_spec_tree,
+                                  from_shard, local_shape, make_ctx,
                                   map_tree, param_spec_tree, placements,
                                   zero_spec_tree)
 from repro_torch.train.step import make_train_step
@@ -60,28 +59,14 @@ from repro_torch.train.step import make_train_step
 MESHES = {False: "pod16x16", True: "pod2x16x16"}
 
 
-def local_shape(shape, pl, mesh) -> tuple:
-    """Rank 0's shard of a tensor of ``shape`` under the placements
-    ``pl``: each ``Shard(d)`` splits dim d as ``torch.chunk`` does, the
-    first chunk the largest."""
-    out = list(shape)
-    for p, n in zip(pl, mesh.shape):
-        if isinstance(p, Shard):
-            out[p.dim] = -(-out[p.dim] // n)
-    return tuple(out)
-
-
 def placed(meta, spec, mesh):
     """A fake DTensor of ``meta``'s shape and dtype placed by ``spec``:
-    only rank 0's shard is made.  With no mesh, a fake tensor."""
+    only this rank's shard is made.  With no mesh, a fake tensor."""
     if mesh is None:
         return torch.empty(meta.shape, dtype=meta.dtype)
     pl = placements(spec, mesh)
-    shape = tuple(meta.shape)
-    local = torch.empty(local_shape(shape, pl, mesh), dtype=meta.dtype)
-    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
-    return DTensor.from_local(local, mesh, pl, run_check=False, shape=shape,
-                              stride=stride)
+    local = torch.empty(local_shape(meta.shape, pl, mesh), dtype=meta.dtype)
+    return from_shard(local, pl, meta.shape, mesh)
 
 
 def placed_tree(metas, specs, mesh):

@@ -42,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ops import flash_attention
-from repro_torch.parallel.sharding import cache_spec_tree, distribute_tree
+from repro_torch.parallel.sharding import cache_spec_tree, filled_tree
 from .common import ModelConfig, remat
 from .layers import (_local, _normal, act_spec, attn_init,
                      check_decode_positions,
@@ -258,28 +258,31 @@ def init_rg(cfg: ModelConfig, gen: torch.Generator) -> dict:
 
 def rg_states(cfg: ModelConfig, B: int, device="cuda", ctx=None) -> dict:
     """The zeroed decode state: recurrences at 0, the ring's W slots empty
-    (pos -1)."""
+    (pos -1).  On a mesh each rank allocates only its own shard of
+    ``cache_spec_tree``'s placements (``filled_tree``)."""
     G, tail = n_groups(cfg)
     R = cfg.lru_width or cfg.d_model
     W = cfg.attn_window
+    dev = "meta" if on_mesh(ctx) else device
 
     def rec(*lead):
         return {"h": torch.zeros((*lead, B, R), dtype=torch.float32,
-                                 device=device),
+                                 device=dev),
                 "tail": torch.zeros((*lead, B, CONV_W - 1, R),
-                                    dtype=cfg.dtype, device=device)}
+                                    dtype=cfg.dtype, device=dev)}
 
     kv = (G, B, W, cfg.n_kv_heads, cfg.hd)
     st = {"groups": {
         "rec1": rec(G), "rec2": rec(G),
-        "attn": {"k": torch.zeros(kv, dtype=cfg.dtype, device=device),
-                 "v": torch.zeros(kv, dtype=cfg.dtype, device=device),
+        "attn": {"k": torch.zeros(kv, dtype=cfg.dtype, device=dev),
+                 "v": torch.zeros(kv, dtype=cfg.dtype, device=dev),
                  "pos": torch.full((G, B, W), -1, dtype=torch.int32,
-                                   device=device)}}}
+                                   device=dev)}}}
     for t in range(tail):
         st[f"tail{t}"] = rec()
     if on_mesh(ctx):
-        st = distribute_tree(st, cache_spec_tree(st, ctx), ctx.mesh)
+        st = filled_tree(st, cache_spec_tree(st, ctx), ctx.mesh, device,
+                         fill={"pos": -1})
     return st
 
 

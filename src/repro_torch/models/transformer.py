@@ -46,7 +46,7 @@ from torch.distributed.tensor import DTensor, Partial
 
 from repro_torch.kernels.ops import flash_attention
 from .common import ModelConfig, remat
-from repro_torch.parallel.sharding import (cache_spec_tree, distribute_tree,
+from repro_torch.parallel.sharding import (cache_spec_tree, filled_tree,
                                            placements)
 from .layers import (_local, act_spec, apply_norm, attn_init, embed,
                      check_decode_positions, constrain, decode_pages,
@@ -397,18 +397,20 @@ def make_cache(cfg: ModelConfig, B: int, S_max: int, device="cuda",
     ``cross_k``/``cross_v`` of ``cross_len`` (default ``n_img_tokens``)
     patches.  A windowed cache is a ring of min(S_max, attn_window)
     slots.  On a mesh every leaf is a DTensor of
-    ``parallel.sharding.cache_spec_tree``'s placements."""
+    ``parallel.sharding.cache_spec_tree``'s placements, and each rank
+    allocates only its own shard (``filled_tree``)."""
     dtype, hd, Hkv = cfg.dtype, cfg.hd, cfg.n_kv_heads
     S = min(S_max, cfg.attn_window) if cfg.attn_window else S_max
+    dev = "meta" if on_mesh(ctx) else device
 
     def zeros(*shape):
-        return torch.zeros(shape, dtype=dtype, device=device)
+        return torch.zeros(shape, dtype=dtype, device=dev)
 
     def kv(*lead):
         return {"k": zeros(*lead, B, S, Hkv, hd),
                 "v": zeros(*lead, B, S, Hkv, hd),
                 "pos": torch.full((*lead, B, S), -1, dtype=torch.int32,
-                                  device=device)}
+                                  device=dev)}
 
     if cfg.family == "encdec":
         n = cross_len or cfg.enc_seq
@@ -425,7 +427,8 @@ def make_cache(cfg: ModelConfig, B: int, S_max: int, device="cuda",
     else:
         cache = kv(cfg.n_layers)
     if on_mesh(ctx):
-        cache = distribute_tree(cache, cache_spec_tree(cache, ctx), ctx.mesh)
+        cache = filled_tree(cache, cache_spec_tree(cache, ctx), ctx.mesh,
+                            device, fill={"pos": -1})
     return cache
 
 
@@ -464,7 +467,7 @@ def lm_prefill(params, batch, cfg: ModelConfig, s_max: int | None = None,
     reference's, which pads to W when given ``s_max``)."""
     tokens, positions = prompt_positions(batch["tokens"], _device(params))
     B, T = tokens.shape
-    x = constrain(_embed_in(params, tokens, positions, cfg, ctx), ctx,
+    x = constrain(_embed_in(params, tokens, positions[:1], cfg, ctx), ctx,
                   act_spec(ctx))
     src = _cross_source(params, batch, cfg, ctx=ctx)
     cache = make_cache(cfg, B, max(T, s_max or 0), device=tokens.device,

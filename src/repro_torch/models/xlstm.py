@@ -33,7 +33,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.parallel.sharding import cache_spec_tree
+from repro_torch.parallel.sharding import cache_spec_tree, filled_tree
 from .common import ModelConfig, remat
 from .layers import (ModelShard, _local, _normal, act_spec, constrain,
                      embed, init_norm, model_shard, on_mesh,
@@ -386,10 +386,17 @@ def init_xlstm(cfg: ModelConfig, gen: torch.Generator) -> dict:
 
 
 def xlstm_states(cfg: ModelConfig, B: int, device="cuda", ctx=None) -> dict:
+    """The zeroed decode state (each ``m`` at ``NEG``).  On a mesh each
+    rank allocates only its own shard of ``cache_spec_tree``'s placements
+    (``filled_tree``)."""
     G = cfg.n_layers // GROUP
-    st = {"m": mlstm_state(cfg, B, device, (G, GROUP - 1)),
-          "s": slstm_state(cfg, B, device, (G,))}
-    return _on_cache_spec(st, ctx)
+    dev = "meta" if on_mesh(ctx) else device
+    st = {"m": mlstm_state(cfg, B, dev, (G, GROUP - 1)),
+          "s": slstm_state(cfg, B, dev, (G,))}
+    if on_mesh(ctx):
+        st = filled_tree(st, cache_spec_tree(st, ctx), ctx.mesh, device,
+                         fill={"m": NEG})
+    return st
 
 
 def _on_cache_spec(st: dict, ctx) -> dict:

@@ -21,6 +21,8 @@ A mesh is a ``DeviceMesh`` with named dims, or a ``{name: size}`` dict.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
@@ -243,6 +245,45 @@ def distribute_tree(tree, specs, mesh):
     tree of whole tensors and its spec tree -> a tree of DTensors."""
     return map_tree(lambda path, stack, t, spec: distribute(t, spec, mesh),
                     tree, specs)
+
+
+def local_shape(shape, pl, mesh) -> tuple:
+    """This rank's shard of a tensor of ``shape`` under the placements
+    ``pl``: each ``Shard(d)`` splits dim d as ``torch.chunk`` does (the
+    first chunks the largest), over the mesh dims in order, as DTensor
+    splits it."""
+    out = list(shape)
+    for p, n, i in zip(pl, mesh.shape, mesh.get_coordinate()):
+        if isinstance(p, Shard):
+            c = -(-out[p.dim] // n)
+            out[p.dim] = max(0, min(c, out[p.dim] - i * c))
+    return tuple(out)
+
+
+def from_shard(local: torch.Tensor, pl, shape, mesh) -> DTensor:
+    """This rank's shard ``local`` of a tensor of ``shape`` under the
+    placements ``pl`` as a DTensor, with no communication and no copy."""
+    shape = tuple(shape)
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    return DTensor.from_local(local, mesh, pl, run_check=False, shape=shape,
+                              stride=stride)
+
+
+def filled_tree(shapes, specs, mesh, device, fill: dict | None = None):
+    """The counterpart of the reference's zeroed cache jitted with
+    ``out_shardings``: a tree of meta tensors (a KV cache or a recurrent
+    state) and its spec tree -> a tree of DTensors, each rank allocating
+    its own shard on ``device`` and nothing of the global shape.  A leaf
+    holds ``fill[key]`` (its last dict key), else 0."""
+    fill = fill or {}
+
+    def alloc(path, stack, meta, spec):
+        pl = placements(spec, mesh)
+        local = torch.full(local_shape(meta.shape, pl, mesh),
+                           fill.get(path[-1], 0), dtype=meta.dtype,
+                           device=device)
+        return from_shard(local, pl, meta.shape, mesh)
+    return map_tree(alloc, shapes, specs)
 
 
 def full_tree(tree):

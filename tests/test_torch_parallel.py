@@ -142,10 +142,31 @@ class _GradSpy(AdamW):
         return super().update(grads, *a, **kw)
 
 
+def _shards(cache, ctx) -> list:
+    """(path, global shape, local shape, the global shape divided as
+    ``cache_spec_tree`` says) of each leaf of a cache on a mesh."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.parallel import cache_spec_tree, map_tree, mesh_shape
+    sizes, out = mesh_shape(ctx.mesh), []
+
+    def one(path, stack, t, spec):
+        assert isinstance(t, DTensor), path
+        div = [math.prod(sizes[a] for a in ((s,) if isinstance(s, str)
+                                            else s or ()))
+               for s in spec]
+        out.append(("/".join(path), tuple(t.shape),
+                    tuple(t.to_local().shape),
+                    tuple(g // d for g, d in zip(t.shape, div))))
+    map_tree(one, cache, cache_spec_tree(cache, ctx))
+    return out
+
+
 def _decode(model, p, ctx=None, b: int = B, t: int = 6, n: int = 3):
     """Greedy decode of n steps after a prompt of t tokens (with frames
     or patches for the cross-attention families) -> the logits of the
-    prefill and of each step, whole."""
+    prefill and of each step, whole.  On a mesh, each leaf of the
+    prefill's cache holds only its rank's shard."""
     cfg = model.cfg
     r = np.random.default_rng(1)
     batch = {"tokens": r.integers(0, cfg.vocab, (b, t))}
@@ -158,6 +179,9 @@ def _decode(model, p, ctx=None, b: int = B, t: int = 6, n: int = 3):
     whole = (lambda x: x.full_tensor()) if ctx is not None else \
         (lambda x: x)
     lg, cache = model.prefill(p, batch, s_max=t + n, ctx=ctx)
+    if ctx is not None:
+        for path, _, local, exp in _shards(cache, ctx):
+            assert local == exp, path
     out = [whole(lg)]
     for i in range(n):
         lg, cache = model.decode_step(p, cache, out[-1].argmax(-1),
@@ -542,6 +566,7 @@ def _model_worker(rank, world, rdv, out):
     toks = _batch(model.cfg, b=2, t=6)["tokens"]
     lg, cache = model.prefill(p, {"tokens": toks}, ctx=ctx, s_max=20)
     res["cache_k_placements"] = [str(x) for x in cache["k"].placements]
+    res["cache_shards"] = _shards(cache, ctx)
     steps = [lg.full_tensor()]
     for i in range(4):
         tok = steps[-1].argmax(-1)
@@ -883,6 +908,13 @@ def test_decode_over_an_s_sharded_cache_equals_one_process(mesh_runs):
     new token lands in exactly one shard."""
     assert mesh_runs["cache_k_placements"] == ["S(1)",
                                                "S(2)"]
+    # each leaf of the prefill's cache is a DTensor holding its rank's
+    # shard: k, v and pos split 4 ways over S
+    shards = mesh_runs["cache_shards"]
+    assert [p for p, *_ in shards] == ["k", "v", "pos"]
+    for path, glob, local, exp in shards:
+        assert local == exp, path
+        assert local[2] * 4 == glob[2] == 20, path
     model = build_model(_smoke(INTERNLM2))
     p = _params(model)
     toks = _batch(model.cfg, b=2, t=6)["tokens"]
