@@ -47,7 +47,13 @@ Phases, each ending in ``torch.cuda.synchronize()``:
             output 0), and flash attention's ``q_offset`` at a
             deepseek-coder-33b shape (56:8, hd 128, T 512) split 2 and 4
             ways, causal and windowed, bf16 on the tensor-core kernel and
-            f32 on the SIMT one, within the same tolerances;
+            f32 on the SIMT one, within the same tolerances; and the
+            sLSTM's recurrence as one op (``repro_torch::slstm_scan``, a
+            plain loop: the reference has no kernel there) at
+            xlstm-1.3b's width (4 x 256, 4 heads of 512): its output equal
+            to the plain loop's bit for bit, its backward's gradients
+            within ``SLSTM_GRAD_TOL`` of autograd's through the loop, both
+            timed beside the loop's;
 3. serve  — qwen2.5-3b FULL (36 layers, d_model 2048, vocab 151936) in bf16
             with random weights from a seeded generator: 4 requests of 128
             prompt tokens and 16 new tokens, one of them suspended and
@@ -129,7 +135,9 @@ Phases, each ending in ``torch.cuda.synchronize()``:
             2048, 4 heads of 512, vocab 50304; 1.17 B parameters): 4 x
             (256 + 16), the chunkwise mLSTM in 2 chunks of 128; no
             attention kernel runs, and the step's bound counts the mLSTM
-            state read and written;
+            state read and written; one sLSTM op call a group in the
+            prefill and in each step, and the same prefill and steps with
+            the plain loop in the op's place give the same tokens;
 16. model parity — the model API at SMOKE in f32 (TF32 off) for
             ``MODEL_PARITY`` (moonshot, qwen3-moe, whisper, llama-vision,
             xlstm, recurrentgemma at prompts of 40 and of 8 decoded past
@@ -193,14 +201,19 @@ Phases, each ending in ``torch.cuda.synchronize()``:
             rtol 1e-4, parameters within ``ROW_TOL["bf16"]`` row by row,
             2 flash launches a step.
 21. dry run — after phase 20's process group is closed: the port's dry
-            run (``launch/dryrun.py``) of five production cells at full
-            width, each on a fake process group that ``run_cell`` opens
-            and closes (phi3-mini-3.8b ``train_4k`` on (16, 16),
-            moonshot-v1-16b-a3b ``decode_32k`` on (2, 16, 16), and on
-            (16, 16) recurrentgemma-9b ``train_4k``, xlstm-1.3b
+            run (``launch/dryrun.py``) of ten production cells at full
+            width (``DRYRUN_CELLS``), each on a fake process group that
+            ``run_cell`` opens and closes (phi3-mini-3.8b ``train_4k`` on
+            (16, 16), moonshot-v1-16b-a3b ``decode_32k`` on (2, 16, 16),
+            and on (16, 16) recurrentgemma-9b ``train_4k``, xlstm-1.3b
             ``decode_32k`` and llama-3.2-vision-11b ``decode_32k``, whose
             recurrent mixers or decode cross-attention run split over
-            ``model``), every record ``status: OK``, printing per device
+            ``model``, qwen2.5-3b and deepseek-coder-33b ``train_4k``,
+            phi3 and deepseek ``prefill_32k``, and xlstm-1.3b
+            ``train_4k``, whose trace takes minutes on the host), every
+            record ``status: OK``, the
+            train and prefill cells within one card and the reference's
+            temporaries as ``dryrun_phase`` says, printing per device
             the counted FLOPs (beside ``dryrun_terms``: what still runs
             whole over ``model`` and what ran whole before the split),
             bytes, wire bytes, arguments, temporaries and the trace's
@@ -390,18 +403,37 @@ def device_ms(fn, iters: int, match: str | None = None) -> float | None:
     return us / iters / 1e3
 
 
+# a profile that comes back empty or incomplete is taken again, up to this
+# many times, before a time falls back to the CUDA events
+PROFILE_RETRIES = 3
+
+
+def profiled_ms(fn, iters: int, match: str | None = None) -> tuple:
+    """(``device_ms``, or None where every profile failed, and the number
+    of profiles taken): the first and up to ``PROFILE_RETRIES`` more."""
+    for n in range(1, PROFILE_RETRIES + 2):
+        ms = device_ms(fn, iters, match)
+        if ms is not None:
+            break
+    return ms, n
+
+
 def kernel_times(fn, plain, iters: int, match: str) -> dict:
     """``ms``/``plain_ms``: device time per call from the profiler, each
-    column on its own falling back to the CUDA-event time per call where
-    its profile is empty or incomplete (``ms_from``/``plain_ms_from`` say
-    which); ``call_ms``/``plain_call_ms``: the event time per call.  The
-    kernel's profile counts only its own kernel's events (``match``)."""
+    column on its own taken again (``profiled_ms``) where its profile is
+    empty or incomplete, and falling back to the CUDA-event time per call
+    only where every profile was (``ms_from``/``plain_ms_from`` say which,
+    ``ms_profiles``/``plain_ms_profiles`` how many profiles were taken);
+    ``call_ms``/``plain_call_ms``: the event time per call.  The kernel's
+    profile counts only its own kernel's events (``match``)."""
     call, plain_call = time_ms(fn, iters), time_ms(plain, iters // 4)
-    dev, plain_dev = device_ms(fn, iters, match), device_ms(plain, iters // 4)
+    dev, n_dev = profiled_ms(fn, iters, match)
+    plain_dev, n_plain = profiled_ms(plain, iters // 4)
     return dict(ms=call if dev is None else dev,
                 ms_from="events" if dev is None else "profiler",
                 plain_ms=plain_call if plain_dev is None else plain_dev,
                 plain_ms_from="events" if plain_dev is None else "profiler",
+                ms_profiles=n_dev, plain_ms_profiles=n_plain,
                 call_ms=call, plain_call_ms=plain_call)
 
 
@@ -1032,6 +1064,141 @@ def dispatch_cost(torch, rng, calls: int = 100, rounds: int = 7) -> dict:
     return out
 
 
+# ------------------------------------------ phase 2: the sLSTM's operator
+# xlstm-1.3b's recurrence at the width and prompt of its serve phase
+SLSTM_SHAPE = dict(B=4, T=256, H=4, dh=512)
+# the op's gradients against autograd through the plain loop: the largest
+# difference of each gradient over its largest magnitude (the two sum the
+# same terms in other orders, over 256 steps of the recurrence)
+SLSTM_GRAD_TOL = 1e-4
+
+
+def plain_slstm_scan(torch, z_in, o_in, i_in, f_in, p, s):
+    """The sLSTM's recurrence as the port ran it before it became one
+    operator (``models/xlstm.py`` ``slstm_scan`` then): a loop of eager
+    ops, h kept in a list and stacked; its gradient is autograd's."""
+    import torch.nn.functional as F
+    T, dh = z_in.shape[1], z_in.shape[-1]
+    rec = torch.cat([p["rz"].float(), p["ri"], p["rf"]], dim=-1)
+    c, n, h, m = s["c"], s["n"], s["h"], s["m"]
+    hs = []
+    for t in range(T):
+        hr = torch.einsum("bhd,hde->bhe", h, rec)
+        z = torch.tanh(z_in[:, t] + hr[..., :dh])
+        ipre = i_in[:, t] + hr[..., dh]
+        fpre = f_in[:, t] + hr[..., dh + 1]
+        logf = F.logsigmoid(fpre)
+        m_new = torch.maximum(logf + m, ipre)
+        i_g = torch.exp(ipre - m_new)[..., None]
+        f_g = torch.exp(logf + m - m_new)[..., None]
+        c = f_g * c + i_g * z
+        n = f_g * n + i_g
+        h = torch.sigmoid(o_in[:, t]) * (c / torch.clamp(n, min=1e-6))
+        m = m_new
+        hs.append(h)
+    return torch.stack(hs, dim=1), {"c": c, "n": n, "h": h, "m": m}
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def check_slstm_op(torch, rng) -> dict:
+    """``repro_torch::slstm_scan`` (``models/xlstm.py`` ``slstm_scan``) on
+    the card at ``SLSTM_SHAPE`` from a zero state, inputs drawn from the
+    seed at the model's scales: its output and final state equal the plain
+    loop's (``plain_slstm_scan``) bit for bit, and the gradients of z_in,
+    o_in, i_in, f_in, rz, ri and rf through ``slstm_scan_backward`` equal
+    autograd's through the loop within ``SLSTM_GRAD_TOL``.  Both are
+    timed by CUDA events (the loops are host-bound: about 25 launches a
+    step forward and 59 back), the forward alone with no gradient and
+    forward with backward, and the forward by the profiler's device
+    time."""
+    from repro_torch.models import slstm_op, xlstm
+    B, T, H, dh = (SLSTM_SHAPE[k] for k in ("B", "T", "H", "dh"))
+
+    def rand(*shape, scale=1.0, shift=0.0):
+        x = rng.standard_normal(shape).astype("float32") * scale + shift
+        return torch.as_tensor(x, device="cuda")
+
+    sr = 1.0 / math.sqrt(dh)
+    leaves = [rand(B, T, H, dh), rand(B, T, H, dh), rand(B, T, H),
+              rand(B, T, H, shift=3.0), rand(H, dh, dh, scale=sr),
+              rand(H, dh, 1, scale=sr), rand(H, dh, 1, scale=sr)]
+    zeros = torch.zeros((B, H, dh), device="cuda")
+    state = {"c": zeros, "n": zeros, "h": zeros,
+             "m": torch.full((B, H), -1e30, device="cuda")}
+    cot = rand(B, T, H, dh)
+
+    def op(*xs):
+        return xlstm.slstm_scan(*xs[:4], dict(zip(("rz", "ri", "rf"),
+                                                  xs[4:])), state)
+
+    def plain(*xs):
+        return plain_slstm_scan(torch, *xs[:4], dict(zip(
+            ("rz", "ri", "rf"), xs[4:])), state)
+
+    def grads(fn):
+        xs = [x.detach().requires_grad_() for x in leaves]
+        hs, _ = fn(*xs)
+        return torch.autograd.grad((hs * cot).sum(), xs)
+
+    tag = f"slstm op (B {B}, T {T}, H {H}, dh {dh}, f32)"
+    calls0 = dict(slstm_op.CALLS)
+    with torch.no_grad():
+        got_h, got_s = op(*leaves)
+        exp_h, exp_s = plain(*leaves)
+    equal = torch.equal(got_h, exp_h) and all(
+        torch.equal(got_s[k], exp_s[k]) for k in exp_s)
+    check(equal, f"{tag}: the op's forward differs from the plain loop's "
+          f"(max abs {float((got_h - exp_h).abs().max())})")
+    g_op, g_plain = grads(op), grads(plain)
+    calls = {k: slstm_op.CALLS[k] - calls0[k] for k in calls0}
+    check(calls == {"slstm_scan": 2, "slstm_scan_backward": 1},
+          f"{tag}: op calls {calls}")
+    names = ("z_in", "o_in", "i_in", "f_in", "rz", "ri", "rf")
+    rel = {n: float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+           for n, a, b in zip(names, g_op, g_plain)}
+    check(max(rel.values()) <= SLSTM_GRAD_TOL, f"{tag}: gradients against "
+          f"autograd through the loop {rel}, past {SLSTM_GRAD_TOL}")
+    del got_h, got_s, exp_h, exp_s, g_op, g_plain
+
+    def forward(fn):
+        def run():
+            with torch.no_grad():
+                fn(*leaves)
+        return run
+
+    # the forward's device time from one profile of one call; the
+    # backward's is not taken (profiles of its launches took minutes to
+    # read back)
+    times = {}
+    for key, fn, profiled in (
+            ("op_forward", forward(op), True),
+            ("plain_forward", forward(plain), True),
+            ("op_forward_backward", lambda: grads(op), False),
+            ("plain_forward_backward", lambda: grads(plain), False)):
+        times[key] = {"event_ms": time_ms(fn, 3, warmup=1),
+                      "device_ms": device_ms(fn, 1) if profiled else None}
+    card = card_line()
+    out = {"shape": SLSTM_SHAPE, "forward_bit_for_bit": equal,
+           "grad_rel_err": rel, "grad_tol": SLSTM_GRAD_TOL, "times": times,
+           "card": card}
+    log(f"{tag} on {card}: forward equal to the plain loop bit for bit; "
+        f"gradients within {max(rel.values()):.3g} of autograd's through "
+        f"the loop (tolerance {SLSTM_GRAD_TOL})")
+    for key, t in times.items():
+        dev = "not measured" if t["device_ms"] is None else \
+            f"{t['device_ms']:.3f} ms (profiler)"
+        log(f"{tag} {key}: {t['event_ms']:.3f} ms a call (events), device "
+            f"busy {dev}")
+    return out
+
+
 def time_paged_contiguous(torch, rng, label, B, S, H, Hkv, hd, lens,
                           iters) -> dict:
     """The model API's decode attention at one bf16 shape: the kernel on
@@ -1155,8 +1322,9 @@ def time_kernels(torch, rng, results) -> None:
     encoder, the cross-attention); the codec at
     ``CODEC_TIMED``'s shapes, a qwen2.5-3b serve page-out (9 pages, 648
     units) the row's numbers."""
-    keys = ("ms", "plain_ms", "ms_from", "plain_ms_from", "call_ms",
-            "plain_call_ms", "bound_ms", "bound_by")
+    keys = ("ms", "plain_ms", "ms_from", "plain_ms_from", "ms_profiles",
+            "plain_ms_profiles", "call_ms", "plain_call_ms", "bound_ms",
+            "bound_by")
     flash = [time_flash(torch, rng, "qwen-T128", 1, 128, 16, 2, 128, 200),
              time_flash(torch, rng, "qwen-T1000", 1, 1000, 16, 2, 128, 50),
              time_flash(torch, rng, "qwen-T4000", 1, 4000, 16, 2, 128, 20),
@@ -2194,6 +2362,7 @@ def serve_model(torch, np, arch: str, B: int, T: int, steps: int,
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_route
+    from repro_torch.models import slstm_op
     from repro_torch.models.api import build_model
     before = torch.cuda.memory_allocated()
     check(before < 1e9, f"{before / 1e9:.2f} GB allocated before {arch}'s "
@@ -2222,6 +2391,7 @@ def serve_model(torch, np, arch: str, B: int, T: int, steps: int,
     n_self, n_cross, n_enc = attention_layers(cfg)
     batch = model_batch(torch, cfg, B, T, "cuda")
     torch.cuda.synchronize()
+    calls0 = dict(slstm_op.CALLS)
     _build.reset_launch_counts()
     t0 = time.perf_counter()
     logits, cache = model.prefill(params, batch, s_max=T + steps)
@@ -2255,6 +2425,14 @@ def serve_model(torch, np, arch: str, B: int, T: int, steps: int,
     decode_s = time.perf_counter() - t0
     prof = profile_window(torch, step, profiled)
     dec = dict(_build.launch_counts())
+    # the sLSTM's recurrence: one op call a group in the prefill and in
+    # each decode step, never its backward
+    calls = {k: slstm_op.CALLS[k] - calls0[k] for k in calls0}
+    groups = cfg.n_layers // 8 if cfg.family == "ssm" else 0
+    check(calls == {"slstm_scan": groups * (1 + steps),
+                    "slstm_scan_backward": 0},
+          f"{tag}: slstm op calls {calls}, {groups} a prefill and a step "
+          f"expected")
     check(dec.get("paged_attention", 0) == steps * (n_self + n_cross)
           and dec.get("flash_attention", 0) == 0,
           f"{tag}: decode launches {dec} for {steps} steps of "
@@ -2324,6 +2502,9 @@ def serve_model(torch, np, arch: str, B: int, T: int, steps: int,
         f"{out['flash_per_prefill']}, paged a step {out['paged_per_step']}"
         + ("" if n_self + n_cross + n_enc else
            " (no attention layer: neither attention kernel runs here)"))
+    if groups:
+        out["slstm"] = slstm_loop_leg(torch, np, model, params, batch, B, T,
+                                      steps, lg, calls, tag)
     if arch == MESH_ARCH:
         del out_logits, lg, logits, cache, state, c
         out["mesh_leg"] = mesh_serve(torch, np, model, params, batch, B, T,
@@ -2333,6 +2514,38 @@ def serve_model(torch, np, arch: str, B: int, T: int, steps: int,
     del batch, weights, rec_state
     release_weights(torch, params, arch)
     return out
+
+
+def slstm_loop_leg(torch, np, model, params, batch, B: int, T: int,
+                   steps: int, lg, calls: dict, tag: str) -> dict:
+    """The same prefill and greedy decode steps with ``xlstm.slstm_scan``
+    swapped for the plain loop the port ran before the recurrence became
+    one operator (``plain_slstm_scan``): the tokens must be those of the
+    run through the op (``lg``, its logits), which are the parent's."""
+    from repro_torch.models import xlstm
+    orig = xlstm.slstm_scan
+    xlstm.slstm_scan = lambda *a: plain_slstm_scan(torch, *a)
+    try:
+        logits, cache = model.prefill(params, batch, s_max=T + steps)
+        out = [logits]
+        for i in range(steps):
+            logits, cache = model.decode_step(params, cache,
+                                              out[-1].argmax(-1),
+                                              np.full(B, T + i))
+            out.append(logits)
+        torch.cuda.synchronize()
+    finally:
+        xlstm.slstm_scan = orig
+    loop = torch.stack(out)
+    same = lg.argmax(-1).T.tolist() == loop.argmax(-1).T.tolist()
+    diff = float((lg.float() - loop.float()).abs().max())
+    check(same, f"{tag}: greedy tokens through the slstm op differ from "
+          f"the plain loop's (logits max abs {diff})")
+    log(f"{tag}: the sLSTM op called {calls['slstm_scan']} times (one a "
+        f"group in the prefill and in each step); greedy tokens equal to "
+        f"the plain loop's, logits max abs difference {diff}")
+    return {"calls": calls, "tokens_equal_plain_loop": same,
+            "logits_max_abs_diff": diff}
 
 
 # ---------------------------------------------------- phases 17-18: train
@@ -3418,13 +3631,17 @@ def mesh_train(torch, np) -> dict:
 # reduces over the vocab shards, where logits gathered whole over
 # ``model`` would not fit.  deepseek's 56 heads do not divide 16: its
 # blocks run sequence-parallel, and its temporaries are held to the
-# reference's (``REFERENCE_TEMPS``), and to the card where they fit.  A
-# prefill cell's arguments and temporaries must fit the card too, each
-# rank allocating only its shard of the cache, and its temporaries less
-# its outputs (the cache, which the reference counts as output bytes)
-# must stay within ``TEMP_FACTOR`` of the reference's temporaries
+# reference's (``REFERENCE_TEMPS``).  xlstm-1.3b's sLSTM runs its
+# recurrence as one op (``models/slstm_op.py``), counted by formula: its
+# train step's temporaries are held within ``TEMP_FACTOR`` of the
+# reference's.  A prefill cell's arguments and temporaries must fit the
+# card too, each rank allocating only its shard of the cache, and its
+# temporaries less its outputs (the cache, which the reference counts as
+# output bytes) must stay within ``TEMP_FACTOR`` of the reference's
+# temporaries
 DRYRUN_CELLS = [(PHI3, "train_4k", False), (MOONSHOT, "decode_32k", True),
                 (RGEMMA, "train_4k", False), (XLSTM, "decode_32k", False),
+                (XLSTM, "train_4k", False),
                 (VISION, "decode_32k", False), (QWEN, "train_4k", False),
                 (DEEPSEEK, "train_4k", False), (PHI3, "prefill_32k", False),
                 (DEEPSEEK, "prefill_32k", False)]
@@ -3433,9 +3650,14 @@ CARD_BYTES = 80e9
 # ``scripts/reference_cells.py`` (its ``build_cell`` compiled on the CPU,
 # jax 0.9.0)
 REFERENCE_TEMPS = {(DEEPSEEK, "train_4k"): 95.674e9,
+                   (XLSTM, "train_4k"): 11.073156296e9,
                    (PHI3, "prefill_32k"): 3.688366856e9,
                    (DEEPSEEK, "prefill_32k"): 14.13829532e9}
 TEMP_FACTOR = 2.5
+# how far past the reference's temporaries a train cell's may go:
+# deepseek's sequence-parallel blocks stay under the reference's own
+TRAIN_TEMP_FACTOR = {(DEEPSEEK, "train_4k"): 1.0,
+                     (XLSTM, "train_4k"): TEMP_FACTOR}
 
 
 def dryrun_terms(arch: str, shape_name: str, mesh_shape: dict) -> dict:
@@ -3489,11 +3711,86 @@ def dryrun_terms(arch: str, shape_name: str, mesh_shape: dict) -> dict:
     return {"kept": kept, "removed": removed}
 
 
+def hold_dryrun_cell(arch: str, shape: str, rec: dict, res: dict) -> None:
+    """One record of phase 21: ``status: OK``, its counts printed and kept
+    in ``res``, a train or prefill cell held to ``CARD_BYTES`` and to the
+    reference's temporaries where ``REFERENCE_TEMPS`` has them."""
+    import torch.distributed as dist
+    cell = f"{arch} {shape} {rec['mesh']}"
+    check(rec["status"] == "OK", f"dry run {cell}: {rec['status']} "
+          f"{rec.get('error')}\n{rec.get('traceback')}")
+    check(not dist.is_initialized(), f"dry run {cell}: its fake "
+          f"process group was left open")
+    hc, mem = rec["hlo_cost"], rec["memory"]
+    res["cells"][cell] = {k: rec[k] for k in (
+        "status", "trace_s", "n_devices", "cost", "memory",
+        "collectives", "hlo_cost", "attention")}
+    terms = dryrun_terms(arch, shape, dict(zip(
+        ("pod", "data", "model")[-len(rec["mesh"].split("x")):],
+        map(int, rec["mesh"][len("pod"):].split("x")))))
+    res["cells"][cell]["terms"] = terms
+    if terms["kept"] or terms["removed"]:
+        log(f"dry run {cell}: {hc['flops'] / 1e12:.4f} TFLOP "
+            f"counted; whole over model, by the config's "
+            f"formulas: kept {terms['kept'] / 1e12:.4f} TFLOP (the "
+            f"sLSTM's recurrence), removed "
+            f"{terms['removed'] / 1e12:.4f} TFLOP (the mixers' or "
+            f"the decode cross-attention's work, now split)")
+    log(f"dry run {cell} (counted, per device of "
+        f"{rec['n_devices']}): {hc['flops'] / 1e12:.3f} TFLOP, "
+        f"{hc['bytes'] / 1e9:.2f} GB moved, "
+        f"{hc['wire_bytes'] / 1e9:.3f} GB on the wire, "
+        f"{hc['ops']} ops; arguments "
+        f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB, temporaries "
+        f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB, outputs "
+        f"{mem['output_size_in_bytes'] / 1e9:.3f} GB (aliased "
+        f"{mem['alias_size_in_bytes'] / 1e9:.3f}); traced in "
+        f"{rec['trace_s']} s")
+    temps = mem["temp_size_in_bytes"]
+    held = mem["argument_size_in_bytes"] + temps
+    ref = REFERENCE_TEMPS.get((arch, shape))
+    if shape == "prefill_32k":
+        outs = mem["output_size_in_bytes"]
+        check(held <= CARD_BYTES, f"dry run {cell}: arguments + "
+              f"temporaries {held / 1e9:.3f} GB a device, past "
+              f"the card's {CARD_BYTES / 1e9:.0f} GB")
+        check(temps - outs <= TEMP_FACTOR * ref, f"dry run {cell}: "
+              f"temporaries less outputs {(temps - outs) / 1e9:.3f}"
+              f" GB a device, past {TEMP_FACTOR} x the reference's "
+              f"{ref / 1e9:.3f} GB")
+        log(f"dry run {cell}: arguments + temporaries "
+            f"{held / 1e9:.3f} GB a device, within "
+            f"{CARD_BYTES / 1e9:.0f} GB; temporaries "
+            f"{temps / 1e9:.3f} GB, of which outputs (the cache "
+            f"and the logits) {outs / 1e9:.3f} GB; less the "
+            f"outputs {(temps - outs) / ref:.2f} x the "
+            f"reference's {ref / 1e9:.3f} GB")
+    elif shape == "train_4k":
+        if ref is not None:
+            limit = TRAIN_TEMP_FACTOR[(arch, shape)] * ref
+            check(temps <= limit, f"dry run {cell}: temporaries "
+                  f"{temps / 1e9:.3f} GB a device, past "
+                  f"{limit / 1e9:.3f} GB, "
+                  f"{TRAIN_TEMP_FACTOR[(arch, shape)]} x the "
+                  f"reference's {ref / 1e9:.3f} GB")
+            log(f"dry run {cell}: temporaries {temps / 1e9:.3f} "
+                f"GB a device, {temps / ref:.2f} x the "
+                f"reference's {ref / 1e9:.3f} GB (at most "
+                f"{TRAIN_TEMP_FACTOR[(arch, shape)]})")
+        check(held <= CARD_BYTES, f"dry run {cell}: arguments + "
+              f"temporaries {held / 1e9:.3f} GB a device, past "
+              f"the card's {CARD_BYTES / 1e9:.0f} GB")
+        log(f"dry run {cell}: arguments + temporaries "
+            f"{held / 1e9:.3f} GB a device, within "
+            f"{CARD_BYTES / 1e9:.0f} GB")
+
+
 def dryrun_phase(torch, train: dict) -> dict:
     """(a) ``launch.dryrun.run_cell`` for each of ``DRYRUN_CELLS``: every
-    record ``status: OK``, a train or prefill cell's arguments +
-    temporaries within ``CARD_BYTES``, a prefill cell's temporaries less
-    its outputs within ``TEMP_FACTOR`` of the reference's; prints per
+    record ``status: OK``, a train or prefill cell's arguments + temporaries within
+    ``CARD_BYTES``, a train cell's temporaries within
+    ``TRAIN_TEMP_FACTOR`` of the reference's and a prefill cell's less
+    its outputs within ``TEMP_FACTOR`` (``hold_dryrun_cell``); prints per
     device the counted FLOPs, bytes, wire bytes, argument, output and
     temporary bytes and the trace's seconds.
     (b) ``trace_cell`` of phase 17's step (phi3-mini-3.8b FULL, 4 x 1024
@@ -3514,74 +3811,8 @@ def dryrun_phase(torch, train: dict) -> dict:
     res = {"cells": {}, "launches": {}}
     try:
         for arch, shape, multi_pod in DRYRUN_CELLS:
-            rec = run_cell(arch, shape, multi_pod, out_dir)
-            cell = f"{arch} {shape} {rec['mesh']}"
-            check(rec["status"] == "OK", f"dry run {cell}: {rec['status']} "
-                  f"{rec.get('error')}\n{rec.get('traceback')}")
-            check(not dist.is_initialized(), f"dry run {cell}: its fake "
-                  f"process group was left open")
-            hc, mem = rec["hlo_cost"], rec["memory"]
-            res["cells"][cell] = {k: rec[k] for k in (
-                "status", "trace_s", "n_devices", "cost", "memory",
-                "collectives", "hlo_cost", "attention")}
-            terms = dryrun_terms(arch, shape, dict(zip(
-                ("pod", "data", "model")[-len(rec["mesh"].split("x")):],
-                map(int, rec["mesh"][len("pod"):].split("x")))))
-            res["cells"][cell]["terms"] = terms
-            if terms["kept"] or terms["removed"]:
-                log(f"dry run {cell}: {hc['flops'] / 1e12:.4f} TFLOP "
-                    f"counted; whole over model, by the config's "
-                    f"formulas: kept {terms['kept'] / 1e12:.4f} TFLOP (the "
-                    f"sLSTM's recurrence), removed "
-                    f"{terms['removed'] / 1e12:.4f} TFLOP (the mixers' or "
-                    f"the decode cross-attention's work, now split)")
-            log(f"dry run {cell} (counted, per device of "
-                f"{rec['n_devices']}): {hc['flops'] / 1e12:.3f} TFLOP, "
-                f"{hc['bytes'] / 1e9:.2f} GB moved, "
-                f"{hc['wire_bytes'] / 1e9:.3f} GB on the wire, "
-                f"{hc['ops']} ops; arguments "
-                f"{mem['argument_size_in_bytes'] / 1e9:.3f} GB, temporaries "
-                f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB, outputs "
-                f"{mem['output_size_in_bytes'] / 1e9:.3f} GB (aliased "
-                f"{mem['alias_size_in_bytes'] / 1e9:.3f}); traced in "
-                f"{rec['trace_s']} s")
-            temps = mem["temp_size_in_bytes"]
-            held = mem["argument_size_in_bytes"] + temps
-            ref = REFERENCE_TEMPS.get((arch, shape))
-            if shape == "prefill_32k":
-                outs = mem["output_size_in_bytes"]
-                check(held <= CARD_BYTES, f"dry run {cell}: arguments + "
-                      f"temporaries {held / 1e9:.3f} GB a device, past "
-                      f"the card's {CARD_BYTES / 1e9:.0f} GB")
-                check(temps - outs <= TEMP_FACTOR * ref, f"dry run {cell}: "
-                      f"temporaries less outputs {(temps - outs) / 1e9:.3f}"
-                      f" GB a device, past {TEMP_FACTOR} x the reference's "
-                      f"{ref / 1e9:.3f} GB")
-                log(f"dry run {cell}: arguments + temporaries "
-                    f"{held / 1e9:.3f} GB a device, within "
-                    f"{CARD_BYTES / 1e9:.0f} GB; temporaries "
-                    f"{temps / 1e9:.3f} GB, of which outputs (the cache "
-                    f"and the logits) {outs / 1e9:.3f} GB; less the "
-                    f"outputs {(temps - outs) / ref:.2f} x the "
-                    f"reference's {ref / 1e9:.3f} GB")
-            elif shape == "train_4k":
-                if ref is not None:
-                    check(temps <= ref, f"dry run {cell}: temporaries "
-                          f"{temps / 1e9:.3f} GB a device, past the "
-                          f"reference's {ref / 1e9:.3f} GB")
-                    log(f"dry run {cell}: temporaries {temps / 1e9:.3f} "
-                        f"GB a device, within the reference's "
-                        f"{ref / 1e9:.3f} GB")
-                check(held <= CARD_BYTES or ref is not None, f"dry run "
-                      f"{cell}: arguments + temporaries {held / 1e9:.3f} "
-                      f"GB a device, past the card's "
-                      f"{CARD_BYTES / 1e9:.0f} GB")
-                log(f"dry run {cell}: arguments + temporaries "
-                    f"{held / 1e9:.3f} GB a device, "
-                    + (f"within {CARD_BYTES / 1e9:.0f} GB"
-                       if held <= CARD_BYTES else
-                       f"past the card's {CARD_BYTES / 1e9:.0f} GB (held "
-                       f"to the reference's temporaries instead)"))
+            hold_dryrun_cell(arch, shape, run_cell(
+                arch, shape, multi_pod, out_dir), res)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     shape = ShapeCfg("train_phase17", "train", TRAIN["T"], TRAIN["B"])
@@ -3720,6 +3951,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     time_kernels(torch, rng, results)
     dispatch = dispatch_cost(torch, rng)
+    slstm = check_slstm_op(torch, np.random.default_rng(1))
     torch.cuda.synchronize()
 
     cfg, params = init_full(torch, QWEN)
@@ -3778,8 +4010,8 @@ def main() -> int:
                                      for k, c in by_path.items()},
                 **{k: results[name][k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "ms_from", "plain_ms_from", "call_ms",
-                    "plain_call_ms")},
+                    "library_ms", "ms_from", "plain_ms_from", "ms_profiles",
+                    "plain_ms_profiles", "call_ms", "plain_call_ms")},
                 **{k: results[name][k] for k in (
                     "max_row_rel_err", "at_shapes") if k in results[name]}}
 
@@ -3790,9 +4022,7 @@ def main() -> int:
             ("gather_quantize", "src/repro/kernels/block_transit.py:50"),
             ("scatter_dequantize",
              "src/repro/kernels/block_transit.py:157"))]}
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
+    card = card_line()
     log(f"total {time.perf_counter() - t_all:.1f} s")
     for key, p in paths.items():
         print(json.dumps({key: {k: v for k, v in p.items()
@@ -3807,9 +4037,10 @@ def main() -> int:
             "simt": c.get("flash_attention", 0)}
         for k, c in by_path.items()}}))
     print(json.dumps({"paged_dispatch": dispatch}))
+    print(json.dumps({"slstm_op": slstm}))
     print(json.dumps(variants))
     print(json.dumps(line))
-    print(smi.stdout.strip().splitlines()[0])
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -14,9 +14,14 @@ are held against (``tests/test_torch_dryrun.py``):
     computes its products replicated where its cost model finds that
     cheaper; the port, as DTensor, reduces the products' partial sums.
 
+  * ``--loop-trips N``: the collectives that the while loops of N trips
+    run, every trip and their callers' trips counted (``HloCost``'s
+    totals less its totals with those loops run no time): at N = T, the
+    per-step collectives of a recurrence that steps token by token.
+
     PYTHONPATH=src python scripts/reference_cells.py \\
         --arch phi3-mini-3.8b --shape train_4k [--multi-pod] [--f32] \\
-        [--hlo out.txt]
+        [--hlo out.txt] [--loop-trips 4096]
 
 compiles one production cell on 256 (``--multi-pod``: 512) forced host
 devices, a mesh with Auto axes (the reference's own ``run_cell`` makes
@@ -93,6 +98,22 @@ def compile_cell(arch: str, shape: str, mesh, overrides: dict,
             "weight_gathers": ag - no_w.get("all-gather", {}).get("bytes", 0)}
 
 
+def loop_collectives(text: str, trips: int) -> dict:
+    """Per kind, the count and payload bytes of the collectives that the
+    while loops of ``trips`` trips run."""
+    from repro.launch.hlo_cost import HloCost
+
+    class Skipped(HloCost):
+        def _trips(self, caller, body):
+            n = super()._trips(caller, body)
+            return 0 if n == trips else n
+
+    full = HloCost(text).totals()["collectives"]
+    rest = Skipped(text).totals()["collectives"]
+    return {k: {f: v[f] - rest.get(k, {}).get(f, 0)
+                for f in ("count", "bytes")} for k, v in full.items()}
+
+
 def auto_mesh(shape: tuple, names: tuple):
     import jax
     from jax.sharding import AxisType
@@ -117,6 +138,9 @@ def main(argv=None) -> None:
                     help="the config in f32 (no width the compiler changes)")
     ap.add_argument("--hlo", default=None,
                     help="write the compiled HLO text to this file")
+    ap.add_argument("--loop-trips", type=int, default=None,
+                    help="also count the collectives of while loops of "
+                    "this many trips")
     args = ap.parse_args(argv)
     n = 512 if args.multi_pod else 256
     os.environ["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={n}"
@@ -126,8 +150,18 @@ def main(argv=None) -> None:
     shape, names = ((2, 16, 16), ("pod", "data", "model")) \
         if args.multi_pod else ((16, 16), ("data", "model"))
     overrides = {"dtype": jnp.float32} if args.f32 else {}
+    hlo = args.hlo
+    if args.loop_trips and not hlo:
+        import tempfile
+        hlo = tempfile.mkstemp(suffix=".hlo.txt")[1]
     rec = compile_cell(args.arch, args.shape, auto_mesh(shape, names),
-                       overrides, args.hlo)
+                       overrides, hlo)
+    if args.loop_trips:
+        with open(hlo) as f:
+            rec["loop_collectives"] = {
+                args.loop_trips: loop_collectives(f.read(), args.loop_trips)}
+        if not args.hlo:
+            os.remove(hlo)
     print(json.dumps({"arch": args.arch, "shape": args.shape,
                       "mesh": "x".join(map(str, shape)), "f32": args.f32,
                       **rec}))

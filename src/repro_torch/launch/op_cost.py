@@ -14,16 +14,19 @@ so nothing is computed or allocated), and ``totals()`` returns
                       convolutions: 2 x the output's elements x the
                       contracted length of each ``mm``, ``addmm``,
                       ``bmm``, ``baddbmm`` (and ``mv``, ``dot``,
-                      ``convolution``), and the two attention kernels by
-                      their own formulas: 4 hd a (query head, key) pair
-                      the mask keeps (``attention_work``)
+                      ``convolution``), and each ``repro_torch`` op by its
+                      own formula (``OP_WORK``): the two attention
+                      kernels 4 hd a (query head, key) pair the mask
+                      keeps (``attention_work``), the sLSTM's recurrence
+                      and its backward what their plain loops count
+                      eagerly (``models/slstm_op.py``)
   * bytes           — each op's operand plus result bytes: eager's device
                       memory traffic with nothing fused.  Views, metadata
                       and allocations that write nothing move none
   * transcendentals — the elements of each exp, log, tanh, sigmoid, sqrt,
                       rsqrt, pow, sin, cos, expm1 and erf, the inputs of
                       each softmax and logsumexp, one exp a pair in the
-                      attention kernels
+                      attention kernels, the sLSTM ops' by their formulas
   * collectives     — per kind, under the reference's HLO names: the
                       count, the payload bytes and the largest group
   * collective_bytes, wire_bytes — the payloads summed, and the bytes a
@@ -58,6 +61,7 @@ peak of live storage above the arguments.
 from __future__ import annotations
 
 import contextlib
+import functools
 import weakref
 
 import numpy as np
@@ -67,6 +71,9 @@ from torch._subclasses.fake_tensor import is_fake
 from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
+
+from repro_torch.models.slstm_op import (slstm_scan_backward_work,
+                                         slstm_scan_work)
 
 aten = torch.ops.aten
 
@@ -141,6 +148,18 @@ def attention_work(name: str, args) -> tuple[float, float, float]:
                             else 0)
     return 4.0 * hd * n, float(kv + out + _nbytes(table)
                                + _nbytes(args[4])), float(n)
+
+
+# each ``repro_torch`` op -> (flops, bytes, transcendentals) of a call
+# from its arguments; a call counts as one op
+OP_WORK = {"flash_attention": functools.partial(attention_work,
+                                                "flash_attention"),
+           "paged_attention": functools.partial(attention_work,
+                                                "paged_attention"),
+           "paged_attention_lse": functools.partial(attention_work,
+                                                    "paged_attention_lse"),
+           "slstm_scan": slstm_scan_work,
+           "slstm_scan_backward": slstm_scan_backward_work}
 
 
 def _group_size(func_name: str, args) -> int:
@@ -310,7 +329,7 @@ class OpCost(TorchDispatchMode):
     def _count(self, func, args, kwargs, out) -> None:
         name = func.overloadpacket.__name__
         if func.namespace == "repro_torch":
-            fl, by, tr = attention_work(name, args)
+            fl, by, tr = OP_WORK[name](args)
             self.flops += fl
             self.bytes += by
             self.transcendentals += tr

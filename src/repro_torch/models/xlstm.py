@@ -13,8 +13,10 @@ The decode state keeps the reference's stacked layout:
 q/k/v/og stay in the model dtype and the gate math in f32, as in the
 reference.  A prompt runs the chunkwise-parallel mLSTM (a loop over chunks
 of einsums) where T is a multiple of the chunk, else the step recurrence;
-the sLSTM is a loop over time.  Both are plain PyTorch: the reference runs
-them outside any Pallas kernel.  The decode step writes the new state into
+the sLSTM is a loop over time inside one operator
+(``repro_torch::slstm_scan``, ``slstm_op.py``), with a backward of its
+own.  Both are plain PyTorch: the reference runs them outside any Pallas
+kernel.  The decode step writes the new state into
 the state it was given, IN PLACE, and returns it.
 
 On a mesh (``ctx``) the parameters are DTensors and each mixer runs
@@ -39,6 +41,7 @@ from .layers import (ModelShard, _local, _normal, act_spec, constrain,
                      embed, init_norm, model_shard, on_mesh,
                      prompt_positions, rms_norm, token_nll,
                      whole_over_model)
+from .slstm_op import slstm_scan_op
 
 GROUP = 8          # 7 mLSTM + 1 sLSTM per group
 NEG = -1e30        # the stabiliser m of an empty state
@@ -91,6 +94,49 @@ def slstm_state(cfg: ModelConfig, B: int, device="cuda", lead=()) -> dict:
             "n": torch.zeros((*lead, B, H, dh), **z),
             "h": torch.zeros((*lead, B, H, dh), **z),
             "m": torch.full((*lead, B, H), NEG, **z)}
+
+
+# A train step keeps a whole group's saved tensors from its recompute to
+# its backward (``_backbone``'s remat, the reference's).  Two of the
+# blocks' steps would keep f32 copies of their (B, T, D) input there:
+# the norm (its f32 input and product) and the gates' f32 products.  These
+# keep the input in its own dtype and make the rest again in the backward.
+class _NormKeepingInput(torch.autograd.Function):
+    """``rms_norm(x, scale)``; the backward runs the norm again under
+    autograd, from x."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.save_for_backward(x, scale)
+        return rms_norm(x, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            y = rms_norm(x, scale)
+        return torch.autograd.grad(y, (x, scale), g)
+
+
+class _F32Product(torch.autograd.Function):
+    """``x.float() @ w`` for x (..., D) and an f32 w (D, n); the backward
+    casts x again for w's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return x.float() @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        return ((g @ w.t()).to(x.dtype),
+                x.float().reshape(-1, x.shape[-1]).t() @ g2)
+
+
+_norm = _NormKeepingInput.apply
+_f32_product = _F32Product.apply
 
 
 def _whole(*ts):
@@ -203,7 +249,7 @@ def mlstm_apply(x, p, cfg: ModelConfig, state=None, chunk: int = 128):
     B, T, D = x.shape
     H = cfg.n_heads
     dh = D // H
-    xn = rms_norm(x, p["ln"]["scale"])
+    xn = _norm(x, p["ln"]["scale"])
     # the scale in the model dtype, as the reference multiplies by it
     scale = torch.tensor(1.0 / math.sqrt(dh), dtype=cfg.dtype,
                          device=x.device)
@@ -211,7 +257,7 @@ def mlstm_apply(x, p, cfg: ModelConfig, state=None, chunk: int = 128):
     k = (xn @ p["wk"]).reshape(B, T, H, dh) * scale
     v = (xn @ p["wv"]).reshape(B, T, H, dh)
     og = torch.sigmoid((xn @ p["wog"]).float()).to(cfg.dtype)
-    gates = xn.float() @ p["wif"] + p["bif"]
+    gates = _f32_product(xn, p["wif"]) + p["bif"]
     ipre, fpre = gates[..., :H], gates[..., H:]
     s = state if state is not None else mlstm_state(cfg, B, x.device)
     h, s = mlstm_core(q, k, v, ipre, fpre, s, chunk)
@@ -246,14 +292,14 @@ def mlstm_mesh(x, p, cfg: ModelConfig, state, ctx, sh: ModelShard,
 
     def f(x_l, ln, wq, wk, wv, wog, wif, bif, wout, C, n, m):
         B, T, D, H, dh, ks = _dims(x_l, cfg, sh)
-        xn = rms_norm(x_l, ln)
+        xn = _norm(x_l, ln)
         scale = torch.tensor(1.0 / math.sqrt(dh), dtype=cfg.dtype,
                              device=x_l.device)
         q = sh.gather(xn @ wq).reshape(B, T, H, dh) * scale
         k = sh.gather(xn @ wk).reshape(B, T, H, dh) * scale
         v = sh.gather(xn @ wv).reshape(B, T, H, dh)[..., ks]
         og = torch.sigmoid((xn @ wog).float()).to(cfg.dtype)
-        gates = xn.float() @ wif
+        gates = _f32_product(xn, wif)
         gates = (sh.gather(gates) if wif_col else gates) + bif
         if C is None:
             z = dict(dtype=torch.float32, device=x_l.device)
@@ -262,7 +308,9 @@ def mlstm_mesh(x, p, cfg: ModelConfig, state, ctx, sh: ModelShard,
             m = torch.full((B, H), NEG, **z)
         h, s = mlstm_core(q, k, v, gates[..., :H], gates[..., H:],
                           {"C": C, "n": n, "m": m}, chunk, ks, sh.sum)
-        h = sh.gather(h.to(cfg.dtype)).reshape(B, T, D)[..., sh.cols(D)]
+        # this rank's columns alone, not a view that keeps h whole
+        h = sh.gather(h.to(cfg.dtype)).reshape(B, T, D)[..., sh.cols(D)] \
+            .contiguous()
         return (h * og) @ wout, s["C"], s["n"], s["m"]
 
     st = state or {"C": None, "n": None, "m": None}
@@ -284,40 +332,26 @@ def slstm_apply(x, p, cfg: ModelConfig, state=None):
     B, T, D = x.shape
     H = cfg.n_heads
     dh = D // H
-    xn = rms_norm(x, p["ln"]["scale"])
+    xn = _norm(x, p["ln"]["scale"])
     z_in = (xn @ p["wz"]).reshape(B, T, H, dh).float()
     o_in = (xn @ p["wo"]).reshape(B, T, H, dh).float()
-    i_in = xn.float() @ p["wi"]
-    f_in = xn.float() @ p["wf"] + p["bf"]
+    i_in = _f32_product(xn, p["wi"])
+    f_in = _f32_product(xn, p["wf"]) + p["bf"]
     s = state if state is not None else slstm_state(cfg, B, x.device)
     hs, s = slstm_scan(z_in, o_in, i_in, f_in, p, s)
     return hs.reshape(B, T, D).to(cfg.dtype) @ p["wout"], s
 
 
 def slstm_scan(z_in, o_in, i_in, f_in, p, s):
-    """The sLSTM's recurrence from the state ``s``, one step a token:
-    z_in/o_in (B,T,H,dh) f32, i_in/f_in (B,T,H) -> (h (B,T,H,dh), the
-    final state)."""
-    T, dh = z_in.shape[1], z_in.shape[-1]
+    """The sLSTM's recurrence from the state ``s``, one step a token, as
+    one ``repro_torch::slstm_scan`` (``slstm_op.py``): z_in/o_in
+    (B,T,H,dh) f32, i_in/f_in (B,T,H) -> (h (B,T,H,dh), the final
+    state)."""
     # (H, dh, dh + 2): rz, ri, rf side by side
     rec = torch.cat([p["rz"].float(), p["ri"], p["rf"]], dim=-1)
-    c, n, h, m = s["c"], s["n"], s["h"], s["m"]
-    hs = []
-    for t in range(T):
-        hr = torch.einsum("bhd,hde->bhe", h, rec)
-        z = torch.tanh(z_in[:, t] + hr[..., :dh])
-        ipre = i_in[:, t] + hr[..., dh]
-        fpre = f_in[:, t] + hr[..., dh + 1]
-        logf = F.logsigmoid(fpre)
-        m_new = torch.maximum(logf + m, ipre)
-        i_g = torch.exp(ipre - m_new)[..., None]
-        f_g = torch.exp(logf + m - m_new)[..., None]
-        c = f_g * c + i_g * z
-        n = f_g * n + i_g
-        h = torch.sigmoid(o_in[:, t]) * (c / torch.clamp(n, min=1e-6))
-        m = m_new
-        hs.append(h)
-    return torch.stack(hs, dim=1), {"c": c, "n": n, "h": h, "m": m}
+    hs, c, n, h, m = slstm_scan_op(z_in, o_in, i_in, f_in, rec, s["c"],
+                                   s["n"], s["h"], s["m"])
+    return hs, {"c": c, "n": n, "h": h, "m": m}
 
 
 def slstm_mesh(x, p, cfg: ModelConfig, state, ctx, sh: ModelShard):
@@ -338,11 +372,11 @@ def slstm_mesh(x, p, cfg: ModelConfig, state, ctx, sh: ModelShard):
 
     def f(x_l, ln, wz, wo, wi, wf, rz, ri, rf, bf, wout, c, n, h, m):
         B, T, D, H, dh, _ = _dims(x_l, cfg, sh)
-        xn = rms_norm(x_l, ln)
+        xn = _norm(x_l, ln)
         z_in = sh.gather(xn @ wz).reshape(B, T, H, dh).float()
         o_in, = sh.sum(xn[..., sh.cols(D)] @ wo)
         o_in = o_in.reshape(B, T, H, dh).float()
-        i_in, f_in = xn.float() @ wi, xn.float() @ wf
+        i_in, f_in = _f32_product(xn, wi), _f32_product(xn, wf)
         if gate_col:
             i_in, f_in = sh.gather(i_in), sh.gather(f_in)
         s = ({"c": c, "n": n, "h": h, "m": m} if c is not None

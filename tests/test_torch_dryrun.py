@@ -11,7 +11,8 @@ on the CPU, against the reference.
       programs (a matmul, a 24-step loop, a gradient through checkpointed
       layers, a copy's bytes), and per device on a fake (2, 4) mesh: a
       sharded product counts its local 2 M N K, a replicated one its
-      whole;
+      whole; the sLSTM ops' formulas against ``OpCost``'s eager count of
+      their plain loops;
   (c) the dry run of every config at SMOKE widths on (2, 4) meshes
       against the reference's ``build_cell`` (its own mesh of 8 forced
       host devices with Auto axes, in a subprocess), for a train, a
@@ -24,7 +25,8 @@ on the CPU, against the reference.
       vocab the model axis divides and at one it does not; a head-split
       cell frozen at its counts; deepseek-coder-33b's and
       whisper-large-v3's ``train_4k`` at full widths on (16, 16), cut in
-      depth, where their blocks run sequence-parallel;
+      depth, where their blocks run sequence-parallel; xlstm-1.3b's
+      train step making as many sLSTM op calls at T 256 as at T 16;
   (d) the reference's own ``run_cell`` failing on jax 0.9.0 (its
       production mesh's Explicit axes; shown, not fixed), and the port's
       CLI writing an OK record with the reference's keys and a SKIP for a
@@ -41,6 +43,7 @@ import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
@@ -291,6 +294,41 @@ def test_op_cost_counts_a_sharded_product_at_its_local_shape(fake_group):
     assert r.totals()["flops"] == 2.0 * M * K * M
 
 
+@pytest.mark.parametrize("T", [1, 3, 9])
+def test_the_slstm_ops_count_what_their_plain_loops_count(T):
+    """``OP_WORK``'s formulas for ``repro_torch::slstm_scan`` (with and
+    without the saved steps) and ``slstm_scan_backward`` equal, to the
+    FLOP, the byte and the transcendental, what ``OpCost`` counts when it
+    runs each op's CPU implementation eagerly on real tensors."""
+    from repro_torch.launch.op_cost import OP_WORK
+    from repro_torch.models.slstm_op import (slstm_scan_backward_plain,
+                                             slstm_scan_plain)
+    rng = np.random.default_rng(T)
+    Bn, H, dh = 3, 2, 16
+
+    def rand(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32))
+
+    state = (rand(Bn, H, dh), rand(Bn, H, dh).abs() + 0.5, rand(Bn, H, dh),
+             rand(Bn, H))
+    fwd = (rand(Bn, T, H, dh), rand(Bn, T, H, dh), rand(Bn, T, H),
+           rand(Bn, T, H), rand(H, dh, dh + 2) * 0.3, *state)
+
+    def counted(fn, args):
+        with OpCost() as oc:
+            out = fn(*args)
+        return out, (oc.flops, oc.bytes, oc.transcendentals)
+
+    for save in (False, True):
+        out, eager = counted(slstm_scan_plain, (*fwd, save))
+        assert OP_WORK["slstm_scan"]((*fwd, save)) == eager, save
+    hs, c, n, h, m, res, gates = out
+    bwd = (*(rand(*t.shape) for t in (hs, c, n, h, m)), fwd[1], fwd[4],
+           *state, hs, res, gates)
+    _, eager = counted(slstm_scan_backward_plain, bwd)
+    assert OP_WORK["slstm_scan_backward"](bwd) == eager
+
+
 # ============================================ (c) the dry run, cell by cell
 CELLS = [(arch, name) for arch in ARCHS for name in SHORT]
 
@@ -435,7 +473,8 @@ def test_dry_run_cell_against_the_reference_build_cell(
 REDUCE = ("all-reduce", "reduce-scatter")
 MOVE = ("all-gather", "all-to-all", "collective-permute")
 # the port's temporaries against the reference's, bf16 cells: from 0.42
-# (llama-3.2-vision prefill) to 1.80 (xlstm train) at this change.  The
+# (llama-3.2-vision prefill) to 1.44 (xlstm prefill; xlstm train 1.38,
+# 1.80 before its sLSTM's recurrence became one op).  The
 # port's are eager's peak of live storage, each op's output held until
 # it is freed; the reference's XLA's buffer assignment after fusion, with
 # the CPU compile's f32 copies of bf16 values
@@ -467,7 +506,7 @@ def test_dry_run_collectives_and_temporaries_against_the_reference(
       reference's plus the whole weights XLA gathered (``weight_gathers``:
       where XLA gathers a layer's weights and computes replicated, the
       port reduces the products' partial sums), and at least half the
-      reference's (0.60, xlstm's train step, at this change: the port's
+      reference's (0.63, xlstm's train step, at this change: the port's
       sLSTM runs its recurrence whole from one gather where the
       reference reduces each step);
       the data movement (all-gather, all-to-all, collective-permute),
@@ -511,6 +550,38 @@ def test_dry_run_collectives_and_temporaries_against_the_reference(
     # the temporaries
     ratio = rec["memory"]["temp_size_in_bytes"] / ref["temp"]
     assert 1 / TEMP_FACTOR <= ratio <= TEMP_FACTOR, ratio
+
+
+@pytest.mark.parametrize("T", [16, 256])
+def test_the_slstm_recurrence_is_one_op_call_at_any_length(
+        monkeypatch, fake_group, T):
+    """xlstm-1.3b's train step at SMOKE widths on (2, 4) runs the sLSTM's
+    recurrence as the same number of ``repro_torch`` op calls at T 16 and
+    at T 256: for each group one ``slstm_scan`` forward, one in the
+    recompute of its remat, and one ``slstm_scan_backward``."""
+    monkeypatch.setitem(port_common.SHAPES, "train_len",
+                        ShapeCfg("train_len", "train", T, 8))
+    made = []
+
+    class Calls(OpCost):
+        def __init__(self):
+            super().__init__()
+            self.calls = {}
+            made.append(self)
+
+        def _count(self, func, args, kwargs, out):
+            if func.namespace == "repro_torch":
+                name = func.overloadpacket.__name__
+                self.calls[name] = self.calls.get(name, 0) + 1
+            super()._count(func, args, kwargs, out)
+
+    monkeypatch.setattr(dryrun, "OpCost", Calls)
+    ov = smoke_overrides("xlstm-1.3b")
+    dryrun.trace_cell("xlstm-1.3b", "train_len", fake_group,
+                      {"cfg_overrides": ov})
+    groups = ov["n_layers"] // 8
+    assert made[-1].calls == {"slstm_scan": 2 * groups,
+                              "slstm_scan_backward": groups}
 
 
 # the loss's cells: SMOKE widths with a vocab that makes the logits the

@@ -285,6 +285,110 @@ def test_slstm_apply_matches_the_reference(carried):
                                    np.asarray(exp_s[key]), **TOL)
 
 
+def _loop_scan(z_in, o_in, i_in, f_in, p, s):
+    """The sLSTM's recurrence as the port ran it before it became one
+    operator: a Python loop of eager ops, h kept in a list and stacked."""
+    T, dh = z_in.shape[1], z_in.shape[-1]
+    rec = torch.cat([p["rz"].float(), p["ri"], p["rf"]], dim=-1)
+    c, n, h, m = s["c"], s["n"], s["h"], s["m"]
+    hs = []
+    for t in range(T):
+        hr = torch.einsum("bhd,hde->bhe", h, rec)
+        z = torch.tanh(z_in[:, t] + hr[..., :dh])
+        ipre = i_in[:, t] + hr[..., dh]
+        fpre = f_in[:, t] + hr[..., dh + 1]
+        logf = torch.nn.functional.logsigmoid(fpre)
+        m_new = torch.maximum(logf + m, ipre)
+        i_g = torch.exp(ipre - m_new)[..., None]
+        f_g = torch.exp(logf + m - m_new)[..., None]
+        c = f_g * c + i_g * z
+        n = f_g * n + i_g
+        h = torch.sigmoid(o_in[:, t]) * (c / torch.clamp(n, min=1e-6))
+        m = m_new
+        hs.append(h)
+    return torch.stack(hs, dim=1), {"c": c, "n": n, "h": h, "m": m}
+
+
+def _slstm_case(carried: bool, T: int = 9):
+    """(x, the reference's block, the port's block, the state or None),
+    SMOKE widths: B 2, H 2, dh 32."""
+    _, jparams, _, _, tp = _setup(XLSTM)
+    blk = jax.tree.map(lambda a: a[0], jparams["groups"]["s"])
+    rng = np.random.default_rng(9)
+    x = _rand(rng, B, T, 64)
+    state = None
+    if carried:
+        state = {k: _rand(rng, B, 2, 32) * 0.5 for k in ("c", "h")}
+        state["n"] = np.abs(_rand(rng, B, 2, 32)) + 0.5
+        state["m"] = _rand(rng, B, 2)
+    return x, blk, tp["groups"][0]["s"], state
+
+
+@pytest.mark.parametrize("carried", [False, True])
+def test_slstm_op_equals_the_loop_bit_for_bit(monkeypatch, carried):
+    """``repro_torch::slstm_scan`` (through ``slstm_apply``) gives the
+    loop's output and final state bit for bit, from a zero state and from
+    a carried one."""
+    _, _, _, tm, _ = _setup(XLSTM)
+    x, _, p, state = _slstm_case(carried)
+    st = None if state is None else _to_torch(state)
+    got, got_s = tx.slstm_apply(torch.as_tensor(x), p, tm.cfg, st)
+    monkeypatch.setattr(tx, "slstm_scan", _loop_scan)
+    exp, exp_s = tx.slstm_apply(torch.as_tensor(x), p, tm.cfg, st)
+    assert torch.equal(got, exp)
+    for key in ("c", "n", "h", "m"):
+        assert torch.equal(got_s[key], exp_s[key]), key
+
+
+def _slstm_grads(x, p, state, cot):
+    """The gradients of sum(out * cot["out"]) + sum(state_k * cot[k])
+    through ``slstm_apply`` with respect to x, every parameter and the
+    carried state."""
+    _, _, _, tm, _ = _setup(XLSTM)
+    xt = torch.as_tensor(x).requires_grad_()
+    pt = {k: ({"scale": v["scale"].detach().clone().requires_grad_()}
+              if isinstance(v, dict) else v.detach().clone()
+              .requires_grad_()) for k, v in p.items()}
+    st = {k: torch.as_tensor(v).requires_grad_() for k, v in state.items()}
+    out, fin = tx.slstm_apply(xt, pt, tm.cfg, st)
+    loss = (out * torch.as_tensor(cot["out"])).sum() + sum(
+        (fin[k] * torch.as_tensor(cot[k])).sum() for k in fin)
+    leaves = {"x": xt, "ln": pt["ln"]["scale"],
+              **{k: v for k, v in pt.items() if k != "ln"},
+              **{f"state/{k}": v for k, v in st.items()}}
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return {k: g.numpy() for k, g in zip(leaves, grads)}
+
+
+def test_slstm_gradients_match_the_reference_vjp(monkeypatch):
+    """The gradients of ``slstm_apply`` (x, every parameter, a carried
+    state, from cotangents of the output and of the final state) against
+    ``jax.vjp`` of the reference's within ``TOL``, and against autograd
+    through the loop (``_loop_scan``) within 1e-5: the op's backward runs
+    back over its saved steps."""
+    jm, _, _, _, _ = _setup(XLSTM)
+    x, blk, p, state = _slstm_case(True)
+    rng = np.random.default_rng(10)
+    cot = {"out": _rand(rng, *x.shape), **{
+        k: _rand(rng, *v.shape) for k, v in state.items()}}
+    _, vjp = jax.vjp(lambda x_, p_, s_: jx.slstm_apply(x_, p_, jm.cfg, s_),
+                     jnp.asarray(x), blk, _to_jax(state))
+    gx, gp, gs = vjp((jnp.asarray(cot["out"]),
+                      {k: jnp.asarray(cot[k]) for k in state}))
+    exp = {"x": gx, "ln": gp["ln"]["scale"],
+           **{k: v for k, v in gp.items() if k != "ln"},
+           **{f"state/{k}": v for k, v in gs.items()}}
+    got = _slstm_grads(x, p, state, cot)
+    monkeypatch.setattr(tx, "slstm_scan", _loop_scan)
+    loop = _slstm_grads(x, p, state, cot)
+    assert got.keys() == exp.keys() == loop.keys()
+    for k in got:
+        np.testing.assert_allclose(got[k], np.asarray(exp[k]), err_msg=k,
+                                   **TOL)
+        np.testing.assert_allclose(got[k], loop[k], err_msg=k, atol=1e-5,
+                                   rtol=1e-5)
+
+
 # --------------------------------------------------------------- models
 @pytest.mark.parametrize("arch,T", [(XLSTM, 8), (RG, 40)])
 def test_forward_and_loss_match_the_reference(arch, T):
