@@ -53,7 +53,12 @@ Phases, each ending in ``torch.cuda.synchronize()``:
             xlstm-1.3b's width (4 x 256, 4 heads of 512): its output equal
             to the plain loop's bit for bit, its backward's gradients
             within ``SLSTM_GRAD_TOL`` of autograd's through the loop, both
-            timed beside the loop's;
+            timed beside the loop's; and the mLSTM's chunk loop as two ops
+            (``repro_torch::mlstm_scores`` and ``mlstm_hidden``, plain
+            loops) at the same width in chunks of 128: their output and
+            final state equal to the plain loop's bit for bit in f32 and
+            bf16, their backwards' gradients within ``MLSTM_GRAD_TOL`` of
+            autograd's through the loop, both timed beside the loop's;
 3. serve  — qwen2.5-3b FULL (36 layers, d_model 2048, vocab 151936) in bf16
             with random weights from a seeded generator: 4 requests of 128
             prompt tokens and 16 new tokens, one of them suspended and
@@ -136,8 +141,11 @@ Phases, each ending in ``torch.cuda.synchronize()``:
             (256 + 16), the chunkwise mLSTM in 2 chunks of 128; no
             attention kernel runs, and the step's bound counts the mLSTM
             state read and written; one sLSTM op call a group in the
-            prefill and in each step, and the same prefill and steps with
-            the plain loop in the op's place give the same tokens;
+            prefill and in each step, one call of each mLSTM op a layer in
+            the prefill; the same prefill and steps with the mLSTM's plain
+            chunk loop in its ops' place give the same tokens and logits,
+            and with the sLSTM's plain loop in its op's place the same
+            tokens;
 16. model parity — the model API at SMOKE in f32 (TF32 off) for
             ``MODEL_PARITY`` (moonshot, qwen3-moe, whisper, llama-vision,
             xlstm, recurrentgemma at prompts of 40 and of 8 decoded past
@@ -201,7 +209,7 @@ Phases, each ending in ``torch.cuda.synchronize()``:
             rtol 1e-4, parameters within ``ROW_TOL["bf16"]`` row by row,
             2 flash launches a step.
 21. dry run — after phase 20's process group is closed: the port's dry
-            run (``launch/dryrun.py``) of ten production cells at full
+            run (``launch/dryrun.py``) of eleven production cells at full
             width (``DRYRUN_CELLS``), each on a fake process group that
             ``run_cell`` opens and closes (phi3-mini-3.8b ``train_4k`` on
             (16, 16), moonshot-v1-16b-a3b ``decode_32k`` on (2, 16, 16),
@@ -209,11 +217,11 @@ Phases, each ending in ``torch.cuda.synchronize()``:
             ``decode_32k`` and llama-3.2-vision-11b ``decode_32k``, whose
             recurrent mixers or decode cross-attention run split over
             ``model``, qwen2.5-3b and deepseek-coder-33b ``train_4k``,
-            phi3 and deepseek ``prefill_32k``, and xlstm-1.3b
-            ``train_4k``, whose trace takes minutes on the host), every
-            record ``status: OK``, the
-            train and prefill cells within one card and the reference's
-            temporaries as ``dryrun_phase`` says, printing per device
+            phi3 and deepseek ``prefill_32k``, xlstm-1.3b ``train_4k``
+            and whisper-large-v3 ``train_4k``), every record ``status:
+            OK``, the train and prefill cells within one card and the
+            reference's temporaries as ``dryrun_phase`` says, whisper's
+            FLOPs at most the reference's, printing per device
             the counted FLOPs (beside ``dryrun_terms``: what still runs
             whole over ``model`` and what ran whole before the split),
             bytes, wire bytes, arguments, temporaries and the trace's
@@ -1099,6 +1107,69 @@ def plain_slstm_scan(torch, z_in, o_in, i_in, f_in, p, s):
     return torch.stack(hs, dim=1), {"c": c, "n": n, "h": h, "m": m}
 
 
+# the mLSTM's chunk loop at xlstm-1.3b's width and serve prompt, in the
+# model's chunks of 128
+MLSTM_SHAPE = dict(B=4, T=256, H=4, dh=512, chunk=128)
+# the ops' gradients against autograd through the plain loop, as for the
+# sLSTM's op
+MLSTM_GRAD_TOL = 1e-4
+
+
+def plain_mlstm_chunkwise(torch, q, k, v, ipre, fpre, s0, *, chunk: int,
+                          ks=slice(None), psum=None):
+    """The mLSTM's chunkwise form as the port ran it before it became two
+    operators (``models/xlstm.py`` ``mlstm_chunkwise`` then): a Python
+    loop of eager ops over the chunks, q, k and v cast to f32 whole, h
+    kept in a list and stacked; its gradient is autograd's."""
+    import torch.nn.functional as F
+    B, T, H, dh = q.shape
+    L = min(chunk, T)
+    nc = T // L
+
+    def to_chunks(x):
+        x = x.float().reshape(B, nc, L, *x.shape[2:])
+        if x.dim() == 5:
+            return x.permute(1, 0, 3, 2, 4)
+        return x.permute(1, 0, 3, 2)
+
+    qc, kc, vc = to_chunks(q), to_chunks(k), to_chunks(v)
+    ic, fc = to_chunks(ipre), to_chunks(fpre)
+    causal = torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                   device=q.device))
+    C_in, n_in, m_in = s0["C"], s0["n"], s0["m"]
+    hs = []
+    for c in range(nc):
+        qb, kb, vb, ib, fb = qc[c], kc[c], vc[c], ic[c], fc[c]
+        F_ = torch.cumsum(F.logsigmoid(fb), dim=-1)
+        g = ib - F_
+        M = torch.maximum(m_in[..., None], torch.cummax(g, dim=-1).values)
+        inter_w = torch.exp(m_in[..., None] - M)
+        D = torch.exp(g[..., None, :] - M[..., :, None])
+        D = torch.where(causal, D, 0.0)
+        qk, kk = qb[..., ks], kb[..., ks]
+        n_j = inter_w[..., None] * n_in[:, :, None, :] + \
+            torch.einsum("bhls,bhsd->bhld", D, kk)
+        scores = torch.einsum("bhld,bhsd->bhls", qk, kk)
+        dot = torch.einsum("bhld,bhld->bhl", qk, n_j)
+        if psum is not None:
+            scores, dot = psum(scores, dot)
+        intra = torch.einsum("bhls,bhsd->bhld", scores * D, vb)
+        h_num = inter_w[..., None] * torch.einsum(
+            "bhde,bhle->bhld", C_in, qb) + intra
+        m_j = F_ + M
+        denom = torch.maximum(dot.abs(), torch.exp(-m_j))
+        hs.append(h_num / denom[..., None])
+        M_L, F_L = M[..., -1], F_[..., -1]
+        w = torch.exp(g - M_L[..., None])
+        decay = torch.exp(m_in - M_L)
+        C_in = decay[..., None, None] * C_in + \
+            torch.einsum("bhs,bhsd,bhse->bhde", w, vb, kb)
+        n_in = decay[..., None] * n_in + torch.einsum("bhs,bhsd->bhd", w, kk)
+        m_in = F_L + M_L
+    h = torch.stack(hs).permute(1, 0, 3, 2, 4).reshape(B, T, H, -1)
+    return h, {"C": C_in, "n": n_in, "m": m_in}
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1114,10 +1185,7 @@ def check_slstm_op(torch, rng) -> dict:
     loop's (``plain_slstm_scan``) bit for bit, and the gradients of z_in,
     o_in, i_in, f_in, rz, ri and rf through ``slstm_scan_backward`` equal
     autograd's through the loop within ``SLSTM_GRAD_TOL``.  Both are
-    timed by CUDA events (the loops are host-bound: about 25 launches a
-    step forward and 59 back), the forward alone with no gradient and
-    forward with backward, and the forward by the profiler's device
-    time."""
+    timed (``op_times``)."""
     from repro_torch.models import slstm_op, xlstm
     B, T, H, dh = (SLSTM_SHAPE[k] for k in ("B", "T", "H", "dh"))
 
@@ -1167,36 +1235,136 @@ def check_slstm_op(torch, rng) -> dict:
           f"autograd through the loop {rel}, past {SLSTM_GRAD_TOL}")
     del got_h, got_s, exp_h, exp_s, g_op, g_plain
 
+    card = card_line()
+    log(f"{tag} on {card}: forward equal to the plain loop bit for bit; "
+        f"gradients within {max(rel.values()):.3g} of autograd's through "
+        f"the loop (tolerance {SLSTM_GRAD_TOL})")
+    return {"shape": SLSTM_SHAPE, "forward_bit_for_bit": equal,
+            "grad_rel_err": rel, "grad_tol": SLSTM_GRAD_TOL,
+            "times": op_times(torch, tag, lambda: op(*leaves),
+                              lambda: plain(*leaves), lambda: grads(op),
+                              lambda: grads(plain)),
+            "card": card}
+
+
+def op_times(torch, tag: str, op, plain, op_grads, plain_grads) -> dict:
+    """Event ms a call of the op's forward, the plain loop's, and each
+    with its backward (the loops are host-bound: tens of launches a step
+    or chunk), and the two forwards' device ms from one profile of one
+    call each (profiles of the backwards' launches took minutes to read
+    back)."""
     def forward(fn):
         def run():
             with torch.no_grad():
-                fn(*leaves)
+                fn()
         return run
 
-    # the forward's device time from one profile of one call; the
-    # backward's is not taken (profiles of its launches took minutes to
-    # read back)
     times = {}
     for key, fn, profiled in (
             ("op_forward", forward(op), True),
             ("plain_forward", forward(plain), True),
-            ("op_forward_backward", lambda: grads(op), False),
-            ("plain_forward_backward", lambda: grads(plain), False)):
+            ("op_forward_backward", op_grads, False),
+            ("plain_forward_backward", plain_grads, False)):
         times[key] = {"event_ms": time_ms(fn, 3, warmup=1),
                       "device_ms": device_ms(fn, 1) if profiled else None}
+        dev = "not measured" if times[key]["device_ms"] is None else \
+            f"{times[key]['device_ms']:.3f} ms (profiler)"
+        log(f"{tag} {key}: {times[key]['event_ms']:.3f} ms a call "
+            f"(events), device busy {dev}")
+    return times
+
+
+def check_mlstm_op(torch, rng) -> dict:
+    """``repro_torch::mlstm_scores`` and ``mlstm_hidden`` (through
+    ``models/xlstm.py`` ``mlstm_chunkwise``) on the card at
+    ``MLSTM_SHAPE``, inputs drawn from the seed at the model's scales: from
+    a zero state in f32 and in bf16 (q, k and v in the model dtype), and
+    from a carried state in f32, the output and final state equal the plain
+    loop's (``plain_mlstm_chunkwise``) bit for bit; the gradients of q, k,
+    v, ipre and fpre through the ops' backwards, from a cotangent of h
+    alone from the zero state (a train step's) and of h and the final
+    state from the carried one (that state's gradients too), equal
+    autograd's through the loop within ``MLSTM_GRAD_TOL``.  Both are timed
+    (``op_times``)."""
+    from repro_torch.models import mlstm_op, xlstm
+    B, T, H, dh, L = (MLSTM_SHAPE[k] for k in ("B", "T", "H", "dh",
+                                                 "chunk"))
+
+    def rand(*shape, scale=1.0, shift=0.0):
+        x = rng.standard_normal(shape).astype("float32") * scale + shift
+        return torch.as_tensor(x, device="cuda")
+
+    # q and k carry the model's 1 / sqrt(dh); the forget gates start open
+    sq = 1.0 / math.sqrt(dh)
+    leaves = [rand(B, T, H, dh, scale=sq), rand(B, T, H, dh, scale=sq),
+              rand(B, T, H, dh), rand(B, T, H), rand(B, T, H, shift=3.0)]
+    zero = {"C": torch.zeros((B, H, dh, dh), device="cuda"),
+            "n": torch.zeros((B, H, dh), device="cuda"),
+            "m": torch.full((B, H), -1e30, device="cuda")}
+    carried = {"C": rand(B, H, dh, dh, scale=0.1),
+               "n": rand(B, H, dh, scale=0.1), "m": rand(B, H)}
+    cot = {"h": rand(B, T, H, dh), "C": rand(B, H, dh, dh),
+           "n": rand(B, H, dh), "m": rand(B, H)}
+
+    def op(*xs, state=zero):
+        return xlstm.mlstm_chunkwise(*xs, state, chunk=L)
+
+    def plain(*xs, state=zero):
+        return plain_mlstm_chunkwise(torch, *xs, state, chunk=L)
+
+    def grads(fn, state=None):
+        xs = [x.detach().requires_grad_() for x in leaves]
+        if state is None:
+            h, _ = fn(*xs)
+            return torch.autograd.grad((h * cot["h"]).sum(), xs)
+        st = {k: t.detach().requires_grad_() for k, t in state.items()}
+        h, fin = fn(*xs, state=st)
+        loss = (h * cot["h"]).sum() + sum((fin[k] * cot[k]).sum()
+                                          for k in fin)
+        return torch.autograd.grad(loss, xs + list(st.values()))
+
+    tag = f"mlstm ops (B {B}, T {T}, H {H}, dh {dh}, chunks of {L})"
+    calls0 = dict(mlstm_op.CALLS)
+    equal = {}
+    with torch.no_grad():
+        for key, xs, state in (
+                ("f32", leaves, zero),
+                ("bf16", [x.bfloat16() for x in leaves[:3]] + leaves[3:],
+                 zero),
+                ("f32_carried", leaves, carried)):
+            got_h, got_s = op(*xs, state=state)
+            exp_h, exp_s = plain(*xs, state=state)
+            equal[key] = torch.equal(got_h, exp_h) and all(
+                torch.equal(got_s[k], exp_s[k]) for k in exp_s)
+            check(equal[key], f"{tag}, {key}: the ops' forward differs from "
+                  f"the plain loop's (h max abs "
+                  f"{float((got_h - exp_h).abs().max())})")
+    names = ("q", "k", "v", "ipre", "fpre", "C", "n", "m")
+    rel = {}
+    for key, state in (("h_only", None), ("carried", carried)):
+        g_op, g_plain = grads(op, state), grads(plain, state)
+        rel[key] = {n: float((a - b).abs().max()
+                             / b.abs().max().clamp(min=1e-30))
+                    for n, a, b in zip(names, g_op, g_plain)}
+        check(max(rel[key].values()) <= MLSTM_GRAD_TOL, f"{tag}, {key}: "
+              f"gradients against autograd through the loop {rel[key]}, "
+              f"past {MLSTM_GRAD_TOL}")
+    calls = {k: mlstm_op.CALLS[k] - calls0[k] for k in calls0}
+    check(calls == {"mlstm_scores": 5, "mlstm_hidden": 5,
+                    "mlstm_scores_backward": 2, "mlstm_hidden_backward": 2},
+          f"{tag}: op calls {calls}")
+    del g_op, g_plain, got_h, got_s, exp_h, exp_s
     card = card_line()
-    out = {"shape": SLSTM_SHAPE, "forward_bit_for_bit": equal,
-           "grad_rel_err": rel, "grad_tol": SLSTM_GRAD_TOL, "times": times,
-           "card": card}
-    log(f"{tag} on {card}: forward equal to the plain loop bit for bit; "
-        f"gradients within {max(rel.values()):.3g} of autograd's through "
-        f"the loop (tolerance {SLSTM_GRAD_TOL})")
-    for key, t in times.items():
-        dev = "not measured" if t["device_ms"] is None else \
-            f"{t['device_ms']:.3f} ms (profiler)"
-        log(f"{tag} {key}: {t['event_ms']:.3f} ms a call (events), device "
-            f"busy {dev}")
-    return out
+    log(f"{tag} on {card}: forward equal to the plain loop bit for bit "
+        f"({', '.join(equal)}); gradients within "
+        f"{max(max(r.values()) for r in rel.values()):.3g} of autograd's "
+        f"through the loop (tolerance {MLSTM_GRAD_TOL})")
+    return {"shape": MLSTM_SHAPE, "forward_bit_for_bit": equal,
+            "grad_rel_err": rel, "grad_tol": MLSTM_GRAD_TOL,
+            "times": op_times(torch, tag, lambda: op(*leaves),
+                              lambda: plain(*leaves), lambda: grads(op),
+                              lambda: grads(plain)),
+            "card": card}
 
 
 def time_paged_contiguous(torch, rng, label, B, S, H, Hkv, hd, lens,
@@ -2362,7 +2530,7 @@ def serve_model(torch, np, arch: str, B: int, T: int, steps: int,
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_route
-    from repro_torch.models import slstm_op
+    from repro_torch.models import mlstm_op, slstm_op
     from repro_torch.models.api import build_model
     before = torch.cuda.memory_allocated()
     check(before < 1e9, f"{before / 1e9:.2f} GB allocated before {arch}'s "
@@ -2392,6 +2560,7 @@ def serve_model(torch, np, arch: str, B: int, T: int, steps: int,
     batch = model_batch(torch, cfg, B, T, "cuda")
     torch.cuda.synchronize()
     calls0 = dict(slstm_op.CALLS)
+    mcalls0 = dict(mlstm_op.CALLS)
     _build.reset_launch_counts()
     t0 = time.perf_counter()
     logits, cache = model.prefill(params, batch, s_max=T + steps)
@@ -2432,6 +2601,16 @@ def serve_model(torch, np, arch: str, B: int, T: int, steps: int,
     check(calls == {"slstm_scan": groups * (1 + steps),
                     "slstm_scan_backward": 0},
           f"{tag}: slstm op calls {calls}, {groups} a prefill and a step "
+          f"expected")
+    # the mLSTM's chunk loop: one call of each op a layer in the prefill
+    # (the decode steps take the step recurrence), never a backward
+    mcalls = {k: mlstm_op.CALLS[k] - mcalls0[k] for k in mcalls0}
+    chunked = groups and T > 1 and T % min(128, T) == 0
+    check(mcalls == {"mlstm_scores": 7 * groups if chunked else 0,
+                     "mlstm_hidden": 7 * groups if chunked else 0,
+                     "mlstm_scores_backward": 0,
+                     "mlstm_hidden_backward": 0},
+          f"{tag}: mlstm op calls {mcalls}, {7 * groups} of each a prefill "
           f"expected")
     check(dec.get("paged_attention", 0) == steps * (n_self + n_cross)
           and dec.get("flash_attention", 0) == 0,
@@ -2503,8 +2682,12 @@ def serve_model(torch, np, arch: str, B: int, T: int, steps: int,
         + ("" if n_self + n_cross + n_enc else
            " (no attention layer: neither attention kernel runs here)"))
     if groups:
-        out["slstm"] = slstm_loop_leg(torch, np, model, params, batch, B, T,
-                                      steps, lg, calls, tag)
+        out["mlstm"] = plain_loop_leg(torch, np, model, params, batch, B, T,
+                                      steps, lg, "mlstm_chunkwise",
+                                      plain_mlstm_chunkwise, mcalls, tag)
+        out["slstm"] = plain_loop_leg(torch, np, model, params, batch, B, T,
+                                      steps, lg, "slstm_scan",
+                                      plain_slstm_scan, calls, tag)
     if arch == MESH_ARCH:
         del out_logits, lg, logits, cache, state, c
         out["mesh_leg"] = mesh_serve(torch, np, model, params, batch, B, T,
@@ -2516,15 +2699,17 @@ def serve_model(torch, np, arch: str, B: int, T: int, steps: int,
     return out
 
 
-def slstm_loop_leg(torch, np, model, params, batch, B: int, T: int,
-                   steps: int, lg, calls: dict, tag: str) -> dict:
-    """The same prefill and greedy decode steps with ``xlstm.slstm_scan``
-    swapped for the plain loop the port ran before the recurrence became
-    one operator (``plain_slstm_scan``): the tokens must be those of the
-    run through the op (``lg``, its logits), which are the parent's."""
+def plain_loop_leg(torch, np, model, params, batch, B: int, T: int,
+                   steps: int, lg, name: str, plain, calls: dict,
+                   tag: str) -> dict:
+    """The same prefill and greedy decode steps with ``xlstm.<name>``
+    swapped for ``plain``, the loop the port ran before it became ops
+    (the sLSTM's ``plain_slstm_scan``, the mLSTM's
+    ``plain_mlstm_chunkwise``): the tokens and the logits must be those of
+    the run through the ops (``lg``), bit for bit."""
     from repro_torch.models import xlstm
-    orig = xlstm.slstm_scan
-    xlstm.slstm_scan = lambda *a: plain_slstm_scan(torch, *a)
+    orig = getattr(xlstm, name)
+    setattr(xlstm, name, lambda *a, **kw: plain(torch, *a, **kw))
     try:
         logits, cache = model.prefill(params, batch, s_max=T + steps)
         out = [logits]
@@ -2535,17 +2720,18 @@ def slstm_loop_leg(torch, np, model, params, batch, B: int, T: int,
             out.append(logits)
         torch.cuda.synchronize()
     finally:
-        xlstm.slstm_scan = orig
+        setattr(xlstm, name, orig)
     loop = torch.stack(out)
     same = lg.argmax(-1).T.tolist() == loop.argmax(-1).T.tolist()
+    equal = torch.equal(lg, loop)
     diff = float((lg.float() - loop.float()).abs().max())
-    check(same, f"{tag}: greedy tokens through the slstm op differ from "
-          f"the plain loop's (logits max abs {diff})")
-    log(f"{tag}: the sLSTM op called {calls['slstm_scan']} times (one a "
-        f"group in the prefill and in each step); greedy tokens equal to "
-        f"the plain loop's, logits max abs difference {diff}")
+    check(same and equal, f"{tag}: greedy tokens (equal {same}) or logits "
+          f"through the ops differ from the plain {name} loop's (logits "
+          f"max abs {diff})")
+    log(f"{tag}: the ops in {name} called {calls}; greedy tokens and "
+        f"logits equal to the plain loop's bit for bit")
     return {"calls": calls, "tokens_equal_plain_loop": same,
-            "logits_max_abs_diff": diff}
+            "logits_equal_plain_loop": equal, "logits_max_abs_diff": diff}
 
 
 # ---------------------------------------------------- phases 17-18: train
@@ -3632,9 +3818,13 @@ def mesh_train(torch, np) -> dict:
 # ``model`` would not fit.  deepseek's 56 heads do not divide 16: its
 # blocks run sequence-parallel, and its temporaries are held to the
 # reference's (``REFERENCE_TEMPS``).  xlstm-1.3b's sLSTM runs its
-# recurrence as one op (``models/slstm_op.py``), counted by formula: its
-# train step's temporaries are held within ``TEMP_FACTOR`` of the
-# reference's.  A prefill cell's arguments and temporaries must fit the
+# recurrence as one op (``models/slstm_op.py``) and its mLSTM its chunk
+# loop as two (``models/mlstm_op.py``), counted by formula: its train
+# step's temporaries are held within ``TRAIN_TEMP_FACTOR`` of the
+# reference's.  whisper-large-v3's encoder (1500 frames, 20 heads, neither
+# divided by 16) runs its attention split by query rows, and its FLOPs
+# are held to the reference's (``REFERENCE_FLOPS``).  A prefill cell's
+# arguments and temporaries must fit the
 # card too, each rank allocating only its shard of the cache, and its
 # temporaries less its outputs (the cache, which the reference counts as
 # output bytes) must stay within ``TEMP_FACTOR`` of the reference's
@@ -3644,7 +3834,8 @@ DRYRUN_CELLS = [(PHI3, "train_4k", False), (MOONSHOT, "decode_32k", True),
                 (XLSTM, "train_4k", False),
                 (VISION, "decode_32k", False), (QWEN, "train_4k", False),
                 (DEEPSEEK, "train_4k", False), (PHI3, "prefill_32k", False),
-                (DEEPSEEK, "prefill_32k", False)]
+                (DEEPSEEK, "prefill_32k", False),
+                (WHISPER, "train_4k", False)]
 CARD_BYTES = 80e9
 # the reference's temporaries per device on (16, 16), counted by
 # ``scripts/reference_cells.py`` (its ``build_cell`` compiled on the CPU,
@@ -3655,9 +3846,14 @@ REFERENCE_TEMPS = {(DEEPSEEK, "train_4k"): 95.674e9,
                    (DEEPSEEK, "prefill_32k"): 14.13829532e9}
 TEMP_FACTOR = 2.5
 # how far past the reference's temporaries a train cell's may go:
-# deepseek's sequence-parallel blocks stay under the reference's own
+# deepseek's sequence-parallel blocks stay under the reference's own;
+# xlstm's chunk loops keep their chunk states, not autograd's saves
 TRAIN_TEMP_FACTOR = {(DEEPSEEK, "train_4k"): 1.0,
-                     (XLSTM, "train_4k"): TEMP_FACTOR}
+                     (XLSTM, "train_4k"): 1.8}
+# the reference's FLOPs per device on (16, 16), counted by
+# ``scripts/reference_cells.py``: whisper's encoder attention split over
+# ``model`` by query rows may count no more
+REFERENCE_FLOPS = {(WHISPER, "train_4k"): 47.196e12}
 
 
 def dryrun_terms(arch: str, shape_name: str, mesh_shape: dict) -> dict:
@@ -3746,6 +3942,14 @@ def hold_dryrun_cell(arch: str, shape: str, rec: dict, res: dict) -> None:
         f"{mem['output_size_in_bytes'] / 1e9:.3f} GB (aliased "
         f"{mem['alias_size_in_bytes'] / 1e9:.3f}); traced in "
         f"{rec['trace_s']} s")
+    ref_flops = REFERENCE_FLOPS.get((arch, shape))
+    if ref_flops is not None:
+        check(hc["flops"] <= ref_flops, f"dry run {cell}: "
+              f"{hc['flops'] / 1e12:.3f} TFLOP a device, past the "
+              f"reference's {ref_flops / 1e12:.3f}")
+        log(f"dry run {cell}: {hc['flops'] / 1e12:.3f} TFLOP a device, "
+            f"{hc['flops'] / ref_flops:.3f} x the reference's "
+            f"{ref_flops / 1e12:.3f}")
     temps = mem["temp_size_in_bytes"]
     held = mem["argument_size_in_bytes"] + temps
     ref = REFERENCE_TEMPS.get((arch, shape))
@@ -3952,6 +4156,7 @@ def main() -> int:
     time_kernels(torch, rng, results)
     dispatch = dispatch_cost(torch, rng)
     slstm = check_slstm_op(torch, np.random.default_rng(1))
+    mlstm = check_mlstm_op(torch, np.random.default_rng(2))
     torch.cuda.synchronize()
 
     cfg, params = init_full(torch, QWEN)
@@ -4038,6 +4243,7 @@ def main() -> int:
         for k, c in by_path.items()}}))
     print(json.dumps({"paged_dispatch": dispatch}))
     print(json.dumps({"slstm_op": slstm}))
+    print(json.dumps({"mlstm_op": mlstm}))
     print(json.dumps(variants))
     print(json.dumps(line))
     print(card)

@@ -26,7 +26,8 @@ so nothing is computed or allocated), and ``totals()`` returns
   * transcendentals — the elements of each exp, log, tanh, sigmoid, sqrt,
                       rsqrt, pow, sin, cos, expm1 and erf, the inputs of
                       each softmax and logsumexp, one exp a pair in the
-                      attention kernels, the sLSTM ops' by their formulas
+                      attention kernels, the sLSTM and mLSTM ops' by
+                      their formulas
   * collectives     — per kind, under the reference's HLO names: the
                       count, the payload bytes and the largest group
   * collective_bytes, wire_bytes — the payloads summed, and the bytes a
@@ -72,6 +73,10 @@ from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
+from repro_torch.models.mlstm_op import (mlstm_hidden_backward_work,
+                                         mlstm_hidden_work,
+                                         mlstm_scores_backward_work,
+                                         mlstm_scores_work)
 from repro_torch.models.slstm_op import (slstm_scan_backward_work,
                                          slstm_scan_work)
 
@@ -159,7 +164,11 @@ OP_WORK = {"flash_attention": functools.partial(attention_work,
            "paged_attention_lse": functools.partial(attention_work,
                                                     "paged_attention_lse"),
            "slstm_scan": slstm_scan_work,
-           "slstm_scan_backward": slstm_scan_backward_work}
+           "slstm_scan_backward": slstm_scan_backward_work,
+           "mlstm_scores": mlstm_scores_work,
+           "mlstm_scores_backward": mlstm_scores_backward_work,
+           "mlstm_hidden": mlstm_hidden_work,
+           "mlstm_hidden_backward": mlstm_hidden_backward_work}
 
 
 def _group_size(func_name: str, args) -> int:

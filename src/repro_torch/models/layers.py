@@ -508,6 +508,37 @@ def head_split(H: int, Hkv: int, ctx):
     return ctx.rank(ax) * H_l // n_rep, max(1, H_l // n_rep)
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """x itself; its gradient made contiguous.  The flash backward's dV is
+    (B, H, T, hd) in memory; left so, DTensor cannot view the partial
+    gradient as (B, T, H * hd) and reduce-scatters it over T instead, and
+    where T does not divide the model axis the uneven shards come back
+    strided into the projection's backward, which views them flat."""
+
+    @staticmethod
+    def forward(ctx_, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx_, g):
+        return g.contiguous()
+
+
+class _PadRows(torch.autograd.Function):
+    """x (B, T, ...) followed by ``pad`` rows of zeros; its gradient the
+    first T rows of the padded one's, contiguous (a product's backward
+    views its saved input flat, which a strided slice refuses)."""
+
+    @staticmethod
+    def forward(ctx_, x, pad):
+        ctx_.T = x.shape[1]
+        return F.pad(x, (0, 0) * (x.dim() - 2) + (0, pad))
+
+    @staticmethod
+    def backward(ctx_, g):
+        return g[:, :ctx_.T].contiguous(), None
+
+
 def mesh_attention(q, k, v, ctx, *, causal: bool = True, window: int = 0):
     """Attention over a prompt on a mesh: the flash kernel on each rank's
     local rows.  q: (B, T, H, hd); k, v: (B, S, Hkv, hd), DTensors.
@@ -517,11 +548,14 @@ def mesh_attention(q, k, v, ctx, *, causal: bool = True, window: int = 0):
       divides too; else K/V stay whole over ``model`` and each rank takes
       the kv heads its query heads read, where that is a whole number of
       kv heads, or one kv head for several ranks.
-    * H does not divide and T does: the reference's ``sharded_attention``,
-      the query sequence over ``model`` (T / tp rows a rank, the flash
-      kernel's ``q_offset`` their first position), K/V whole.
-    * Else every rank computes every head (q, K and V whole over
-      ``model``)."""
+    * H does not divide: the reference's ``sharded_attention``, the query
+      sequence over ``model`` (T / tp rows a rank, the flash kernel's
+      ``q_offset`` their first position), K/V whole.  Where tp does not
+      divide T either (whisper's encoder, 1500 frames on 16), q is padded
+      to ceil(T / tp) rows a rank, the last rank's padding computed and
+      dropped after the rows are gathered whole.
+    * A mesh with no model axis: every rank computes every head (q, K and
+      V whole)."""
     ax, tp, b = ctx.model_axis, ctx.size(ctx.model_axis), _bspec(ctx)
     B, T, H, hd = q.shape
     Hkv = k.shape[2]
@@ -545,12 +579,21 @@ def mesh_attention(q, k, v, ctx, *, causal: bool = True, window: int = 0):
                 q_l, k_l[:, :, lo:lo + n_kv], v_l[:, :, lo:lo + n_kv]),
                 ctx, (by_head, whole, whole), by_head,
                 grad_partial=((), part, part))(q, k, v)
-    elif ax and T % tp == 0:
-        by_row = (b, ax, None, None)
-        return _local(lambda q_l, k_l, v_l: flash(q_l, k_l, v_l,
-                                                  r * (T // tp)),
-                      ctx, (by_row, whole, whole), by_row,
-                      grad_partial=((), part, part))(q, k, v)
+    elif ax:
+        by_row, n = (b, ax, None, None), -(-T // tp)
+        pad = n * tp - T
+        if pad:
+            q = _local(lambda q_l: _PadRows.apply(q_l, pad), ctx, (whole,),
+                       whole)(q)
+        out = _local(lambda q_l, k_l, v_l: flash(
+            q_l, _ContiguousGrad.apply(k_l), _ContiguousGrad.apply(v_l),
+            r * n), ctx, (by_row, whole, whole), by_row,
+            grad_partial=((), part, part))(q, k, v)
+        if not pad:
+            return out
+        # the rows gathered whole, the padding dropped on each rank
+        return _local(lambda o: o[:, :T].contiguous(), ctx, (whole,),
+                      whole)(constrain(out, ctx, whole))
     return _local(flash, ctx, (whole,) * 3, whole)(q, k, v)
 
 

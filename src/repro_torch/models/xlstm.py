@@ -12,11 +12,12 @@ The decode state keeps the reference's stacked layout:
 
 q/k/v/og stay in the model dtype and the gate math in f32, as in the
 reference.  A prompt runs the chunkwise-parallel mLSTM (a loop over chunks
-of einsums) where T is a multiple of the chunk, else the step recurrence;
-the sLSTM is a loop over time inside one operator
-(``repro_torch::slstm_scan``, ``slstm_op.py``), with a backward of its
-own.  Both are plain PyTorch: the reference runs them outside any Pallas
-kernel.  The decode step writes the new state into
+of einsums inside two operators, ``repro_torch::mlstm_scores`` and
+``mlstm_hidden``, ``mlstm_op.py``) where T is a multiple of the chunk,
+else the step recurrence; the sLSTM is a loop over time inside one
+operator (``repro_torch::slstm_scan``, ``slstm_op.py``).  Each operator
+has a backward of its own.  All are plain PyTorch: the reference runs
+them outside any Pallas kernel.  The decode step writes the new state into
 the state it was given, IN PLACE, and returns it.
 
 On a mesh (``ctx``) the parameters are DTensors and each mixer runs
@@ -41,6 +42,7 @@ from .layers import (ModelShard, _local, _normal, act_spec, constrain,
                      embed, init_norm, model_shard, on_mesh,
                      prompt_positions, rms_norm, token_nll,
                      whole_over_model)
+from .mlstm_op import mlstm_chunkwise_op
 from .slstm_op import slstm_scan_op
 
 GROUP = 8          # 7 mLSTM + 1 sLSTM per group
@@ -167,61 +169,22 @@ def mlstm_chunkwise(q, k, v, ipre, fpre, s0, *, chunk: int,
                     ks=slice(None), psum=_whole):
     """Chunkwise-parallel mLSTM, the reference's form: one state carried
     per chunk, the intra-chunk work as einsums, the same stabiliser M and
-    the same chunk-end state.  The reference's einsums take bf16 operands
-    with f32 accumulation; here every operand is f32, which holds each
-    bf16 value exactly.
+    the same chunk-end state, as the two ``repro_torch`` ops of
+    ``mlstm_op.py`` (each chunk cast to f32 as it is read, which holds
+    each bf16 value exactly; the reference's einsums take bf16 operands
+    with f32 accumulation).
 
     q/k/v: (B,T,H,dh);  ipre/fpre: (B,T,H) f32;  s0: {C,n,m}.
     Returns (h (B,T,H,dh) f32, final state).  On a mesh v, C's rows and
     h are this rank's value channels, n its key channels ``ks``; the
     scores and the normaliser's dots are summed over the ranks from
-    their key channels (``psum``, one all-reduce a chunk)."""
-    B, T, H, dh = q.shape
+    their key channels (``psum``, one all-reduce for all the chunks)."""
+    T = q.shape[1]
     L = min(chunk, T)
     assert T % L == 0, (T, L)
-    nc = T // L
-
-    def to_chunks(x):                      # (B,T,...) -> (nc, B, H, L, ...)
-        x = x.float().reshape(B, nc, L, *x.shape[2:])
-        if x.dim() == 5:                   # (B,nc,L,H,dh)
-            return x.permute(1, 0, 3, 2, 4)
-        return x.permute(1, 0, 3, 2)       # gates (B,nc,L,H)->(nc,B,H,L)
-
-    qc, kc, vc = to_chunks(q), to_chunks(k), to_chunks(v)
-    ic, fc = to_chunks(ipre), to_chunks(fpre)
-    causal = torch.tril(torch.ones((L, L), dtype=torch.bool, device=q.device))
-    C_in, n_in, m_in = s0["C"], s0["n"], s0["m"]
-    hs = []
-    for c in range(nc):
-        qb, kb, vb, ib, fb = qc[c], kc[c], vc[c], ic[c], fc[c]
-        F_ = torch.cumsum(F.logsigmoid(fb), dim=-1)         # (B,H,L)
-        g = ib - F_
-        M = torch.maximum(m_in[..., None], torch.cummax(g, dim=-1).values)
-        inter_w = torch.exp(m_in[..., None] - M)            # (B,H,L)
-        D = torch.exp(g[..., None, :] - M[..., :, None])    # (B,H,Lq,Ls)
-        D = torch.where(causal, D, 0.0)
-        qk, kk = qb[..., ks], kb[..., ks]
-        n_j = inter_w[..., None] * n_in[:, :, None, :] + \
-            torch.einsum("bhls,bhsd->bhld", D, kk)
-        scores, dot = psum(torch.einsum("bhld,bhsd->bhls", qk, kk),
-                           torch.einsum("bhld,bhld->bhl", qk, n_j))
-        intra = torch.einsum("bhls,bhsd->bhld", scores * D, vb)
-        h_num = inter_w[..., None] * torch.einsum(
-            "bhde,bhle->bhld", C_in, qb) + intra
-        m_j = F_ + M
-        denom = torch.maximum(dot.abs(), torch.exp(-m_j))
-        hs.append(h_num / denom[..., None])
-        # ---- chunk-end state ----------------------------------------
-        M_L, F_L = M[..., -1], F_[..., -1]
-        w = torch.exp(g - M_L[..., None])                   # (B,H,L)
-        decay = torch.exp(m_in - M_L)
-        C_in = decay[..., None, None] * C_in + \
-            torch.einsum("bhs,bhsd,bhse->bhde", w, vb, kb)
-        n_in = decay[..., None] * n_in + torch.einsum("bhs,bhsd->bhd", w, kk)
-        m_in = F_L + M_L
-    # (nc,B,H,L,dh) -> (B,T,H,dh)
-    h = torch.stack(hs).permute(1, 0, 3, 2, 4).reshape(B, T, H, -1)
-    return h, {"C": C_in, "n": n_in, "m": m_in}
+    h, C, n, m = mlstm_chunkwise_op(q, k, v, ipre, fpre, s0["C"], s0["n"],
+                                    s0["m"], L, ks, psum)
+    return h, {"C": C, "n": n, "m": m}
 
 
 def mlstm_core(q, k, v, ipre, fpre, s, chunk: int, ks=slice(None),

@@ -11,8 +11,8 @@ on the CPU, against the reference.
       programs (a matmul, a 24-step loop, a gradient through checkpointed
       layers, a copy's bytes), and per device on a fake (2, 4) mesh: a
       sharded product counts its local 2 M N K, a replicated one its
-      whole; the sLSTM ops' formulas against ``OpCost``'s eager count of
-      their plain loops;
+      whole; the sLSTM and mLSTM ops' formulas against ``OpCost``'s
+      eager count of their plain loops;
   (c) the dry run of every config at SMOKE widths on (2, 4) meshes
       against the reference's ``build_cell`` (its own mesh of 8 forced
       host devices with Auto axes, in a subprocess), for a train, a
@@ -26,7 +26,8 @@ on the CPU, against the reference.
       cell frozen at its counts; deepseek-coder-33b's and
       whisper-large-v3's ``train_4k`` at full widths on (16, 16), cut in
       depth, where their blocks run sequence-parallel; xlstm-1.3b's
-      train step making as many sLSTM op calls at T 256 as at T 16;
+      train step making as many sLSTM and mLSTM op calls at T 256 as at
+      T 16;
   (d) the reference's own ``run_cell`` failing on jax 0.9.0 (its
       production mesh's Explicit axes; shown, not fixed), and the port's
       CLI writing an OK record with the reference's keys and a SKIP for a
@@ -36,6 +37,7 @@ Fake tensors (``FakeTensorMode``) and the ``fake`` process-group backend
 hold no memory: nothing here computes at full width.
 """
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -329,6 +331,63 @@ def test_the_slstm_ops_count_what_their_plain_loops_count(T):
     assert OP_WORK["slstm_scan_backward"](bwd) == eager
 
 
+@pytest.mark.parametrize("T,chunk,split,dtype", [
+    (8, 4, False, torch.float32), (12, 4, True, torch.float32),
+    (15, 5, False, torch.bfloat16), (16, 8, True, torch.bfloat16),
+    (6, 6, True, torch.bfloat16)])
+def test_the_mlstm_ops_count_what_their_plain_loops_count(T, chunk, split,
+                                                          dtype):
+    """``OP_WORK``'s formulas for ``repro_torch::mlstm_scores`` and
+    ``mlstm_hidden`` (with and without the saved chunk states) and their
+    backwards (with and without a gradient of the final state, the
+    initial state wanting one or not) equal, to the FLOP, the byte and the
+    transcendental, what ``OpCost`` counts when it runs each op's CPU
+    implementation eagerly on real tensors: q, k and v in f32 and in
+    bf16, the key and value channels whole and a mesh rank's half of
+    them, in one chunk and several."""
+    from repro_torch.launch.op_cost import OP_WORK
+    from repro_torch.models import mlstm_op as mo
+    rng = np.random.default_rng(T)
+    Bn, H, dh = 3, 2, 8
+    dk = dv = dh // 2 if split else dh
+
+    def rand(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32))
+
+    def counted(fn, args):
+        with OpCost() as oc:
+            out = fn(*args)
+        return out, (oc.flops, oc.bytes, oc.transcendentals)
+
+    q, k, v = (rand(Bn, T, H, dh).to(dtype) for _ in range(3))
+    v = v[..., :dv]
+    gates = (rand(Bn, T, H), rand(Bn, T, H) + 2.0)
+    n, m, C = rand(Bn, H, dk), rand(Bn, H), rand(Bn, H, dv, dh)
+    for save in (False, True):
+        fwd = (q[..., :dk], k[..., :dk], *gates, n, m, chunk, save)
+        scores_out, eager = counted(mo.mlstm_scores_plain, fwd)
+        assert OP_WORK["mlstm_scores"](fwd) == eager, save
+        sc, dots, m_starts, n1, m1, n_starts, n_js = scores_out
+        hid = (q, k, v, *gates, C, m_starts, sc, dots, chunk, save)
+        hidden_out, eager = counted(mo.mlstm_hidden_plain, hid)
+        assert OP_WORK["mlstm_hidden"](hid) == eager, save
+    h, C1, C_starts, qCs = hidden_out
+    # with and without a gradient of the final state, the initial state
+    # wanting one or not
+    for final, need0 in itertools.product((False, True), (False, True)):
+        d_n, d_m, d_C = (rand(*t.shape) if final else None
+                         for t in (n1, m1, C1))
+        bwd = (*(rand(*t.shape) for t in (sc, dots, m_starts)), d_n, d_m,
+               q[..., :dk], k[..., :dk], *gates, m_starts, n_starts, n_js,
+               chunk, need0)
+        _, eager = counted(mo.mlstm_scores_backward_plain, bwd)
+        assert OP_WORK["mlstm_scores_backward"](bwd) == eager, (final, need0)
+        bwd = (rand(*h.shape), d_C, q, k, v, *gates, m_starts, sc, dots,
+               C_starts, qCs, chunk, need0)
+        _, eager = counted(mo.mlstm_hidden_backward_plain, bwd)
+        assert OP_WORK["mlstm_hidden_backward"](bwd) == eager, (final, need0)
+
+
 # ============================================ (c) the dry run, cell by cell
 CELLS = [(arch, name) for arch in ARCHS for name in SHORT]
 
@@ -473,8 +532,9 @@ def test_dry_run_cell_against_the_reference_build_cell(
 REDUCE = ("all-reduce", "reduce-scatter")
 MOVE = ("all-gather", "all-to-all", "collective-permute")
 # the port's temporaries against the reference's, bf16 cells: from 0.42
-# (llama-3.2-vision prefill) to 1.44 (xlstm prefill; xlstm train 1.38,
-# 1.80 before its sLSTM's recurrence became one op).  The
+# (llama-3.2-vision prefill) to 1.44 (xlstm prefill; xlstm train 0.96,
+# 1.38 before its mLSTM's chunk loop became two ops and 1.80 before its
+# sLSTM's recurrence became one).  The
 # port's are eager's peak of live storage, each op's output held until
 # it is freed; the reference's XLA's buffer assignment after fusion, with
 # the CPU compile's f32 copies of bf16 values
@@ -556,9 +616,12 @@ def test_dry_run_collectives_and_temporaries_against_the_reference(
 def test_the_slstm_recurrence_is_one_op_call_at_any_length(
         monkeypatch, fake_group, T):
     """xlstm-1.3b's train step at SMOKE widths on (2, 4) runs the sLSTM's
-    recurrence as the same number of ``repro_torch`` op calls at T 16 and
-    at T 256: for each group one ``slstm_scan`` forward, one in the
-    recompute of its remat, and one ``slstm_scan_backward``."""
+    recurrence and the mLSTM's chunk loop (one chunk at T 16, two of 128
+    at T 256) as the same ``repro_torch`` op calls at T 16 and at T 256,
+    and no other: for each group one ``slstm_scan`` forward, one in the
+    recompute of its remat, and one ``slstm_scan_backward``; for each of
+    its 7 mLSTM layers one ``mlstm_scores`` and one ``mlstm_hidden``
+    forward, one of each in the recompute, and one of each backward."""
     monkeypatch.setitem(port_common.SHAPES, "train_len",
                         ShapeCfg("train_len", "train", T, 8))
     made = []
@@ -580,8 +643,11 @@ def test_the_slstm_recurrence_is_one_op_call_at_any_length(
     dryrun.trace_cell("xlstm-1.3b", "train_len", fake_group,
                       {"cfg_overrides": ov})
     groups = ov["n_layers"] // 8
-    assert made[-1].calls == {"slstm_scan": 2 * groups,
-                              "slstm_scan_backward": groups}
+    layers = 7 * groups
+    assert made[-1].calls == {
+        "slstm_scan": 2 * groups, "slstm_scan_backward": groups,
+        "mlstm_scores": 2 * layers, "mlstm_hidden": 2 * layers,
+        "mlstm_scores_backward": layers, "mlstm_hidden_backward": layers}
 
 
 # the loss's cells: SMOKE widths with a vocab that makes the logits the

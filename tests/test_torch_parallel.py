@@ -511,7 +511,8 @@ def _model_worker(rank, world, rdv, out):
     dist.all_gather_object(every, (offsets[:n], offsets[n:]))
     res["seq_offsets"] = [o for o, _ in every]
     res["seq_prefill_offsets"] = [o for _, o in every]
-    # an odd prompt (15 rows, no split over 2): every head on every rank
+    # an odd prompt (15 rows, no split over 2): 8 query rows a rank, the
+    # last rank's padded by one
     lg, _ = model.prefill(p, {"tokens": _batch(model.cfg, t=15)["tokens"]},
                           ctx=ctx)
     res["seq_odd_prefill"] = lg.full_tensor()
@@ -738,6 +739,7 @@ SEQ_CASES = [("deepseek", DEEPSEEK, {}),
 
 
 def _seq_worker(rank, world, rdv, out):
+    import repro_torch.models.layers as layers
     import repro_torch.models.transformer as transformer
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.parallel import (distribute_tree, full_tree, make_ctx,
@@ -746,23 +748,35 @@ def _seq_worker(rank, world, rdv, out):
     _init(rank, world, rdv)
     mesh = make_local_mesh(4, "cpu")
     res, block_rows = {}, transformer.block_rows
+    flash = layers.flash_attention
     for name, arch, kw in SEQ_CASES:
         model = build_model(_smoke(arch, **kw))
         p = _params(model)
         p = distribute_tree(p, param_spec_tree(p, mesh), mesh)
-        residual = []
+        residual, full = [], []
 
         def spy(*a, **k):
             y = block_rows(*a, **k)
             residual.append([str(x) for x in y.placements])
             return y
+
+        def flash_spy(q, k, v, **kw):
+            # the mesh's full (non-causal) attention: whisper's encoder
+            if not kw.get("causal", True):
+                full.append((q.shape[1], k.shape[1], kw.get("q_offset", 0)))
+            return flash(q, k, v, **kw)
         transformer.block_rows = spy
+        layers.flash_attention = flash_spy
         try:
             opt = _GradSpy()
             p, _, m = make_train_step(model, opt, ctx=make_ctx(mesh, B))(
                 p, opt.init(p), _batch(model.cfg))
         finally:
             transformer.block_rows = block_rows
+            layers.flash_attention = flash
+        every = [None] * world
+        dist.all_gather_object(every, full)
+        res[f"{name}_full_attention"] = every
         res[f"{name}_loss"] = m["loss"]
         res[f"{name}_grads"] = opt.grads
         res[f"{name}_params"] = full_tree(p)
@@ -786,9 +800,11 @@ def test_sequence_parallel_train_step_equals_one_process(seq_runs, name,
     """One train step on (2, 4) where the heads do not divide the model
     axis: every block runs on its rank's rows (``block_rows``), its
     output, the residual, split over the batch and T, (S(0), S(1)) (the
-    recompute under remat "dots" may stop early, inside the block); the
-    loss, every gradient and the AdamW-updated parameters against one
-    process."""
+    recompute under remat "dots" may stop early, inside the block);
+    whisper's encoder, whose 30 frames the axis does not divide, keeps
+    the tensor-parallel layout with its attention split by query rows
+    (``layers.mesh_attention``); the loss, every gradient and the
+    AdamW-updated parameters against one process."""
     from repro_torch.train import make_train_step
     model = build_model(_smoke(arch, **kw))
     cfg = model.cfg
@@ -796,6 +812,16 @@ def test_sequence_parallel_train_step_equals_one_process(seq_runs, name,
     residual = seq_runs[f"{name}_residual"]
     assert len(residual) >= cfg.n_layers
     assert {tuple(r) for r in residual} == {("S(0)", "S(1)")}
+    # whisper's encoder (30 frames, 4 ranks of ``model``): each layer's
+    # attention on the rank's 8 query rows against K/V whole, rows
+    # rank * 8 on (the last rank's 6 padded to 8), no rank on all 30
+    for rank, full in enumerate(seq_runs[f"{name}_full_attention"]):
+        if not cfg.enc_layers:
+            assert full == []
+            continue
+        n = -(-cfg.enc_seq // 4)
+        assert n < cfg.enc_seq and len(full) >= cfg.enc_layers
+        assert set(full) == {(n, cfg.enc_seq, rank % 4 * n)}, full
     p, batch = _params(model), _batch(cfg)
     opt = _GradSpy()
     p, _, m = make_train_step(model, opt)(p, opt.init(p), batch)

@@ -6,7 +6,8 @@ cache, and the dense path's windowed ring.
 The port's parameters are the reference's init converted by
 ``params_from_jax``; inputs come from numpy seeds.  The pieces (the causal
 conv, the RG-LRU scan, the mLSTM step, chunkwise form and sequential
-branch, the sLSTM loop), forward, loss, prefill (logits and state) and 8
+branch, the sLSTM loop, the mLSTM's and the sLSTM's ops against the
+loops they replaced), forward, loss, prefill (logits and state) and 8
 greedy decode steps (from the port's own prefill and from the reference's
 state through ``state_from_jax``) agree within atol = rtol = 1e-4 unless a
 test says otherwise.
@@ -18,6 +19,8 @@ the window its decode is wrong, so there the port is held to the
 reference's ``forward`` over the extended sequence instead, and a test
 shows the reference's own decode differing."""
 import functools
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +37,9 @@ from repro_torch.models import rglru as tr
 from repro_torch.models import xlstm as tx
 from repro_torch.models.api import build_model
 from repro_torch.models.transformer import params_from_jax, state_from_jax
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 XLSTM, RG = "xlstm-1.3b", "recurrentgemma-9b"
@@ -387,6 +393,119 @@ def test_slstm_gradients_match_the_reference_vjp(monkeypatch):
                                    **TOL)
         np.testing.assert_allclose(got[k], loop[k], err_msg=k, atol=1e-5,
                                    rtol=1e-5)
+
+
+# the mLSTM's chunkwise form as the port ran it before it became two
+# operators, chip_smoke.py's copy (which holds the ops to it on the card)
+_loop_chunkwise = functools.partial(chip_smoke.plain_mlstm_chunkwise, torch)
+
+
+def _twice(*ts):
+    """A stand-in for the sum over two ranks that hold the same partial
+    sums, on one process."""
+    return tuple(2 * t for t in ts)
+
+
+def _mlstm_case(T: int, carried: bool, mesh: bool = False, H=2, dh=32):
+    """(q, k, v, ipre, fpre, state, ks, psum) as torch tensors: the
+    state carried or zero; ``mesh`` the form a rank of two runs, v and
+    C's rows its first dh / 2 value channels, n its first dh / 2 key
+    channels ``ks``, ``psum`` ``_twice``."""
+    rng = np.random.default_rng(T + carried)
+    q, k, v, ipre, fpre, s0 = _mlstm_inputs(rng, T, H, dh, carried)
+    ks, dv, dk = (slice(0, dh // 2), dh // 2, dh // 2) if mesh \
+        else (slice(None), dh, dh)
+    if s0 is None:
+        s0 = {"C": np.zeros((B, H, dh, dh), np.float32),
+              "n": np.zeros((B, H, dh), np.float32),
+              "m": np.full((B, H), tx.NEG, np.float32)}
+    s0 = {"C": s0["C"][:, :, :dv], "n": s0["n"][..., :dk], "m": s0["m"]}
+    return (*map(torch.as_tensor, (q, k, v[..., :dv], ipre, fpre)),
+            _to_torch(s0), ks, _twice if mesh else tx._whole)
+
+
+MLSTM_CASES = [(256, 128, False, False), (256, 128, True, False),
+               (16, 4, False, False), (16, 4, True, False),
+               (16, 4, True, True)]
+
+
+@pytest.mark.parametrize("T,chunk,carried,mesh", MLSTM_CASES,
+                         ids=["T256-zero", "T256-carried", "T16-zero",
+                              "T16-carried", "T16-mesh"])
+def test_mlstm_ops_equal_the_loop_bit_for_bit(T, chunk, carried, mesh):
+    """``repro_torch::mlstm_scores`` and ``mlstm_hidden`` (through
+    ``mlstm_chunkwise``) give the loop's h and final state bit for bit,
+    from a zero state and a carried one, in one chunk of 128 and two,
+    in 4 chunks of 4, and in the mesh's form on one process (``ks`` a
+    slice of the key channels, the scores and dots summed by ``psum``)."""
+    *xs, s0, ks, psum = _mlstm_case(T, carried, mesh)
+    got, got_s = tx.mlstm_chunkwise(*xs, s0, chunk=chunk, ks=ks, psum=psum)
+    exp, exp_s = _loop_chunkwise(*xs, s0, chunk=chunk, ks=ks, psum=psum)
+    assert torch.equal(got, exp)
+    for key in ("C", "n", "m"):
+        assert torch.equal(got_s[key], exp_s[key]), key
+
+
+def _mlstm_grads(fn, xs, s0, cot, chunk, ks, psum, state=True):
+    """The gradients of sum(h * cot["h"]) + sum(state_k * cot[k]) through
+    ``fn`` with respect to q, k, v, ipre, fpre and the carried state; with
+    ``state`` False, of sum(h * cot["h"]) with respect to q, k, v, ipre
+    and fpre alone, as a train step takes them (the final state unread,
+    the initial one wanting no gradient)."""
+    leaves = [x.detach().clone().requires_grad_() for x in xs] + [
+        s0[key].detach().clone().requires_grad_(state) for key in "Cnm"]
+    h, fin = fn(*leaves[:5], dict(zip("Cnm", leaves[5:])), chunk=chunk,
+                ks=ks, psum=psum)
+    loss = (h * cot["h"]).sum()
+    if state:
+        loss = loss + sum((fin[key] * cot[key]).sum() for key in "Cnm")
+    names = ("q", "k", "v", "ipre", "fpre", "state/C", "state/n", "state/m")
+    n = len(leaves) if state else 5
+    return dict(zip(names, (g.numpy() for g in torch.autograd.grad(
+        loss, leaves[:n]))))
+
+
+@pytest.mark.parametrize("T,chunk,mesh", [(16, 4, False), (256, 128, False),
+                                          (16, 4, True)],
+                         ids=["T16", "T256", "T16-mesh"])
+def test_mlstm_op_gradients_match_the_reference_vjp(T, chunk, mesh):
+    """The gradients of q, k, v, ipre, fpre and a carried state through the
+    ops' backwards (``mlstm_scores_backward``, ``mlstm_hidden_backward``,
+    from cotangents of h and of the final state) against ``jax.vjp`` of
+    the reference's ``mlstm_chunkwise`` run eagerly within ``TOL`` (the
+    reference has no mesh form: off it only), and against autograd
+    through the loop (``_loop_chunkwise``) within 1e-5 of each gradient's
+    largest magnitude, also where only h has a cotangent and the initial
+    state wants no gradient (the backwards skip those terms)."""
+    *xs, s0, ks, psum = _mlstm_case(T, True, mesh)
+    rng = np.random.default_rng(11)
+    cot = {"h": torch.as_tensor(_rand(rng, *xs[2].shape)),
+           **{key: torch.as_tensor(_rand(rng, *s0[key].shape))
+              for key in "Cnm"}}
+    for state in (True, False):
+        got = _mlstm_grads(tx.mlstm_chunkwise, xs, s0, cot, chunk, ks, psum,
+                           state)
+        loop = _mlstm_grads(_loop_chunkwise, xs, s0, cot, chunk, ks, psum,
+                            state)
+        assert got.keys() == loop.keys()
+        for key in got:
+            scale = float(np.abs(loop[key]).max())
+            np.testing.assert_allclose(got[key], loop[key], err_msg=key,
+                                       rtol=0, atol=1e-5 * scale)
+    got = _mlstm_grads(tx.mlstm_chunkwise, xs, s0, cot, chunk, ks, psum)
+    if mesh:
+        return
+    _, vjp = jax.vjp(lambda *a: jx.mlstm_chunkwise(*a[:5], a[5],
+                                                   chunk=chunk),
+                     *(jnp.asarray(x.numpy()) for x in xs),
+                     _to_jax({key: s0[key].numpy() for key in "Cnm"}))
+    gj = vjp((jnp.asarray(cot["h"].numpy()),
+              {key: jnp.asarray(cot[key].numpy()) for key in "Cnm"}))
+    exp = dict(zip(("q", "k", "v", "ipre", "fpre"), gj[:5]))
+    exp.update({f"state/{key}": gj[5][key] for key in "Cnm"})
+    for key in got:
+        np.testing.assert_allclose(got[key], np.asarray(exp[key]),
+                                   err_msg=key, **TOL)
 
 
 # --------------------------------------------------------------- models
