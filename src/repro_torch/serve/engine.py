@@ -19,6 +19,10 @@ Scheduling follows the paper's transit discipline:
 
 The layer loop runs on the host in Python, and the parameters are a plain
 dict on the engine's device (``models.transformer``).
+
+The engine, its model and its cache share one :class:`Metrics`: counters
+(``retire_pages_out``, ...) always, and its spans (``engine.step`` down to
+``kvcache.table``; ``core.trace``) once ``eng.trace.start()`` is called.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.metrics import Metrics
+from repro_torch.core.trace import Trace, trace_of
 from repro_torch.kernels.ops import flash_attention
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import (apply_norm, mlp_apply, out_proj,
@@ -60,6 +65,7 @@ class PagedLM:
         self.cfg = cfg
         self.params = params
         self.cache = cache
+        self.trace = cache.trace
         self.device = params["embed"].device
 
     def _qkv(self, x, blk, positions):
@@ -90,48 +96,56 @@ class PagedLM:
         the last-token logits (V,) f32.  tokens: (T,) one sequence."""
         cfg, p = self.cfg, self.params
         T = len(tokens)
-        tok = torch.as_tensor(np.asarray(tokens, np.int64),
-                              device=self.device)[None]
-        x = p["embed"][tok]
-        positions = torch.arange(T, device=self.device)[None]
-        ks, vs = [], []
-        for blk in p["blocks"]:
-            q, k, v = self._qkv(x, blk, positions)
-            # causal attention over the prompt (the flash kernel); pages
-            # are written below for the decode phase
-            a = flash_attention(q, k, v, causal=True, window=cfg.attn_window)
-            x = self._finish_block(x, a, blk)
-            ks.append(k[0])                              # (T, Hkv, hd)
-            vs.append(v[0])
-        self.cache.append_tokens(sid, ks, vs)            # bulk write path
-        return self._logits(x[:, -1:])[0, 0]
+        with self.trace.span("lm.prefill", sid, T=T):
+            tok = torch.as_tensor(np.asarray(tokens, np.int64),
+                                  device=self.device)[None]
+            x = p["embed"][tok]
+            positions = torch.arange(T, device=self.device)[None]
+            ks, vs = [], []
+            for blk in p["blocks"]:
+                q, k, v = self._qkv(x, blk, positions)
+                # causal attention over the prompt (the flash kernel);
+                # pages are written below for the decode phase
+                a = flash_attention(q, k, v, causal=True,
+                                    window=cfg.attn_window)
+                x = self._finish_block(x, a, blk)
+                ks.append(k[0])                          # (T, Hkv, hd)
+                vs.append(v[0])
+            self.cache.append_tokens(sid, ks, vs)        # bulk write path
+            return self._logits(x[:, -1:])[0, 0]
 
     @torch.no_grad()
     def decode_step(self, tokens: np.ndarray, sids: list[int],
                     positions: np.ndarray) -> torch.Tensor:
         """One token for each running sequence. tokens: (B,), returns
         (B, V) f32 logits."""
-        cfg, p = self.cfg, self.params
+        cfg, p, span = self.cfg, self.params, self.trace.span
         B = len(tokens)
-        tok = torch.as_tensor(np.asarray(tokens, np.int64),
-                              device=self.device)[:, None]
-        pos = torch.as_tensor(np.asarray(positions, np.int64),
-                              device=self.device)[:, None]
-        x = p["embed"][tok]                              # (B, 1, D)
-        none = [None] * cfg.n_layers
-        for li, blk in enumerate(p["blocks"]):
-            q, k, v = self._qkv(x, blk, pos)
-            # write THIS layer's kv before attending (token attends to
-            # self): layer 0 appends the slot, layers > 0 fill it in place
-            for bi, sid in enumerate(sids):
-                if li == 0:
-                    self.cache.append_token(sid, [k[bi, 0]] + none[1:],
-                                            [v[bi, 0]] + none[1:])
-                else:
-                    self.cache.overwrite_token(sid, li, (k[bi, 0], v[bi, 0]))
-            a = self.cache.attention(li, q[:, 0], sids)
-            x = self._finish_block(x, a[:, None], blk)
-        return self._logits(x)[:, 0]
+        with span("lm.decode_step", n=B):
+            tok = torch.as_tensor(np.asarray(tokens, np.int64),
+                                  device=self.device)[:, None]
+            pos = torch.as_tensor(np.asarray(positions, np.int64),
+                                  device=self.device)[:, None]
+            x = p["embed"][tok]                          # (B, 1, D)
+            none = [None] * cfg.n_layers
+            for li, blk in enumerate(p["blocks"]):
+                q, k, v = self._qkv(x, blk, pos)
+                # write THIS layer's kv before attending (token attends to
+                # self): layer 0 appends the slot, layers > 0 fill it in
+                # place
+                with span("lm.kv_write", n=B):
+                    for bi, sid in enumerate(sids):
+                        if li == 0:
+                            self.cache.append_token(
+                                sid, [k[bi, 0]] + none[1:],
+                                [v[bi, 0]] + none[1:])
+                        else:
+                            self.cache.overwrite_token(
+                                sid, li, (k[bi, 0], v[bi, 0]))
+                with span("lm.attention"):
+                    a = self.cache.attention(li, q[:, 0], sids)
+                x = self._finish_block(x, a[:, None], blk)
+            return self._logits(x)[:, 0]
 
 
 class AsyncRequestLog:
@@ -285,6 +299,11 @@ class ServeEngine:
         self._rng = np.random.default_rng(rng_seed)
         self._next_id = 0
 
+    @property
+    def trace(self) -> Trace:
+        """The spans of the engine's metrics."""
+        return trace_of(self.metrics)
+
     def submit(self, prompt: list[int], max_new_tokens: int = 16,
                temperature: float = 0.0) -> Request:
         req = Request(self._next_id, list(prompt), max_new_tokens,
@@ -298,10 +317,11 @@ class ServeEngine:
         """Preempt a running request: its pages eagerly transit out
         (host tier, then the volume once the host budget overflows);
         ``_admit`` resumes it ahead of fresh prompts."""
-        self.running.remove(req)
-        self.cache.deactivate(req.seq_id)
-        self.suspended.append(req)
-        self.metrics.bump("suspends")
+        with self.trace.span("engine.suspend", req.seq_id):
+            self.running.remove(req)
+            self.cache.deactivate(req.seq_id)
+            self.suspended.append(req)
+            self.metrics.bump("suspends")
 
     def _prefetch_ahead(self) -> None:
         """Decode-ahead restore: linked async reads for the next
@@ -312,40 +332,48 @@ class ServeEngine:
             self.cache.prefetch(req.seq_id)
 
     def _admit(self) -> None:
-        # resumes first: a suspended request already holds KV
-        while self.suspended and len(self.running) < self.max_batch:
-            req = self.suspended.pop(0)
-            self.cache.activate(req.seq_id)
-            self.running.append(req)
-            self.metrics.bump("resumes")
-        while self.queue and len(self.running) < self.max_batch:
-            req = self.queue.pop(0)
-            req.seq_id = self.cache.new_sequence()
-            logits = self.lm.prefill(np.asarray(req.prompt, np.int32),
-                                     req.seq_id)
-            tok = self._sample(logits[None], [req])[0]
-            req.out_tokens.append(int(tok))
-            req.t_first = time.perf_counter()
-            self.running.append(req)
+        span = self.trace.span
+        with span("engine.admit"):
+            # resumes first: a suspended request already holds KV
+            while self.suspended and len(self.running) < self.max_batch:
+                req = self.suspended.pop(0)
+                with span("engine.resume", req.seq_id):
+                    self.cache.activate(req.seq_id)
+                self.running.append(req)
+                self.metrics.bump("resumes")
+            while self.queue and len(self.running) < self.max_batch:
+                req = self.queue.pop(0)
+                req.seq_id = self.cache.new_sequence()
+                with span("engine.prefill", req.seq_id, T=len(req.prompt)):
+                    logits = self.lm.prefill(
+                        np.asarray(req.prompt, np.int32), req.seq_id)
+                    tok = self._sample(logits[None], [req])[0]
+                req.out_tokens.append(int(tok))
+                req.t_first = time.perf_counter()
+                self.running.append(req)
 
     def _sample(self, logits, reqs) -> np.ndarray:
-        out = np.zeros((len(reqs),), np.int64)
-        logits = logits.cpu().numpy()
-        for i, req in enumerate(reqs):
-            if req.temperature <= 0:
-                out[i] = int(np.argmax(logits[i]))
-            else:
-                z = logits[i] / req.temperature
-                z = z - z.max()
-                prob = np.exp(z) / np.exp(z).sum()
-                out[i] = int(self._rng.choice(len(prob), p=prob))
-        return out
+        with self.trace.span("engine.sample", n=len(reqs)):
+            out = np.zeros((len(reqs),), np.int64)
+            logits = logits.cpu().numpy()
+            for i, req in enumerate(reqs):
+                if req.temperature <= 0:
+                    out[i] = int(np.argmax(logits[i]))
+                else:
+                    z = logits[i] / req.temperature
+                    z = z - z.max()
+                    prob = np.exp(z) / np.exp(z).sum()
+                    out[i] = int(self._rng.choice(len(prob), p=prob))
+            return out
 
     def _retire(self, req: Request) -> None:
         req.done = True
         req.t_done = time.perf_counter()
-        self.cache.deactivate(req.seq_id)     # eager transit to host tier
-        self.cache.release(req.seq_id)
+        with self.trace.span("engine.retire", req.seq_id):
+            # eager transit to the host tier, of pages release then drops
+            self.metrics.bump("retire_pages_out",
+                              self.cache.deactivate(req.seq_id))
+            self.cache.release(req.seq_id)
         if self.request_log is not None:      # overlapped, never a stall
             self.request_log.append({"req_id": req.req_id,
                                      "prompt": req.prompt,
@@ -354,27 +382,28 @@ class ServeEngine:
 
     def step(self) -> int:
         """One scheduler tick: admit, decode one token for every runner."""
-        self._prefetch_ahead()
-        self._admit()
-        if not self.running:
-            return 0
-        reqs = self.running
-        tokens = np.asarray([r.out_tokens[-1] for r in reqs], np.int64)
-        positions = np.asarray([len(r.prompt) + len(r.out_tokens) - 1
-                                for r in reqs], np.int64)
-        logits = self.lm.decode_step(tokens, [r.seq_id for r in reqs],
-                                     positions)
-        nxt = self._sample(logits, reqs)
-        still = []
-        for req, tok in zip(reqs, nxt):
-            req.out_tokens.append(int(tok))
-            if (len(req.out_tokens) >= req.max_new_tokens
-                    or tok == self.eos):
-                self._retire(req)
-            else:
-                still.append(req)
-        self.running = still
-        return len(reqs)
+        with self.trace.span("engine.step"):
+            self._prefetch_ahead()
+            self._admit()
+            if not self.running:
+                return 0
+            reqs = self.running
+            tokens = np.asarray([r.out_tokens[-1] for r in reqs], np.int64)
+            positions = np.asarray([len(r.prompt) + len(r.out_tokens) - 1
+                                    for r in reqs], np.int64)
+            logits = self.lm.decode_step(tokens, [r.seq_id for r in reqs],
+                                         positions)
+            nxt = self._sample(logits, reqs)
+            still = []
+            for req, tok in zip(reqs, nxt):
+                req.out_tokens.append(int(tok))
+                if (len(req.out_tokens) >= req.max_new_tokens
+                        or tok == self.eos):
+                    self._retire(req)
+                else:
+                    still.append(req)
+            self.running = still
+            return len(reqs)
 
     def _autotune_tick(self) -> None:
         """Every ``autotune_every`` ticks, one control step of the request

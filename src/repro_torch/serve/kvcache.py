@@ -64,6 +64,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.metrics import Metrics
+from repro_torch.core.trace import trace_of
 from repro_torch.kernels.ops import (gather_quantize_crc_units,
                                      paged_attention,
                                      scatter_dequantize_crc_units)
@@ -137,6 +138,7 @@ class PagedKVCache:
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.metrics = metrics or Metrics()
+        self.trace = trace_of(self.metrics)
         # optional volume-backed spill tier: host pages past
         # ``cfg.host_pages`` descend to KVPager records
         self.pager = pager
@@ -346,25 +348,32 @@ class PagedKVCache:
         has been read."""
         if not items:
             return
-        L = self.cfg.n_layers
-        pages = [seq.table[lg][1] for seq, lg in items]
-        units = torch.from_numpy(self._units(pages)).to(self.device)
-        q, scales, crcs = self._to_host(
-            *gather_quantize_crc_units(self._slots(), units))
-        # one host entry per unit, in unit order, each owning its bytes (a
-        # copy: an entry is freed on its own)
-        entries = zip(map(np.ndarray.copy, q), map(np.ndarray.copy, scales),
-                      crcs.tolist())
-        for (seq, lg), page in zip(items, pages):
-            seq.table[lg] = ("host", [(self.host.put(li, *next(entries)),
+        L, span = self.cfg.n_layers, self.trace.span
+        sids = {seq.seq_id for seq, _ in items}
+        with span("kvcache.page_out", sids.pop() if len(sids) == 1 else None,
+                  pages=len(items)):
+            pages = [seq.table[lg][1] for seq, lg in items]
+            with span("kvcache.page_out.gather"):
+                units = torch.from_numpy(self._units(pages)).to(self.device)
+                packed = gather_quantize_crc_units(self._slots(), units)
+            with span("kvcache.page_out.to_host"):
+                q, scales, crcs = self._to_host(*packed)
+            with span("kvcache.page_out.entries", pages=len(items)):
+                # one host entry per unit, in unit order, each owning its
+                # bytes (a copy: an entry is freed on its own)
+                entries = zip(map(np.ndarray.copy, q),
+                              map(np.ndarray.copy, scales), crcs.tolist())
+                for (seq, lg), page in zip(items, pages):
+                    seq.table[lg] = ("host",
+                                     [(self.host.put(li, *next(entries)),
                                        self.host.put(li, *next(entries)))
                                       for li in range(L)])
-            self._free.append(page)
-            self.metrics.bump("pages_out")
-        # what the reference's loop counts: 2 passes and the K and V
-        # payloads' bytes per layer per page
-        self.metrics.bump("fused_kernel_passes", 2 * L * len(pages))
-        self.metrics.bump("fused_kernel_bytes", q.nbytes)
+                    self._free.append(page)
+            self.metrics.bump("pages_out", len(pages))
+            # what the reference's loop counts: 2 passes and the K and V
+            # payloads' bytes per layer per page
+            self.metrics.bump("fused_kernel_passes", 2 * L * len(pages))
+            self.metrics.bump("fused_kernel_bytes", q.nbytes)
 
     # ------------------------------------------------------ volume spill tier
     def host_page_count(self) -> int:
@@ -476,29 +485,32 @@ class PagedKVCache:
         upload of their payloads, scales and unit list; returns the crcs
         of the payloads as received, (pages, L, 2)."""
         L, pg = self.cfg.n_layers, self.cfg.page_size
-        entries = [self.host.get(li, h) for lg, _ in got
-                   for li, pair in enumerate(seq.table[lg][1]) for h in pair]
-        n, F = len(entries), entries[0][0].shape[-1]
-        # one byte buffer: scales, units, then the int8 payloads at a
-        # 16-byte boundary (the kernel's vector loads)
-        s_end = n * pg * 4
-        q_at = -(-(s_end + n * 8) // 16) * 16
-        buf = torch.empty(q_at + n * pg * F, dtype=torch.uint8,
-                          pin_memory=self.device.type == "cuda")
-        host = buf.numpy()
-        scales = host[:s_end].view(np.float32).reshape(n, pg)
-        q = host[q_at:].view(np.int8).reshape(n, pg, F)
-        for u, (qe, se, _) in enumerate(entries):
-            q[u] = qe
-            scales[u] = se
-        host[s_end:s_end + n * 8].view(np.int32)[:] = self._units(
-            [page for _, page in got]).reshape(-1)
-        dev = buf.to(self.device, non_blocking=True)
-        _, crcs = scatter_dequantize_crc_units(
-            self._slots(), dev[s_end:s_end + n * 8].view(torch.int32)
-            .view(n, 2), dev[q_at:].view(torch.int8).view(n, pg, F),
-            dev[:s_end].view(torch.float32).view(n, pg))
-        return crcs.cpu().numpy().reshape(len(got), L, 2)
+        with self.trace.span("kvcache.page_in.stage", pages=len(got)):
+            entries = [self.host.get(li, h) for lg, _ in got
+                       for li, pair in enumerate(seq.table[lg][1])
+                       for h in pair]
+            n, F = len(entries), entries[0][0].shape[-1]
+            # one byte buffer: scales, units, then the int8 payloads at a
+            # 16-byte boundary (the kernel's vector loads)
+            s_end = n * pg * 4
+            q_at = -(-(s_end + n * 8) // 16) * 16
+            buf = torch.empty(q_at + n * pg * F, dtype=torch.uint8,
+                              pin_memory=self.device.type == "cuda")
+            host = buf.numpy()
+            scales = host[:s_end].view(np.float32).reshape(n, pg)
+            q = host[q_at:].view(np.int8).reshape(n, pg, F)
+            for u, (qe, se, _) in enumerate(entries):
+                q[u] = qe
+                scales[u] = se
+            host[s_end:s_end + n * 8].view(np.int32)[:] = self._units(
+                [page for _, page in got]).reshape(-1)
+        with self.trace.span("kvcache.page_in.scatter"):
+            dev = buf.to(self.device, non_blocking=True)
+            _, crcs = scatter_dequantize_crc_units(
+                self._slots(), dev[s_end:s_end + n * 8].view(torch.int32)
+                .view(n, 2), dev[q_at:].view(torch.int8).view(n, pg, F),
+                dev[:s_end].view(torch.float32).view(n, pg))
+            return crcs.cpu().numpy().reshape(len(got), L, 2)
 
     def _page_in_locked(self, seq: Sequence, got: list) -> None:
         """Bring the cold pages of ``got`` ((logical, allocated pool page)
@@ -513,43 +525,65 @@ class PagedKVCache:
         the order that leaves it as the reference's would be), their host
         entries stay put, and IOError is raised: an IOError never leaks
         capacity.  Raw f32 (host-fresh) pages are written as they commit."""
-        codec = [(lg, page) for lg, page in got if seq.table[lg][0] == "host"]
-        crcs = self._restore_locked(seq, codec) if codec else None
-        j = 0
-        for i, (lg, page) in enumerate(got):
-            kind, payload = seq.table[lg]
-            if kind == "host":
-                rc = crcs[j]
-                j += 1
-                for li, (hk, hv) in enumerate(payload):
-                    qk, _, ck = self.host.get(li, hk)
-                    qv, _, cv = self.host.get(li, hv)
-                    self.metrics.bump("fused_kernel_passes", 2)
-                    self.metrics.bump("fused_kernel_bytes",
-                                      qk.nbytes + qv.nbytes)
-                    if int(rc[li, 0]) != ck or int(rc[li, 1]) != cv:
-                        self.metrics.bump("transit_crc_errors")
-                        for _, p in reversed(got[i:]):   # no capacity leak
-                            self._free.append(p)
-                        raise IOError(
-                            f"KV transit checksum mismatch: layer {li} page "
-                            f"{lg} of seq {seq.seq_id} tore in transit")
-                for li, (hk, hv) in enumerate(payload):  # verified: commit
-                    if self.read_tier is not None:
-                        self.read_tier.invalidate(("page", li, hk, hv))
-                    self.host.pop(li, hk)
-                    self.host.pop(li, hv)
-            else:                                        # host-fresh (raw f32)
-                for li in range(self.cfg.n_layers):
-                    self.k_pool[li][page] = torch.tensor(
-                        payload["k"][li], device=self.device).to(self.cfg.dtype)
-                    self.v_pool[li][page] = torch.tensor(
-                        payload["v"][li], device=self.device).to(self.cfg.dtype)
-            seq.table[lg] = ("hbm", page)
-            self.metrics.bump("pages_in")
+        with self.trace.span("kvcache.page_in", seq.seq_id,
+                               pages=len(got)):
+            codec = [(lg, page) for lg, page in got
+                     if seq.table[lg][0] == "host"]
+            crcs = self._restore_locked(seq, codec) if codec else None
+            with self.trace.span("kvcache.page_in.verify"):
+                self._commit_locked(seq, got, crcs)
 
-    def deactivate(self, sid: int) -> None:
-        """Sequence paused/finished: eagerly transit its pages out.
+    def _commit_locked(self, seq: Sequence, got: list, crcs) -> None:
+        """``_page_in_locked``'s verify-and-commit loop, in table order;
+        the counters are bumped once, with what the loop met before it
+        returned or raised."""
+        passes = nbytes = committed = j = 0
+        try:
+            for i, (lg, page) in enumerate(got):
+                kind, payload = seq.table[lg]
+                if kind == "host":
+                    rc = crcs[j]
+                    j += 1
+                    for li, (hk, hv) in enumerate(payload):
+                        qk, _, ck = self.host.get(li, hk)
+                        qv, _, cv = self.host.get(li, hv)
+                        passes += 2
+                        nbytes += qk.nbytes + qv.nbytes
+                        if int(rc[li, 0]) != ck or int(rc[li, 1]) != cv:
+                            self.metrics.bump("transit_crc_errors")
+                            for _, p in reversed(got[i:]):  # no capacity leak
+                                self._free.append(p)
+                            raise IOError(
+                                f"KV transit checksum mismatch: layer {li} "
+                                f"page {lg} of seq {seq.seq_id} tore in "
+                                f"transit")
+                    for li, (hk, hv) in enumerate(payload):  # verified
+                        if self.read_tier is not None:
+                            self.read_tier.invalidate(("page", li, hk, hv))
+                        self.host.pop(li, hk)
+                        self.host.pop(li, hv)
+                else:                                    # host-fresh (raw f32)
+                    for li in range(self.cfg.n_layers):
+                        self.k_pool[li][page] = torch.tensor(
+                            payload["k"][li],
+                            device=self.device).to(self.cfg.dtype)
+                        self.v_pool[li][page] = torch.tensor(
+                            payload["v"][li],
+                            device=self.device).to(self.cfg.dtype)
+                seq.table[lg] = ("hbm", page)
+                committed += 1
+        finally:
+            if committed:
+                self.metrics.bump("pages_in", committed)
+            if passes:
+                self.metrics.bump("fused_kernel_passes", passes)
+                self.metrics.bump("fused_kernel_bytes", nbytes)
+
+    def deactivate(self, sid: int) -> int:
+        """Sequence paused/finished: eagerly transit its pages out; returns
+        how many device pages this call paged out itself: 0 with a pool,
+        whose workers page them out later (and skip what ``release`` has
+        dropped by then).
 
         With an eviction pool, one item per device page is submitted to
         the pool's workers (outside ``_tlock``) and the call returns; the
@@ -561,16 +595,17 @@ class PagedKVCache:
             seq = self.seqs[sid]
             seq.active = False
             if not self.cfg.eager_eviction:
-                return
+                return 0
             items = [(seq, li) for li, entry in enumerate(seq.table)
                      if entry[0] == "hbm"]
             if self._evict_pool is None:
                 self._page_out_locked(items)
                 self._maybe_spill_locked()
-                return
+                return len(items)
             self._inflight_evictions += len(items)
         for it in items:
             self._evict_pool.submit(self, it)
+        return 0
 
     # eviction-pool participant hooks (the contract of the volume's caches)
     def _device(self):
@@ -663,7 +698,7 @@ class PagedKVCache:
             self._page_in_locked(seq, got)
 
     def release(self, sid: int) -> None:
-        with self._tlock:
+        with self._tlock, self.trace.span("kvcache.release", sid):
             seq = self.seqs.pop(sid)
             for entry in seq.table:
                 if entry[0] == "hbm":
@@ -766,12 +801,17 @@ class PagedKVCache:
         pg, H, hd = self.cfg.page_size, self.cfg.n_kv_heads, self.cfg.head_dim
         B = len(sids)
         with self._tlock:
-            resident = all(len(self.seqs[sid].table) <= mp
-                           and all(e[0] == "hbm"
-                                   for e in self.seqs[sid].table)
-                           for sid in sids)
+            # the pages the table walks, counted only while tracing
+            walked = (sum(len(self.seqs[sid].table) for sid in sids)
+                      if self.trace.tracing else 0)
+            with self.trace.span("kvcache.table", pages=walked):
+                resident = all(len(self.seqs[sid].table) <= mp
+                               and all(e[0] == "hbm"
+                                       for e in self.seqs[sid].table)
+                               for sid in sids)
+                if resident:
+                    table, lens = self._table_for_locked(sids)
             if resident:
-                table, lens = self._table_for_locked(sids)
                 kp, vp = self.k_pool[layer], self.v_pool[layer]
                 if q.dtype == kp.dtype:
                     return paged_attention(q, kp, vp, table, lens)

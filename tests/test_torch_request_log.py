@@ -24,6 +24,7 @@ from repro.serve.engine import ServeEngine as JaxServeEngine
 from repro.serve.kvcache import PagedCacheConfig as JaxCacheConfig
 from repro.volume.volume import make_volume as jax_make_volume
 from repro_torch.configs import get_config
+from repro_torch.core.metrics import Metrics
 from repro_torch.models.transformer import params_from_jax
 from repro_torch.serve import (AsyncRequestLog, PagedCacheConfig, Request,
                                ServeEngine)
@@ -118,11 +119,13 @@ def test_serve_engine_wires_request_log(volumes):
     eng = ServeEngine.__new__(ServeEngine)         # no model needed here
     eng.request_log = log
     eng.finished = []
+    eng.metrics = Metrics()
     calls = []
 
     class _Cache:
         def deactivate(self, sid):
             calls.append(("deactivate", sid))
+            return 0
 
         def release(self, sid):
             calls.append(("release", sid, log.logged))
