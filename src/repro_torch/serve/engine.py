@@ -1,10 +1,11 @@
 """Serving engine: continuous batching over the paged (BTT-style) KV cache.
 
 The port of ``repro.serve.engine`` for the dense decoder family.  Prefill
-attends over the prompt in the flash-attention kernel.  Per decode layer,
-the new token's K/V are written into the sequence's pages (the block-table
-write, lba -> pba) and attention walks the pages through the table inside
-the paged-attention kernel.  CPU tensors take each kernel's plain version.
+attends over the prompt in the flash-attention kernel.  A decode step
+reserves each sequence's slot for its new token once (the block-table
+write, lba -> pba); per layer, the batch's K/V go into those slots in one
+indexed copy, and attention walks the pages through the step's table
+inside the paged-attention kernel.  CPU tensors take each kernel's plain version.
 
 Scheduling follows the paper's transit discipline:
   * finished / preempted sequences are *eagerly* packed to the host tier
@@ -114,12 +115,28 @@ class PagedLM:
             self.cache.append_tokens(sid, ks, vs)        # bulk write path
             return self._logits(x[:, -1:])[0, 0]
 
+    def _write_tokens(self, li: int, sids: list[int], k, v) -> None:
+        """The per-token path of a step the cache could not plan (a page
+        off the device, or about to be): layer 0 appends each sequence's
+        slot, layers > 0 fill it in place."""
+        none = [None] * (self.cfg.n_layers - 1)
+        for bi, sid in enumerate(sids):
+            if li == 0:
+                self.cache.append_token(sid, [k[bi, 0]] + none,
+                                        [v[bi, 0]] + none)
+            else:
+                self.cache.overwrite_token(sid, li, (k[bi, 0], v[bi, 0]))
+
     @torch.no_grad()
     def decode_step(self, tokens: np.ndarray, sids: list[int],
                     positions: np.ndarray) -> torch.Tensor:
         """One token for each running sequence. tokens: (B,), returns
-        (B, V) f32 logits."""
-        cfg, p, span = self.cfg, self.params, self.trace.span
+        (B, V) f32 logits.  Where every sequence stays on the device, the
+        cache plans the step (``PagedKVCache.plan_step``): one reservation
+        and one table for all layers; otherwise each token goes through
+        ``append_token`` / ``overwrite_token`` and each layer's
+        ``attention`` builds its own table."""
+        p, span = self.params, self.trace.span
         B = len(tokens)
         with span("lm.decode_step", n=B):
             tok = torch.as_tensor(np.asarray(tokens, np.int64),
@@ -127,23 +144,23 @@ class PagedLM:
             pos = torch.as_tensor(np.asarray(positions, np.int64),
                                   device=self.device)[:, None]
             x = p["embed"][tok]                          # (B, 1, D)
-            none = [None] * cfg.n_layers
+            plan = None
             for li, blk in enumerate(p["blocks"]):
                 q, k, v = self._qkv(x, blk, pos)
                 # write THIS layer's kv before attending (token attends to
-                # self): layer 0 appends the slot, layers > 0 fill it in
-                # place
+                # self): layer 0 reserves the step's slots, then every
+                # layer writes the batch's K/V into them in one copy
                 with span("lm.kv_write", n=B):
-                    for bi, sid in enumerate(sids):
-                        if li == 0:
-                            self.cache.append_token(
-                                sid, [k[bi, 0]] + none[1:],
-                                [v[bi, 0]] + none[1:])
-                        else:
-                            self.cache.overwrite_token(
-                                sid, li, (k[bi, 0], v[bi, 0]))
+                    if li == 0:
+                        plan = self.cache.plan_step(sids)
+                    if plan is not None:
+                        self.cache.write_step(plan, li, k, v)
+                    else:
+                        self._write_tokens(li, sids, k, v)
                 with span("lm.attention"):
-                    a = self.cache.attention(li, q[:, 0], sids)
+                    a = (self.cache.attention(li, q[:, 0], sids)
+                         if plan is None else
+                         self.cache.plan_attention(plan, li, q[:, 0]))
                 x = self._finish_block(x, a[:, None], blk)
             return self._logits(x)[:, 0]
 

@@ -123,6 +123,19 @@ class Sequence:
     active: bool = True
 
 
+@dataclass
+class StepPlan:
+    """One decode step (``PagedKVCache.plan_step``): each sequence's pool
+    pages and length once its new token is in, that token's row in a
+    layer's pool seen as P * page_size rows (on the device), and the block
+    table and lengths that the step's first ``plan_attention`` uploads."""
+    pages: list[list[int]]
+    lengths: list[int]
+    slots: torch.Tensor
+    table: torch.Tensor | None = None
+    lens: torch.Tensor | None = None
+
+
 def _host_f32(t) -> np.ndarray:
     return t.detach().float().cpu().numpy()
 
@@ -157,6 +170,9 @@ class PagedKVCache:
                                device=self.device)
         self.k_pool = [self._kv[li, 0] for li in range(L)]
         self.v_pool = [self._kv[li, 1] for li in range(L)]
+        # each layer's K and V pools as (2, P * page, 1, Hkv, hd) token
+        # rows, which a step's (2, B, 1, Hkv, hd) K/V go into by row
+        self._token_rows = self._kv.view(L, 2, P * pg, 1, H, hd).unbind(0)
         self._free: list[int] = list(range(P))          # global free set
         self.host = HostTier()
         # clean read tier over the host tier: caches dequantized pages for
@@ -717,11 +733,31 @@ class PagedKVCache:
                     self.pager.release(entry[1])
 
     # -------------------------------------------------------------- attention
+    def _upload(self, host: np.ndarray) -> torch.Tensor:
+        """``host`` on the cache's device, copied from a pinned buffer
+        without a wait (the caching host allocator keeps the buffer until
+        the copy has run); on the CPU, ``host`` itself."""
+        t = torch.from_numpy(host)
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    def _table_upload(self, pages: list[list[int]], lengths: list[int]):
+        """The dense (B, max_pages) table of these page rows and the (B,)
+        lengths, int32, filled in one buffer and uploaded in one copy."""
+        B, mp = len(pages), self.cfg.max_pages_per_seq
+        host = np.zeros((B * mp + B,), np.int32)
+        table = host[:B * mp].reshape(B, mp)
+        for bi, row in enumerate(pages):
+            table[bi, :len(row)] = row
+        host[B * mp:] = lengths
+        dev = self._upload(host)
+        return dev[:B * mp].view(B, mp), dev[B * mp:]
+
     def _table_for_locked(self, sids: list[int]):
         mp = self.cfg.max_pages_per_seq
-        table = np.zeros((len(sids), mp), np.int32)
-        lens = np.zeros((len(sids),), np.int32)
-        for bi, sid in enumerate(sids):
+        pages = []
+        for sid in sids:
             seq = self.seqs[sid]
             if len(seq.table) > mp:
                 raise ValueError(
@@ -729,13 +765,14 @@ class PagedKVCache:
                     f"max_pages_per_seq={mp}: too long for the dense "
                     f"block table (serve it through the hybrid "
                     f"attention path)")
-            lens[bi] = seq.length
-            for li, entry in enumerate(seq.table):
-                assert entry[0] == "hbm", \
-                    f"page {li} of seq {sid} not resident"
-                table[bi, li] = entry[1]
-        return (torch.from_numpy(table).to(self.device),
-                torch.from_numpy(lens).to(self.device))
+            row = [page for kind, page in seq.table if kind == "hbm"]
+            if len(row) != len(seq.table):
+                li = next(li for li, e in enumerate(seq.table)
+                          if e[0] != "hbm")
+                raise AssertionError(f"page {li} of seq {sid} not resident")
+            pages.append(row)
+        return self._table_upload(pages,
+                                  [self.seqs[sid].length for sid in sids])
 
     def table_for(self, sids: list[int]):
         """Dense (B, max_pages) physical table + (B,) lengths, int32 on the
@@ -786,6 +823,17 @@ class PagedKVCache:
         return (entry[1]["k"][layer].astype(np.float32),
                 entry[1]["v"][layer].astype(np.float32))   # host-fresh
 
+    def _paged_locked(self, layer: int, q, table, lens):
+        """The block-table kernel over one layer's pools."""
+        kp, vp = self.k_pool[layer], self.v_pool[layer]
+        if q.dtype == kp.dtype:
+            return paged_attention(q, kp, vp, table, lens)
+        # a model whose dtype is not the pools' (an f32 model over the
+        # default bf16 pools): f32 arithmetic over the widened pools, as
+        # the reference's attention does
+        return paged_attention(q.float(), kp.float(), vp.float(), table,
+                               lens).to(q.dtype)
+
     def attention(self, layer: int, q, sids: list[int]):
         """q: (B, H, hd) one decode step for the given sequences.
 
@@ -812,14 +860,7 @@ class PagedKVCache:
                 if resident:
                     table, lens = self._table_for_locked(sids)
             if resident:
-                kp, vp = self.k_pool[layer], self.v_pool[layer]
-                if q.dtype == kp.dtype:
-                    return paged_attention(q, kp, vp, table, lens)
-                # a model whose dtype is not the pools' (an f32 model over
-                # the default bf16 pools): f32 arithmetic over the widened
-                # pools, as the reference's attention does
-                return paged_attention(q.float(), kp.float(), vp.float(),
-                                       table, lens).to(q.dtype)
+                return self._paged_locked(layer, q, table, lens)
             self.metrics.bump("hybrid_attention")
             n_pg = max(len(self.seqs[s].table) for s in sids)
             k = np.zeros((B, n_pg, pg, H, hd), np.float32)
@@ -837,6 +878,62 @@ class PagedKVCache:
         vview = torch.from_numpy(v.reshape(B * n_pg, pg, H, hd)).to(dev)
         return paged_attention(q.float(), kview, vview, table,
                                torch.from_numpy(lens).to(dev)).to(q.dtype)
+
+    # ------------------------------------------------------ decode-step plan
+    def plan_step(self, sids: list[int]) -> StepPlan | None:
+        """Reserve one slot for each sequence of a decode step, in ``sids``
+        order and under one lock, so that the pages come off the free list
+        as B ``append_token`` calls would take them; the slots go to the
+        device in one upload.  Returns None, and reserves nothing, where a
+        sequence is not wholly on the device, or its next page would not
+        be (a bypass, an eviction, a table past ``max_pages_per_seq``):
+        that step takes the per-token path.  Bumps ``decode_plan_steps``
+        or ``decode_token_path_steps``.  The plan holds for every layer of
+        the step: an eviction pool's workers page out only inactive
+        sequences, and nothing else changes a running sequence's table
+        between its layers."""
+        pg, mp = self.cfg.page_size, self.cfg.max_pages_per_seq
+        with self._tlock:
+            seqs = [self.seqs[sid] for sid in sids]
+            pages = [[page for kind, page in seq.table if kind == "hbm"]
+                     for seq in seqs]
+            fresh = [seq.length % pg == 0 for seq in seqs]
+            if sum(fresh) > len(self._free) or any(
+                    len(row) != len(seq.table) or len(row) + new > mp
+                    for seq, row, new in zip(seqs, pages, fresh)):
+                self.metrics.bump("decode_token_path_steps")
+                return None
+            slots = np.empty((len(seqs),), np.int64)
+            for bi, (seq, row) in enumerate(zip(seqs, pages)):
+                (_, page), off = self._reserve_slot_locked(seq)
+                if off == 0:
+                    row.append(page)
+                slots[bi] = page * pg + off
+            self.metrics.bump("decode_plan_steps")
+            return StepPlan(pages, [seq.length for seq in seqs],
+                            self._upload(slots))
+
+    def write_step(self, plan: StepPlan, layer: int, k, v) -> None:
+        """One layer's K and V of a planned step, (B, 1, Hkv, hd) each as
+        the model projects them, into the step's slots: one indexed copy
+        of both, cast to the pools' dtype, under one lock."""
+        kv = torch.stack((k, v))
+        if kv.dtype != self.cfg.dtype:
+            kv = kv.to(self.cfg.dtype)
+        with self._tlock:
+            self._token_rows[layer].index_copy_(1, plan.slots, kv)
+
+    def plan_attention(self, plan: StepPlan, layer: int, q):
+        """``attention`` for a planned step, whose sequences are all on the
+        device: the step's first call uploads the block table and lengths
+        once, and every later layer reads them."""
+        with self._tlock:
+            if plan.table is None:
+                with self.trace.span("kvcache.table",
+                                     pages=sum(map(len, plan.pages))):
+                    plan.table, plan.lens = self._table_upload(
+                        plan.pages, plan.lengths)
+            return self._paged_locked(layer, q, plan.table, plan.lens)
 
     # ---------------------------------------------------------------- stats
     def occupancy(self) -> float:

@@ -655,6 +655,49 @@ def test_engine_over_a_pool_equal_on_cuda_and_cpu(card):
     assert got["cuda"][1]["suspends"] > 0 and got["cuda"][1]["pages_in"] > 0
 
 
+def test_planned_steps_on_the_card_equal_token_writes(card):
+    """The decode-step plan on the card (slots, table and lengths uploaded
+    from pinned buffers without a wait, one indexed copy a layer) leaves
+    the bf16 pools bit for bit and the free list as the per-token writes
+    leave them, and attends alike, at phi3-mini's KV width, over steps
+    that open pages."""
+    from repro_torch.serve import PagedCacheConfig, PagedKVCache
+    L, H, hd = 4, 32, 96
+    cc = PagedCacheConfig(n_layers=L, n_kv_heads=H, head_dim=hd,
+                          page_size=16, n_pages=64, max_pages_per_seq=8)
+    planned, tokens = caches = [PagedKVCache(cc, device=card)
+                                for _ in range(2)]
+    g = torch.Generator(device=card).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, device=card, generator=g).to(cc.dtype)
+    batch = []
+    for n in (15, 16, 1, 40, 7):
+        k, v = randn(L, n, H, hd), randn(L, n, H, hd)
+        sids = {c.new_sequence() for c in caches}
+        for c in caches:
+            c.append_tokens(*sids, list(k), list(v))
+        batch.append(sids.pop())
+    B, none = len(batch), [None] * (L - 1)
+    for _ in range(20):
+        plan = planned.plan_step(batch)
+        assert plan is not None
+        for li in range(L):
+            k, v, q = randn(B, H, hd), randn(B, H, hd), randn(B, H, hd)
+            planned.write_step(plan, li, k[:, None], v[:, None])
+            for bi, sid in enumerate(batch):
+                if li == 0:
+                    tokens.append_token(sid, [k[bi]] + none, [v[bi]] + none)
+                else:
+                    tokens.overwrite_token(sid, li, (k[bi], v[bi]))
+            assert torch.equal(planned.plan_attention(plan, li, q),
+                               tokens.attention(li, q, batch))
+    assert torch.equal(planned._kv.view(torch.uint8),
+                       tokens._kv.view(torch.uint8))
+    assert planned._free == tokens._free
+    assert planned.metrics.count["decode_plan_steps"] == 20
+
+
 # --------------------------------------------------- the model API's shapes
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,S,H,Hkv,hd", [

@@ -161,6 +161,36 @@ def test_conditional_bypass_under_pool_pressure(models):
     assert eng.metrics.count.get("hybrid_attention", 0) > 0
 
 
+def test_a_step_whose_next_page_bypasses_takes_the_token_path(models):
+    """An 11-token prompt fills a pool of 3 pages of 4.  The first decode
+    step writes the last slot through the step plan; the second needs a
+    fourth page, which bypasses to the host tier, so the cache declines
+    the plan and the step takes the per-token path, as do the next two
+    over the host-fresh page.  The tokens equal the dense reference's."""
+    cj, model, params, _, _ = models["f32"]
+    prompt = np.random.default_rng(3).integers(2, cj.vocab, size=(11,))
+    logits, cache = model.prefill(
+        params, {"tokens": jnp.asarray(prompt, jnp.int32)[None]}, s_max=16)
+    ref = [int(jnp.argmax(logits[0]))]
+    for pos in range(11, 15):
+        logits, cache = model.decode_step(
+            params, cache, jnp.asarray([ref[-1]], jnp.int32),
+            jnp.asarray([pos], jnp.int32))
+        ref.append(int(jnp.argmax(logits[0])))
+    eng = _engine(models, pool_pages=3, page_size=4)
+    req = eng.submit(prompt.tolist(), max_new_tokens=5)
+    count = eng.metrics.count
+    seen = []
+    while eng.queue or eng.running:
+        eng.step()
+        seen.append((count.get("decode_plan_steps", 0),
+                     count.get("decode_token_path_steps", 0),
+                     count.get("bypass_pages", 0)))
+    assert seen == [(1, 0, 0), (1, 1, 1), (1, 2, 1), (1, 3, 1)]
+    assert count["hybrid_attention"] > 0
+    assert req.out_tokens == ref, (req.out_tokens, ref)
+
+
 def test_transit_pageout_pagein_roundtrip(models):
     """deactivate (int8 page-out) then activate (page-in): decode still
     produces the tokens of an uninterrupted run."""

@@ -24,6 +24,7 @@ from repro.serve.kvcache import PagedKVCache as JaxKVCache
 from repro_torch.core.metrics import Metrics
 from repro_torch.kernels import ref as tref
 from repro_torch.serve import PagedCacheConfig, PagedKVCache
+from repro_torch.volume.evict_pool import SharedEvictionPool
 
 SHAPE = dict(n_layers=2, n_kv_heads=2, head_dim=8, page_size=4)
 
@@ -269,6 +270,113 @@ def test_prefill_bulk_write_equals_token_appends():
     for li in range(L):
         assert torch.equal(a.k_pool[li], b.k_pool[li])
         assert torch.equal(a.v_pool[li], b.v_pool[li])
+
+
+# ----------------------------------------------------- the decode-step plan
+def _same_state(a, b, batch) -> None:
+    """Bit-identical pools, and equal tables, lengths and free lists."""
+    assert torch.equal(a._kv.view(torch.uint8), b._kv.view(torch.uint8))
+    assert a._free == b._free
+    assert {sid: (s.length, s.table) for sid, s in a.seqs.items()} == \
+        {sid: (s.length, s.table) for sid, s in b.seqs.items()}
+    for x, y in zip(a.table_for(batch), b.table_for(batch)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("pooled", [False, True], ids=["no-pool", "evict-pool"])
+def test_planned_steps_leave_the_cache_as_token_writes_do(pooled):
+    """Decode steps through ``plan_step``, ``write_step`` and
+    ``plan_attention`` leave the bf16 pools bit for bit, the tables, the
+    lengths and the free list as ``append_token`` / ``overwrite_token``
+    leave them, and attend as ``attention`` does: steps that open pages,
+    a sequence joining mid-way, another paged out between steps (through
+    an eviction pool's worker in the pooled case)."""
+    rng = np.random.default_rng(8)
+    L, H, hd = SHAPE["n_layers"], SHAPE["n_kv_heads"], SHAPE["head_dim"]
+    pool = SharedEvictionPool(1, name="plan", batch_max=8) if pooled \
+        else None
+    try:
+        caches = [PagedKVCache(PagedCacheConfig(
+            **SHAPE, n_pages=16, max_pages_per_seq=8, dtype=torch.bfloat16),
+            metrics=Metrics(), evict_pool=pool, device="cpu")
+            for _ in range(2)]
+        planned, tokens = caches
+
+        def prefill(n):
+            ks, vs = ([torch.tensor(rng.standard_normal((n, H, hd)),
+                                    dtype=torch.float32) for _ in range(L)]
+                      for _ in "kv")
+            sids = {c.new_sequence() for c in caches}
+            for c in caches:
+                c.append_tokens(*sids, ks, vs)
+            return sids.pop()
+        batch = [prefill(n) for n in (7, 4, 1)]    # 4: its first step opens
+        idle = prefill(9)                          # a page
+        for step in range(6):
+            if step == 2:                          # its pages come back
+                for c in caches:
+                    c.deactivate(idle)
+                    if pooled:
+                        c.drain_evictions()
+            if step == 3:
+                batch.append(prefill(3))
+            B = len(batch)
+            plan = planned.plan_step(batch)
+            assert plan is not None
+            for li in range(L):
+                k, v, q = (torch.tensor(rng.standard_normal((B, H, hd)),
+                                        dtype=torch.float32)
+                           for _ in "kvq")
+                planned.write_step(plan, li, k[:, None], v[:, None])
+                for bi, sid in enumerate(batch):
+                    if li == 0:
+                        none = [None] * (L - 1)
+                        tokens.append_token(sid, [k[bi]] + none,
+                                            [v[bi]] + none)
+                    else:
+                        tokens.overwrite_token(sid, li, (k[bi], v[bi]))
+                assert torch.equal(planned.plan_attention(plan, li, q),
+                                   tokens.attention(li, q, batch))
+            _same_state(planned, tokens, batch)
+        assert planned.metrics.count["decode_plan_steps"] == 6
+        assert "decode_token_path_steps" not in planned.metrics.count
+        assert planned.seqs[idle].table[0][0] == "host"
+    finally:
+        if pool is not None:
+            pool.close()
+
+
+def test_a_step_that_would_leave_the_device_is_not_planned():
+    """``plan_step`` declines, and reserves nothing, where a sequence's
+    next page would be past ``max_pages_per_seq`` or find no free pool
+    page, or a sequence holds a page off the device; a step that fits is
+    planned, its slots taken as ``append_token`` takes them."""
+    rng = np.random.default_rng(9)
+    c = _cache(n_pages=4, max_pages_per_seq=2)
+    count = c.metrics.count
+
+    def declines(sids):
+        before = (list(c._free), [c.seqs[s].length for s in sids])
+        assert c.plan_step(sids) is None
+        assert (c._free, [c.seqs[s].length for s in sids]) == before
+    a = c.new_sequence()
+    _fill(c, a, 8, rng)                            # 2 pages: at the bound
+    declines([a])
+    b, d = c.new_sequence(), c.new_sequence()
+    _fill(c, b, 4, rng)
+    _fill(c, d, 4, rng)                            # the pool is full
+    declines([b])
+    e = c.new_sequence()
+    _fill(c, e, 1, rng)                            # bypassed: host-fresh
+    assert c.seqs[e].table[0][0] == "host-fresh"
+    c.release(a)
+    declines([b, e])
+    assert count["decode_token_path_steps"] == 3
+    free = list(c._free)
+    plan = c.plan_step([b, d])
+    assert plan.slots.tolist() == [free[-1] * 4, free[-2] * 4]
+    assert [c.seqs[s].length for s in (b, d)] == [5, 5]
+    assert count["decode_plan_steps"] == 1
 
 
 # ------------------------------------------ batched transit vs reference loop

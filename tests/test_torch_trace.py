@@ -7,6 +7,7 @@ writes and the pages its table builds walked, and ``retire_pages_out``
 counts the pages retire paged out (none it only queued to a pool)."""
 import sys
 import threading
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -121,13 +122,16 @@ def test_one_tick_is_a_tree(model):
         assert len(got) == L and {s.parent for s in got} == {idx}
     writes = by_name(spans, "lm.kv_write")
     assert all(s.counts == {"n": 2} for s in writes)
-    tables = by_name(spans, "kvcache.table")
-    assert [parent(s) for s in tables] == ["lm.attention"] * L
+    # the step is planned: one table, built in the first layer's attention
+    count = eng.metrics.count
+    assert count["decode_plan_steps"] == 1
+    assert count.get("decode_token_path_steps", 0) == 0
+    (table,) = by_name(spans, "kvcache.table")
+    assert table.parent == spans.index(by_name(spans, "lm.attention")[0])
     # 9 + 1 and 14 + 1 tokens: 3 and 4 pages of 4
-    assert [s.counts["pages"] for s in tables] == [7] * L
-    for t in tables:                          # nested in time as well
-        p = spans[t.parent]
-        assert p.t0 <= t.t0 <= t.t1 <= p.t1
+    assert table.counts["pages"] == 7
+    p = spans[table.parent]                   # nested in time as well
+    assert p.t0 <= table.t0 <= table.t1 <= p.t1
 
 
 def test_a_requests_spans_carry_its_sid(model):
@@ -275,8 +279,8 @@ def test_a_span_is_a_profiler_annotation_while_on():
 def test_the_counters_count_what_the_steps_did(model):
     """Two requests decoded together to the end, no swap: the token-write
     spans count B x L writes a step, the table spans walk every page of
-    every running sequence at every layer, and retire pages out every
-    page."""
+    every running sequence once a step (the step is planned), and retire
+    pages out every page."""
     L = model[0].n_layers
     eng = engine(model)
     eng.trace.start()
@@ -291,7 +295,8 @@ def test_the_counters_count_what_the_steps_did(model):
         steps * len(lens) * L
     pages = [-(-(n + k) // PAGE) for k in range(1, steps + 1) for n in lens]
     assert sum(s.counts["pages"] for s in by_name(spans, "kvcache.table")) \
-        == L * sum(pages)
+        == sum(pages)
+    assert c["decode_plan_steps"] == steps
     assert c["retire_pages_out"] == c["pages_out"] == \
         sum(-(-(n + steps) // PAGE) for n in lens)
     # none of the spans' counts is a counter of its own
@@ -353,3 +358,25 @@ def test_a_page_in_counts_the_codec_once(model, monkeypatch):
     assert got[0][1] == 2 * L * pages
     assert got[1][1] == 2 * L * pages * PAGE * model[0].n_kv_heads \
         * model[0].hd
+
+
+def test_the_plan_script_counts_the_windows_steps(tmp_path, monkeypatch):
+    """``scripts/decode_plan_spans.py`` on the benchmark's tiny test cell,
+    on the CPU: every decode step of the window took the plan, as the
+    counters and the split agree."""
+    import importlib.util
+    from perfbench.harness import spec
+    from perfbench.tests import tiny
+    tiny.shorten(monkeypatch)
+    root = Path(__file__).resolve().parents[1]
+    loader = importlib.util.spec_from_file_location(
+        "decode_plan_spans", root / "scripts" / "decode_plan_spans.py")
+    script = importlib.util.module_from_spec(loader)
+    loader.loader.exec_module(script)
+    cell = spec.load_cell(tiny.CELL, tiny.make_root(tmp_path))
+    out = script.traced(cell, 2**31 + 99, 1.2, device="cpu", torch=torch)
+    steps = out["split"]["decode_steps"]
+    assert steps > 0 and out["window_plan_steps"] == steps
+    assert out["window_token_path_steps"] == 0
+    assert out["run_counters"]["decode_plan_steps"] > steps
+    assert out["run_counters"]["decode_token_path_steps"] == 0
